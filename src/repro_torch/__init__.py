@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of the pAirZero reproduction (the JAX package `repro`
+stays the reference it is held against).
+
+Subpackages mirror `repro`'s (configs, data, channel, core, models,
+kernels, launch). This package imports torch and numpy only — never jax and
+nothing of `repro`. Entry points (`core.fedsim.run`, `launch.train`) run on
+the GPU unless the caller passes `device="cpu"`.
+"""
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on.
+
+    "cuda" (the entry points' default) raises when no GPU is present: a run
+    asked for the card never quietly continues on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (want 'cuda' or 'cpu')")
+    return dev

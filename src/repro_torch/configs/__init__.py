@@ -1,0 +1,18 @@
+"""Configs and the architecture registry (dense only in this port)."""
+from repro_torch.configs import opt_125m
+from repro_torch.configs.base import ModelConfig
+
+_ARCHS = {"opt-125m": opt_125m.build}
+
+
+def list_archs() -> list:
+    return sorted(_ARCHS)
+
+
+def get_arch(arch_id: str) -> ModelConfig:
+    try:
+        return _ARCHS[arch_id]()
+    except KeyError:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported (ROADMAP A8: other families); "
+            f"available: {list_archs()}") from None

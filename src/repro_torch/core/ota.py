@@ -1,0 +1,48 @@
+"""Over-the-air computation (paper Sec. III-B, IV-B), ported from
+`repro.core.ota`.
+
+The receiver observes y = c Σ_k w_k (p_k + n_k) + z (Eq. 4) and inverts
+p̂ = y / (K_eff c) (Eq. 5). The noise is data: `noise` holds K+1 standard
+normals for the round — the K artificial-noise draws, then the receiver
+noise — made by the control trace (`core.engine.build_trace`).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def superpose(p: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
+              n0: torch.Tensor, noise: torch.Tensor,
+              mask: Optional[torch.Tensor] = None,
+              g: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw RF observation y (Eq. 4) and the surviving client count.
+
+    `noise` is [K+1] standard normals: n_k = σ_k·noise[:K], z = √N0·noise[K].
+    `g` is the per-client cos θ CSI factor (None = perfect CSI)."""
+    k_clients = p.shape[0]
+    if mask is None:
+        mask = torch.ones(k_clients, dtype=p.dtype, device=p.device)
+    mask = mask.to(p.dtype)
+    n_k = sigma.to(p.dtype) * noise[:k_clients]
+    z = torch.sqrt(n0).to(p.dtype) * noise[k_clients]
+    w = mask if g is None else mask * g.to(p.dtype)
+    y = c * torch.sum(w * (p + n_k)) + z
+    k_eff = torch.clamp_min(torch.sum(mask), 1.0)
+    return y, k_eff
+
+
+def analog_ota(p: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
+               n0: torch.Tensor, noise: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               g: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Analog pAirZero uplink (Eqs. 8–9) + channel inversion (Eq. 5).
+
+    c == 0 is a silent round: nobody transmits and p̂ = 0."""
+    y, k_eff = superpose(p, c, sigma, n0, noise, mask, g)
+    safe_c = torch.where(c > 0, c, torch.ones_like(c))
+    p_hat = torch.where(c > 0, y / (k_eff * safe_c), torch.zeros_like(y))
+    return p_hat, k_eff

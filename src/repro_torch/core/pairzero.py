@@ -1,0 +1,96 @@
+"""The pAirZero round (Algorithm 1), ported from `repro.core.pairzero`.
+
+One round: for each of n_perturb directions, every client evaluates its
+clipped projection p_k from the shared seed (the chained dual forward), the
+Transport recovers p̂ from the [K] payload vector, and w ← w − η p̂ z is
+applied from the same seed. Round-varying control (c, σ, N0, mask, CSI
+factors, the broadcast seed and the round's noise normals) is data. Mesh,
+adversary, Byzantine behaviors/defenses and desync are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, PairZeroConfig
+from repro_torch.core import transport as tp
+from repro_torch.core import zo
+from repro_torch.models import registry
+
+Params = Dict
+
+
+def make_loss_fn(model_cfg: ModelConfig) -> Callable[[Params, Dict],
+                                                      torch.Tensor]:
+    """Per-client loss vector [K] for this architecture."""
+    mod = registry.get_module(model_cfg)
+
+    def loss_fn(params: Params, batch: Dict) -> torch.Tensor:
+        return mod.loss_per_client(params, model_cfg, batch)
+
+    return loss_fn
+
+
+def make_control(t: int, schedule, base_seed: int, n_clients: int,
+                 n_perturb: int, device) -> Dict:
+    """Round-t control block: the broadcast seed (a host int) plus device
+    tensors c, sigma [K], n0, mask [K], g [K] and noise [n_perturb, K+1]
+    (one row of standard normals per perturbation direction)."""
+    from repro_torch.core.engine import noise_rows
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "seed": zo.round_seed(base_seed, t),
+        "c": torch.tensor(np.float32(schedule.c[t]), **f32),
+        "sigma": torch.tensor(np.asarray(schedule.sigma[t], np.float32),
+                              **f32),
+        "n0": torch.tensor(np.float32(schedule.n0), **f32),
+        "mask": torch.ones(n_clients, **f32),
+        "g": torch.ones(n_clients, **f32),
+        "noise": torch.from_numpy(
+            noise_rows(base_seed, t, t + 1, n_perturb, n_clients)[0]
+        ).to(device),
+    }
+
+
+def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
+                 transport: Optional[tp.Transport] = None) -> Callable:
+    """step(params, batch, ctl) → (params, metrics) for one round.
+
+    `params` is updated in place (the chained walk) and returned."""
+    loss_fn = make_loss_fn(model_cfg)
+    transport = transport if transport is not None else tp.resolve(pz)
+    if pz.fused_perturbation:
+        raise NotImplementedError(
+            "fused_perturbation is not ported (ROADMAP A3: fused dual "
+            "forward with perturbed_matmul, B3)")
+    mu, lr, gamma = pz.zo.mu, pz.zo.lr, pz.zo.clip_gamma
+    n_perturb = pz.zo.n_perturb
+    mode = "chained" if pz.zo.dual_mode in ("chained", "sequential") \
+        else "fresh"
+
+    def round_body(params: Params, batch: Dict, ctl: Dict
+                   ) -> Tuple[Params, Dict[str, torch.Tensor]]:
+        metrics = {}
+        p_hat_sum = 0.0
+        loss_acc = 0.0
+        for j in range(n_perturb):
+            seed = zo.perturb_seed(int(ctl["seed"]), j)
+            lp, lm, params_at = zo.dual_forward(
+                lambda p: loss_fn(p, batch), params, seed, mu, mode=mode)
+            p_k = zo.projection(lp, lm, mu, gamma)                 # [K]
+            p_hat = transport.aggregate(p_k, {**ctl, "noise": ctl["noise"][j]})
+            # restore + update fused into one axpy (chained mode)
+            params = zo.apply_update(params_at, seed, p_hat,
+                                     lr / n_perturb, mu, mode=mode)
+            p_hat_sum = p_hat_sum + p_hat
+            loss_acc = loss_acc + torch.mean(0.5 * (lp + lm))
+            if j == 0:
+                metrics["p_clients"] = p_k
+        metrics["loss"] = loss_acc / n_perturb
+        metrics["p_hat"] = p_hat_sum / n_perturb
+        metrics["k_eff"] = torch.sum(ctl["mask"])
+        return params, metrics
+
+    return round_body

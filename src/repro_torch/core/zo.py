@@ -1,0 +1,133 @@
+"""Zeroth-order (SPSA / MeZO) seeded gradient estimation (paper Sec. IV-A),
+ported from `repro.core.zo`.
+
+A client needs only p_k = (F_k(w + μz) − F_k(w − μz)) / (2μ) (Eq. 7), and the
+update is w ← w − η p̂ z (Algorithm 1, line 14). z is regenerated on demand
+from the broadcast seed, leaf by leaf: leaf i of the parameter tree (in the
+reference's sorted-key flattening, `flatten`) draws the counter-hash
+stream seeded by `leaf_seed(seed, i)`. Seeds are host integers; the kernels
+take them as launch arguments.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.seeded_axpy import GOLDEN, MASK32, fmix32
+
+Params = Dict
+
+
+def flatten(params: Params, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in JAX's dict flattening order (sorted keys, depth
+    first) — the leaf index i that `leaf_seed` keys each stream by."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.extend(flatten(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+def leaf_seed(seed: int, leaf_idx: int) -> int:
+    """Independent per-leaf stream seed: fmix32(seed · φ + leaf_idx)."""
+    return fmix32(((int(seed) & MASK32) * GOLDEN + leaf_idx) & MASK32)
+
+
+def round_seed(base_seed: int, t: int) -> int:
+    """The seed the server broadcasts for round t."""
+    return fmix32((int(base_seed) & MASK32)
+                  ^ (((int(t) & MASK32) * 0x85EBCA6B) & MASK32))
+
+
+def perturb_seed(round_seed_t: int, j: int) -> int:
+    """Seed of perturbation direction j within a round."""
+    return fmix32((int(round_seed_t) + ((GOLDEN * (j + 1)) & MASK32))
+                  & MASK32)
+
+
+@functools.lru_cache(maxsize=64)
+def _const(value: float, device: torch.device) -> torch.Tensor:
+    # device-resident f32 scalars for the fixed scales (±μ, −2μ), made once
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _scale(scale, device: torch.device) -> torch.Tensor:
+    if isinstance(scale, torch.Tensor):
+        return scale.to(device=device, dtype=torch.float32)
+    return _const(float(scale), device)
+
+
+def _map_leaves(fn, node: Params, counter) -> Params:
+    """{k: fn(i, leaf)} over the tree, i counting leaves in `flatten` order."""
+    return {k: _map_leaves(fn, node[k], counter) if isinstance(node[k], dict)
+            else fn(next(counter), node[k]) for k in sorted(node)}
+
+
+def perturb(params: Params, seed: int, scale, *,
+            inplace: bool = False) -> Params:
+    """params + scale · z(seed), z regenerated leaf by leaf.
+
+    `scale` is a float or a 0-d f32 tensor (e.g. μ − η·p̂ on the device).
+    `inplace=True` overwrites the leaves (the chained walk); otherwise a new
+    tree is returned and `params` is untouched.
+    """
+    def axpy(i: int, leaf: torch.Tensor) -> torch.Tensor:
+        return kops.seeded_axpy(leaf, leaf_seed(seed, i),
+                                _scale(scale, leaf.device),
+                                out=leaf if inplace else None)
+    new = _map_leaves(axpy, params, itertools.count())
+    return params if inplace else new
+
+
+def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
+                 seed: int, mu: float, mode: str = "chained"
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """(loss(w+μz), loss(w−μz), params positioned for the update).
+
+    chained: the leaves are updated IN PLACE along the reference's exact
+    axpy sequence w → w+μz → w−μz (the caller's update then walks to
+    w+(μ−η·p̂)·z with a third axpy), so rounding matches `repro`'s chained
+    mode step for step and the peak footprint is one θ. Returns w−μz.
+    fresh: each perturbed copy is computed from w (2θ peak); returns w.
+    """
+    if mode == "chained":
+        perturb(params, seed, mu, inplace=True)            # w + μz
+        loss_plus = loss_fn(params)
+        perturb(params, seed, -2.0 * mu, inplace=True)     # w − μz
+        loss_minus = loss_fn(params)
+        return loss_plus, loss_minus, params
+    if mode == "fresh":
+        loss_plus = loss_fn(perturb(params, seed, mu))
+        loss_minus = loss_fn(perturb(params, seed, -mu))
+        return loss_plus, loss_minus, params
+    if mode == "fused":
+        raise NotImplementedError(
+            "the fused dual forward is not ported (ROADMAP A3: fused dual "
+            "forward with perturbed_matmul, B3)")
+    raise ValueError(f"unknown dual mode: {mode}")
+
+
+def projection(loss_plus: torch.Tensor, loss_minus: torch.Tensor, mu: float,
+               clip_gamma: float) -> torch.Tensor:
+    """p = (L+ − L−)/(2μ), clipped to ±γ (Assumption 3)."""
+    p = (loss_plus - loss_minus) / (2.0 * mu)
+    return torch.clamp(p, -clip_gamma, clip_gamma)
+
+
+def apply_update(params_at: Params, seed: int, p_hat: torch.Tensor,
+                 lr: float, mu: float, mode: str = "chained") -> Params:
+    """w ← w − η p̂ z, in place. chained: params_at = w−μz, so one axpy of
+    (μ − η p̂)·z restores and updates at once; fresh: axpy of (−η p̂)·z."""
+    if mode == "chained":
+        return perturb(params_at, seed, mu - lr * p_hat, inplace=True)
+    if mode == "fresh":
+        return perturb(params_at, seed, -lr * p_hat, inplace=True)
+    raise ValueError(f"unknown dual mode: {mode}")

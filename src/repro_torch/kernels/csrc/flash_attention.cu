@@ -1,0 +1,150 @@
+// Flash attention forward for Hopper (sm_90a), f32.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py:
+// flash_attention_pallas (body _flash_kernel): online-softmax attention
+// with causal masking, an optional local window, GQA (kv head h / group)
+// and q rows that are the last Sq of the Skv positions (sq_offset =
+// Skv - Sq). Key tiles that no query row of the block can see are skipped.
+//
+// Bound on the H100: at the main path's shape ([40,12,64,64], causal) the
+// kernel moves 31.5 MB (q, k, v read once, out written once) and does
+// about 0.26 GFLOP of useful work, so it is bound by bytes (~9.4 us at
+// 3.35 TB/s); the f32 operations need ~4 us at 67 TFLOP/s.
+//
+// Design: one block per (batch*head, tile of BQ query rows), one thread
+// per query row. The row's scaled q vector and its output accumulator stay
+// in registers; key/value tiles of BK rows are staged in shared memory,
+// where every thread of a warp reads the same address (a broadcast). Per
+// tile the thread computes its BK scores, then updates the running max m,
+// normalizer l and accumulator with the rescale alpha = exp(m - m_new),
+// exactly the TPU kernel's per-tile update. Plain f32 FMA, no TF32 and no
+// tensor cores: this is the first, simple version (wgmma/TMA later).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;   // query rows (threads) per block
+constexpr int kBK = 32;   // key rows per shared-memory tile
+
+template <int D>
+__global__ void __launch_bounds__(kBQ)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int hq,
+                 int hkv, int sq, int skv, float scale, int causal,
+                 int window) {
+  __shared__ float ks[kBK][D];
+  __shared__ float vs[kBK][D];
+
+  const int bh = blockIdx.x;                 // b * hq + h
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int kvh = b * hkv + h / (hq / hkv);
+  const int sq_offset = skv - sq;
+  const int row = blockIdx.y * kBQ + threadIdx.x;
+  const bool active = row < sq;
+  const int q_pos = sq_offset + row;
+
+  float qr[D];
+  float acc[D];
+  const float* qp = q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qr[d] = active ? __fmul_rn(qp[d], scale) : 0.0f;
+    acc[d] = 0.0f;
+  }
+  float m = -INFINITY;
+  float l = 0.0f;
+
+  // key range any row of this block can see
+  const int q_first = sq_offset + blockIdx.y * kBQ;
+  const int q_last = sq_offset + min(static_cast<int>(blockIdx.y) * kBQ + kBQ, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const float* kb = k + static_cast<int64_t>(kvh) * skv * D;
+  const float* vb = v + static_cast<int64_t>(kvh) * skv * D;
+
+  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
+    __syncthreads();                         // previous tile fully consumed
+    for (int e = threadIdx.x; e < kBK * D; e += kBQ) {
+      const int j = e / D;
+      const int d = e - j * D;
+      const bool ok = k0 + j < skv;
+      ks[j][d] = ok ? kb[static_cast<int64_t>(k0 + j) * D + d] : 0.0f;
+      vs[j][d] = ok ? vb[static_cast<int64_t>(k0 + j) * D + d] : 0.0f;
+    }
+    __syncthreads();
+
+    float s[kBK];
+    float m_tile = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      const int kp = k0 + j;
+      bool visible = active && kp < skv;
+      if (causal) visible = visible && kp <= q_pos;
+      if (window > 0) visible = visible && kp > q_pos - window;
+      float dot = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
+      s[j] = visible ? dot : -INFINITY;
+      m_tile = fmaxf(m_tile, s[j]);
+    }
+    const float m_new = fmaxf(m, m_tile);
+    if (m_new == -INFINITY) continue;        // this row sees no key yet
+    const float alpha = expf(m - m_new);     // exp(-inf) = 0 on the first hit
+    float p_sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+      s[j] = s[j] == -INFINITY ? 0.0f : expf(s[j] - m_new);
+      p_sum += s[j];
+    }
+    l = alpha * l + p_sum;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kBK; ++j) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(s[j], vs[j][d], acc[d]);
+    }
+    m = m_new;
+  }
+
+  if (active) {
+    const float denom = fmaxf(l, 1e-30f);
+    float* op = o + (static_cast<int64_t>(bh) * sq + row) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) op[d] = acc[d] / denom;
+  }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o, int b,
+           int hq, int hkv, int sq, int skv, float scale, int causal,
+           int window, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>(b * hq),
+                  static_cast<unsigned int>((sq + kBQ - 1) / kBQ));
+  flash_fwd_kernel<D><<<grid, kBQ, 0, stream>>>(q, k, v, o, hq, hkv, sq, skv,
+                                                 scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q [b, hq, sq, d], k/v [b, hkv, skv, d], o [b, hq, sq, d]; all contiguous
+// f32. window <= 0 means no local window. Returns a cudaError_t.
+extern "C" int flash_attention_f32(const float* q, const float* k,
+                                   const float* v, float* o, int b, int hq,
+                                   int hkv, int sq, int skv, int d,
+                                   float scale, int causal, int window,
+                                   void* stream) {
+  if (b <= 0 || sq <= 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0 || sq > skv) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch<16>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,135 @@
+"""The ported slice end to end: `repro_torch.core.fedsim.run` against
+`repro.core.fedsim.run(engine="loop")`, plus the port's boundaries (no
+jax/repro imports, GPU by default, unported options rejected).
+
+Tolerances: per-round losses rtol 1e-4 over the 4-round trajectory (f32
+differences compound through the updates); the DP ledger bitwise (host
+float64, same left fold).
+"""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import base as jbase  # noqa: E402
+from repro.core import fedsim as jfedsim  # noqa: E402
+from repro.data.pipeline import FederatedPipeline as JPipe  # noqa: E402
+from repro.data.tasks import TaskSpec as JSpec  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro_torch.configs import base  # noqa: E402
+from repro_torch.core import engine, fedsim  # noqa: E402
+from repro_torch.data.pipeline import FederatedPipeline  # noqa: E402
+from repro_torch.data.tasks import TaskSpec  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from test_torch_round import configs, jax_noise_rows  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def jax_trace_noise(seed: int, t0: int, t1: int, n_perturb: int,
+                    k: int) -> np.ndarray:
+    """The reference's OTA normals for rounds [t0, t1), from the same round
+    keys its control trace carries (fold_in(key(seed ^ 0x5EED), t))."""
+    base_key = jax.random.key(seed ^ 0x5EED)
+    return np.stack([jax_noise_rows(
+        jax.random.key_data(jax.random.fold_in(base_key, t)), n_perturb, k)
+        for t in range(t0, t1)])
+
+
+def test_four_rounds_match_reference_loop_engine(monkeypatch):
+    cfg, pz = configs(base, n_perturb=2)
+    jcfg, jpz = configs(jbase, n_perturb=2)
+    jpipe = JPipe("sst2", JSpec("sst2", 64, 24), 5, 4, seed=0)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 24), 5, 4, seed=0)
+    jparams = jreg.init_params(jax.random.key(0), jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+
+    ref = jfedsim.run(jcfg, jpz, jpipe, rounds=4, engine="loop",
+                      params=jparams, dtype=jnp.float32)
+    monkeypatch.setattr(engine, "noise_rows", jax_trace_noise)
+    seen = []
+    res = fedsim.run(cfg, pz, pipe, rounds=4, params=params, device="cpu",
+                     on_round=lambda t, m: seen.append(t))
+
+    assert res.steps == ref.steps == 4 and seen == [0, 1, 2, 3]
+    np.testing.assert_allclose(res.losses, ref.losses, rtol=1e-4)
+    np.testing.assert_array_equal(res.privacy_spent_per_round,
+                                  ref.privacy_spent_per_round)
+    assert res.privacy_spent == ref.privacy_spent
+    assert res.privacy_budget == ref.privacy_budget
+    assert res.uplink_bits == ref.uplink_bits
+    assert res.privacy_exhausted_at == ref.privacy_exhausted_at == -1
+    np.testing.assert_array_equal(res.schedule.c, ref.schedule.c)
+    assert all(np.isfinite(res.p_hats))
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_never_imports_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), \
+                f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, pz = configs(base, n_perturb=1)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fedsim.run(cfg, pz, pipe, rounds=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fedsim.run(cfg, pz, pipe, rounds=1, device="cuda")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--rounds", "1"])
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(engine="scan"), dict(eval_every=5), dict(checkpoint_dir="ckpt"),
+    dict(mesh="8"), dict(fault=object()), dict(telemetry=object())])
+def test_unported_options_raise(kwargs):
+    cfg, pz = configs(base, n_perturb=1)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("pz_kw", [
+    dict(fused_perturbation=True), dict(byzantine=object()),
+    dict(transport=base.TransportConfig(mechanism="sign")),
+    dict(transport=base.TransportConfig(scheme="static")),
+    dict(channel=base.ChannelConfig(outage_db=-10.0))])
+def test_unported_config_fields_raise(pz_kw):
+    cfg, pz = configs(base, n_perturb=1)
+    pz = base.PairZeroConfig(**{**pz.__dict__, **pz_kw})
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu")
+
+
+def test_cli_summary_on_cpu(capsys):
+    from repro_torch.launch import train
+    summary = train.main(["--reduced", "--rounds", "2", "--device", "cpu",
+                          "--clients", "3", "--batch", "2", "--seq-len", "16",
+                          "--n-perturb", "1"])
+    assert summary["rounds"] == 2 and np.isfinite(summary["final_loss"])
+    assert 0 < summary["privacy_spent"] <= summary["privacy_budget"]
+    assert summary["uplink_bits"] == 2 * 3 * 16
+    assert '"final_loss"' in capsys.readouterr().out
