@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's main path on one GPU and hold every kernel
+"""Drive the PyTorch/H100 port's main paths on one GPU and hold every kernel
 against its plain PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
   1. the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, in parallel);
-  2. each kernel against its plain version on the card at the main path's
+  2. each kernel against its plain version on the card at the main paths'
      shapes, with stated tolerances, then timed (CUDA events, warm-up,
      median) beside the plain version, a PyTorch library call where one
      computes the same function, and the card's bound for the same work;
-  3. a small-input reference check: the same tiny-model run on the GPU
-     (kernels) and on the CPU (plain versions) agrees;
-  4. the main path: `repro_torch.core.fedsim.run` at full OPT-125M width
-     with the training CLI's defaults (5 clients, batch 8, seq 64,
-     n_perturb 4, analog/solution/Rayleigh, chained, loop engine) for 3
-     rounds, with the launch counters set to 0 just before and read just
-     after;
+  3. small-input references: tiny runs on the GPU (kernels) and on the CPU
+     (plain versions) from the same weights agree — the chained dense
+     round, the fused dense round and the ssm round;
+  4. three paths, each through `repro_torch.core.fedsim.run` with the
+     training CLI's defaults (5 clients, batch 8, seq 64, n_perturb 4,
+     analog/solution/Rayleigh, loop engine) for 3 rounds at full width,
+     the launch counters set to 0 just before and read just after:
+       chained  — OPT-125M, the chained (MeZO) dual forward;
+       fused    — OPT-125M with `fused_perturbation=True` (perturbed
+                  weights never materialize), plus one full-width fused
+                  dual forward held against a fresh one;
+       mamba2   — mamba2-370m (the ssm family), chained;
   5. one `kernels` JSON line, then the result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
-from src/); exits non-zero without either. `--profile` adds one more
-main-path round under torch.profiler and prints where its device time
-goes (top kernels by device time, and the device's busy share).
+from src/); exits non-zero without either. `--profile` adds one more round
+of each path under torch.profiler and prints where its device time goes
+(top kernels by device time, and the device's busy share).
 """
 from __future__ import annotations
 
@@ -38,6 +43,11 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 ROUNDS = 3
+N_PERTURB = 4                  # the training CLI's default
+M_ROWS = 5 * 8 * 64            # clients × batch × seq: rows of every matmul
+PMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))
+# one OPT-125M layer: wq, wk, wv, wo; wi, wg; wd
+PMM_LAYER = (((768, 768),) * 4 + ((768, 3072),) * 2 + ((3072, 768),))
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
@@ -70,14 +80,21 @@ def ulps(torch, a, b) -> int:
     return int((ai - bi).abs().max())
 
 
-def check_seeded_axpy(torch, dev) -> dict:
+def require_equal(torch, got, want, what: str) -> None:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        err = float((got - want).abs().max())
+        raise AssertionError(f"{what}: not bitwise equal (max err {err})")
+
+
+def check_seeded_axpy(torch, dev) -> list:
     from repro_torch.configs import get_arch
     from repro_torch.core import zo
     from repro_torch.kernels import seeded_axpy as sa
-    from repro_torch.models import registry, transformer
+    from repro_torch.models import registry
 
     cfg = get_arch("opt-125m")
-    shapes = list(transformer.shapes(cfg)) + [(1_000_003,)]   # + ragged
+    shapes = list(registry.shapes(cfg)) + [(1_000_003,)]   # + ragged
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = torch.tensor(-3e-3, dtype=torch.float32, device=dev)
     max_err = 0.0
@@ -92,11 +109,30 @@ def check_seeded_axpy(torch, dev) -> dict:
         if not err <= tol:
             raise AssertionError(f"seeded_axpy {shape}: max err {err} > {tol}")
         max_err = max(max_err, err)
+        if len(shape) == 3:
+            # a layer slice with its base counter draws the whole leaf's
+            # bits there (the fused path's resolve), bitwise as the plain
+            for layer in (1, shape[0] - 1):
+                off = layer * shape[1] * shape[2]
+                sl = sa.seeded_axpy_cuda(w[layer], seed, scale,
+                                         torch.empty_like(w[layer]), off)
+                require_equal(torch, sl, got[layer],
+                              f"seeded_axpy {shape} layer {layer} slice")
+                require_equal(torch, sl, sa.seeded_axpy_plain(
+                    w[layer], seed, scale, off),
+                    f"seeded_axpy {shape} layer {layer} vs plain")
         # in place (out aliases w) gives the same bits as out of place
         sa.seeded_axpy_cuda(w, seed, scale, w)
         if not torch.equal(w, got):
             raise AssertionError(f"seeded_axpy {shape}: in-place differs")
         del w, got, want
+    # counters that wrap past 2³², on a ragged leaf
+    w = torch.randn(1_000_003, generator=gen, device=dev)
+    off = 2**32 - 123_457
+    require_equal(torch, sa.seeded_axpy_cuda(w, 99, scale,
+                                             torch.empty_like(w), off),
+                  sa.seeded_axpy_plain(w, 99, scale, off),
+                  "seeded_axpy wrapping offset")
     # z probe: w = 0, scale = 1 returns z itself; every bit of z follows
     # from the hash bits, so a wrong hash bit would show as a gross error
     n = 4_000_037
@@ -115,7 +151,33 @@ def check_seeded_axpy(torch, dev) -> dict:
                        w):
         raise AssertionError("seeded_axpy scale-0 probe changed w")
     print(f"seeded_axpy: {len(shapes)} shapes ok, max err {max_err:.3e}; "
-          f"z probe {z_ulps} ulp max, {z_same:.6f} bit-identical", flush=True)
+          f"layer slices and a wrapping offset bitwise; z probe {z_ulps} "
+          f"ulp max, {z_same:.6f} bit-identical", flush=True)
+
+    # gathered rows: the main path's [40, 64] tokens of the embedding table
+    table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                        device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (40, 64), generator=gen,
+                           device=dev)
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    rows = sa.seeded_gather_cuda(table, tokens, 4321, eps)
+    require_equal(torch, rows, sa.seeded_gather_plain(table, tokens, 4321,
+                                                      eps), "seeded_gather")
+    whole = sa.seeded_axpy_cuda(table, 4321, eps, torch.empty_like(table))
+    require_equal(torch, rows, whole[tokens], "seeded_gather vs table rows")
+    off = 2**32 - 5000
+    require_equal(torch, sa.seeded_gather_cuda(table, tokens[:3], 8, eps, off),
+                  sa.seeded_gather_plain(table, tokens[:3], 8, eps, off),
+                  "seeded_gather wrapping offset")
+    g_ms = time_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens, 1,
+                                                        eps))
+    g_plain = time_ms(torch, lambda: sa.seeded_gather_plain(table, tokens, 1,
+                                                            eps))
+    n_el = tokens.numel() * cfg.d_model
+    g_bound, g_by = bound_ms(8.0 * n_el + 8 * tokens.numel(), 12.0 * n_el)
+    print("seeded_gather: [40,64] rows of the [50272,768] table bitwise vs "
+          "plain and vs the whole-table draw", flush=True)
+    del table, whole, rows
 
     # one θ pass over full OPT-125M (12 launches), as `zo.perturb` runs it
     params = registry.init_params(cfg, gen, dev)
@@ -129,12 +191,18 @@ def check_seeded_axpy(torch, dev) -> dict:
     b_ms, b_by = bound_ms(8.0 * n_total, 12.0 * n_total)
     del params, leaves
     torch.cuda.empty_cache()
-    return {"name": "seeded_axpy", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
-            "replaces": "src/repro/kernels/seeded_axpy.py:83",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"one θ pass, {n_total} f32 elements in 12 leaves"}
+    return [{"name": "seeded_axpy", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
+             "replaces": "src/repro/kernels/seeded_axpy.py:83",
+             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "shape": f"one θ pass, {n_total} f32 elements in 12 leaves"},
+            {"name": "seeded_gather", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
+             "replaces": "src/repro/kernels/seeded_axpy.py:83",
+             "max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
+             "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
+             "shape": "[40,64] tokens of a [50272,768] table"}]
 
 
 def check_flash_attention(torch, dev) -> dict:
@@ -180,7 +248,139 @@ def check_flash_attention(torch, dev) -> dict:
             "shape": f"[{b},{h},{s},{d}] causal"}
 
 
-def pz_defaults(cfg, rounds: int, n_perturb: int = 4):
+def check_perturbed_matmul(torch, dev) -> dict:
+    """Against the plain version at every main-path (K, N) with M = 2560
+    and a ragged case, to max|Δ| ≤ 1e-5·max|ref| (f32 sums in another
+    order); the identity probe bitwise against the seeded_axpy kernel."""
+    from repro_torch.kernels import perturbed_matmul as pmm
+    from repro_torch.kernels import seeded_axpy as sa
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    cases = [(M_ROWS, k, n, 3 * k * n) for k, n in PMM_SHAPES]
+    cases.append((37, 200, 300, 2**32 - 7777))       # ragged, wrapping off
+    max_err = max_rel = 0.0
+    for m, k, n, off in cases:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        got = pmm.perturbed_matmul_cuda(x, w, 55, off, eps)
+        want = pmm.perturbed_matmul_plain(x, w, 55, off, eps)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ref = float(want.abs().max())
+        if not err <= 1e-5 * ref:
+            raise AssertionError(f"perturbed_matmul [{m},{k}]x[{k},{n}]: max "
+                                 f"err {err} > 1e-5 x {ref}")
+        max_err, max_rel = max(max_err, err), max(max_rel, err / ref)
+    for k, n, off in ((768, 768, 5 * 768 * 768), (200, 300, 2**32 - 7777)):
+        w = torch.randn((k, n), generator=gen, device=dev)
+        probe = pmm.perturbed_matmul_cuda(torch.eye(k, device=dev), w, 66,
+                                          off, eps)
+        axpy = sa.seeded_axpy_cuda(w, 66, eps, torch.empty_like(w), off)
+        require_equal(torch, probe, axpy,
+                      f"perturbed_matmul identity probe [{k},{n}]")
+    print(f"perturbed_matmul: {len(cases)} cases ok, max err {max_err:.3e}"
+          f", max |err|/max|ref| {max_rel:.3e}; identity probes bitwise",
+          flush=True)
+
+    # one OPT-125M layer's seven projections at M = 2560
+    x = {k: torch.randn((M_ROWS, k), generator=gen, device=dev)
+         for k in (768, 3072)}
+    ws = [torch.randn(s, generator=gen, device=dev) for s in PMM_LAYER]
+    resolved = [sa.seeded_axpy_cuda(w, 7, eps, torch.empty_like(w), 0)
+                for w in ws]
+    per_shape = {}
+    for (k, n) in PMM_SHAPES:
+        w = ws[PMM_LAYER.index((k, n))]
+        per_shape[f"{k}x{n}"] = time_ms(
+            torch, lambda: pmm.perturbed_matmul_cuda(x[k], w, 7, 0, eps))
+    ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
+        x[w.shape[0]], w, 7, 0, eps) for w in ws])
+    plain_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_plain(
+        x[w.shape[0]], w, 7, 0, eps) for w in ws])
+    library_ms = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
+                                         for w, r in zip(ws, resolved)])
+    flops = sum(2.0 * M_ROWS * k * n for k, n in PMM_LAYER)
+    n_bytes = sum(4.0 * (M_ROWS * k + k * n + M_ROWS * n)
+                  for k, n in PMM_LAYER)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    print(f"perturbed_matmul per call at M={M_ROWS}: "
+          + ", ".join(f"{s} {t:.4f} ms" for s, t in per_shape.items())
+          + f"; one layer's 7 {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
+          f"SGEMM on resolved weights {library_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    return {"name": "perturbed_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/perturbed_matmul.cu",
+            "replaces": "src/repro/kernels/perturbed_matmul.py:71",
+            "max_abs_err": max_err, "max_rel_err": max_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "library": "torch.matmul (cuBLAS SGEMM) on resolved w + eps*z",
+            "per_call_ms": per_shape,
+            "shape": f"one OPT-125M layer's 7 projections at M={M_ROWS}"}
+
+
+def ssd_inputs(torch, dev, gen, bsz, s, h, p, n, with_state):
+    x = torch.randn((bsz, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bsz, s, h), generator=gen, device=dev))
+    a = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    b = 0.5 * torch.randn((bsz, s, n), generator=gen, device=dev)
+    c = 0.5 * torch.randn((bsz, s, n), generator=gen, device=dev)
+    s0 = (torch.randn((bsz, h, p, n), generator=gen, device=dev)
+          if with_state else None)
+    return x, dt, a, b, c, s0
+
+
+def check_ssd_scan(torch, dev) -> dict:
+    """Against `ssd_plain` for y and the final state, to max|Δ| ≤
+    2e-5·max|ref| (f32 sums in another order)."""
+    from repro_torch.kernels import ssd_scan
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main = (40, 64, 32, 64, 128, 64, False)        # full mamba2-370m
+    cases = [main,
+             (2, 512, 4, 64, 128, 256, True),      # chunk 256, two chunks
+             (3, 48, 8, 16, 16, 48, True)]         # the tiny run's widths
+    max_err = max_rel = 0.0
+    for bsz, s, h, p, n, chunk, st in cases:
+        args = ssd_inputs(torch, dev, gen, bsz, s, h, p, n, st)
+        y, state = ssd_scan.ssd_scan_cuda(*args, chunk)
+        y_ref, state_ref = ssd_scan.ssd_plain(*args, chunk)
+        torch.cuda.synchronize()
+        for name, got, want in (("y", y, y_ref), ("state", state, state_ref)):
+            err = float((got - want).abs().max())
+            ref = float(want.abs().max())
+            if not err <= 2e-5 * ref:
+                raise AssertionError(f"ssd_scan {name} B{bsz} S{s} H{h} P{p} "
+                                     f"N{n} chunk {chunk}: max err {err} > "
+                                     f"2e-5 x {ref}")
+            max_err, max_rel = max(max_err, err), max(max_rel, err / ref)
+    print(f"ssd_scan: {len(cases)} cases ok (y and final state), max err "
+          f"{max_err:.3e}, max |err|/max|ref| {max_rel:.3e}", flush=True)
+
+    bsz, s, h, p, n, chunk, _ = main
+    args = ssd_inputs(torch, dev, gen, bsz, s, h, p, n, False)
+    ms = time_ms(torch, lambda: ssd_scan.ssd_scan_cuda(*args, chunk))
+    plain_ms = time_ms(torch, lambda: ssd_scan.ssd_plain(*args, chunk))
+    # per chunk of Q rows: C·Bᵀ and M·(x·dt) over their causal half, C·S
+    # and the state update in full; exps and scalings not counted
+    q = chunk
+    tri = q * (q + 1) // 2
+    flops = bsz * h * (s // q) * (2 * n * tri + 2 * p * tri
+                                  + 2 * q * n * p * 2)
+    n_bytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + h
+                     + 2 * bsz * s * n + bsz * h * p * n)
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:82",
+            "max_abs_err": max_err, "max_rel_err": max_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}"}
+
+
+def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
+                fused: bool = False):
     """The training CLI's defaults (`python -m repro.launch.train`)."""
     from repro_torch.configs.base import (ChannelConfig, DPConfig,
                                           PairZeroConfig, PowerControlConfig,
@@ -193,51 +393,183 @@ def pz_defaults(cfg, rounds: int, n_perturb: int = 4):
         dp=DPConfig(epsilon=5.0, delta=0.01),
         power=PowerControlConfig(scheme="solution"),
         transport=TransportConfig(mechanism="analog", scheme="solution"),
-        seed=0)
+        seed=0, fused_perturbation=fused)
 
 
 def check_small_reference(torch, dev) -> None:
-    """Tiny model, 2 rounds: the GPU run (kernels) and the CPU run (plain
-    versions) from the same weights agree (losses rtol 1e-4)."""
+    """Tiny models, 2 rounds: the GPU run (kernels) and the CPU run (plain
+    versions) from the same weights agree (losses rtol 1e-4) — chained
+    dense, fused dense, and the ssm family."""
+    from repro_torch.configs import get_arch
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import fedsim
     from repro_torch.data.pipeline import FederatedPipeline
     from repro_torch.data.tasks import TaskSpec
     from repro_torch.models import registry
 
-    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
-                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
-                      head_dim=16)
-    pz = pz_defaults(cfg, rounds=8, n_perturb=2)
-    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 24), 5, 4, seed=0)
+    tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
+                       head_dim=16)
+    ssm = get_arch("mamba2-370m").reduced()
+    runs = (("chained", tiny, False), ("fused", tiny, True),
+            ("ssm", ssm, False))
+
     def to(tree, device):
         return {k: to(v, device) if isinstance(v, dict) else v.to(device)
                 for k, v in tree.items()}
 
-    def weights(device):
-        gen = torch.Generator().manual_seed(3)
-        return to(registry.init_params(cfg, gen, "cpu"), device)
+    for name, cfg, fused in runs:
+        pz = pz_defaults(cfg, rounds=8, n_perturb=2, fused=fused)
+        pipe = FederatedPipeline("sst2", TaskSpec("sst2", cfg.vocab_size, 24),
+                                 5, 4, seed=0)
 
-    gpu = fedsim.run(cfg, pz, pipe, 2, params=weights(dev), device=dev)
-    cpu = fedsim.run(cfg, pz, pipe, 2, params=weights("cpu"), device="cpu")
-    for a, b in zip(gpu.losses, cpu.losses):
-        if not math.isclose(a, b, rel_tol=1e-4):
-            raise AssertionError(f"tiny run: GPU loss {a} vs CPU loss {b}")
-    print(f"small-input reference: GPU losses {gpu.losses} match CPU "
-          f"{cpu.losses} (rtol 1e-4)", flush=True)
+        def weights(device):
+            gen = torch.Generator().manual_seed(3)
+            return to(registry.init_params(cfg, gen, "cpu"), device)
+
+        gpu = fedsim.run(cfg, pz, pipe, 2, params=weights(dev), device=dev)
+        cpu = fedsim.run(cfg, pz, pipe, 2, params=weights("cpu"),
+                         device="cpu")
+        for a, b in zip(gpu.losses, cpu.losses):
+            if not math.isclose(a, b, rel_tol=1e-4):
+                raise AssertionError(f"tiny {name} run: GPU loss {a} vs CPU "
+                                     f"loss {b}")
+        print(f"small-input reference ({name}, {cfg.name}): GPU losses "
+              f"{gpu.losses} match CPU {cpu.losses} (rtol 1e-4)", flush=True)
 
 
-def profile_round(torch, fedsim, cfg, pz, pipe, params, dev) -> None:
-    """One more main-path round under torch.profiler: the kernels that take
-    the device time, and the share of the round's wall time the device was
-    busy."""
+def counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import perturbed_matmul as pmm
+    from repro_torch.kernels import seeded_axpy as sa
+    from repro_torch.kernels import ssd_scan
+    return {"seeded_axpy": (sa, "launches"),
+            "seeded_gather": (sa, "gather_launches"),
+            "flash_attention": (fa, "launches"),
+            "perturbed_matmul": (pmm, "launches"),
+            "ssd_scan": (ssd_scan, "launches")}
+
+
+def reset_launches() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr)
+            in counters().items()}
+
+
+def expected_launches(cfg, rounds: int, fused: bool) -> dict:
+    """What `rounds` rounds must launch, from the model's structure."""
+    from repro_torch.models import registry
+    n_leaves = len(registry.shapes(cfg))
+    rollouts = rounds * N_PERTURB * 2
+    out = dict.fromkeys(counters(), 0)
+    if cfg.family == "ssm":
+        out["ssd_scan"] = rollouts * cfg.n_layers
+    else:
+        out["flash_attention"] = rollouts * cfg.n_layers
+    if fused:
+        # per rollout: the seven projections of each layer; one resolve per
+        # layer norm (two a layer), final norm and untied lm head; one
+        # gather of the embedding rows. The update is one axpy per leaf.
+        out["perturbed_matmul"] = rollouts * 7 * cfg.n_layers
+        resolves = 2 * cfg.n_layers + 1 + (0 if cfg.tie_embeddings else 1)
+        out["seeded_axpy"] = (rollouts * resolves
+                              + rounds * N_PERTURB * n_leaves)
+        out["seeded_gather"] = rollouts
+    else:
+        # chained walk: w → w+μz → w−μz → updated, one axpy per leaf each
+        out["seeded_axpy"] = rounds * N_PERTURB * 3 * n_leaves
+    return out
+
+
+def run_path(torch, dev, name: str, cfg, fused: bool = False) -> dict:
+    """`fedsim.run` for ROUNDS rounds at full width with the CLI defaults;
+    the launch counters are set to 0 just before and read just after."""
+    from repro_torch.core import fedsim
+    from repro_torch.data.pipeline import FederatedPipeline
+    from repro_torch.data.tasks import TaskSpec
+
+    pz = pz_defaults(cfg, rounds=800, fused=fused)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", cfg.vocab_size, 64),
+                             n_clients=5, per_client_batch=8, seed=0)
+    theta_bytes = 4 * cfg.param_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fedsim.run(cfg, pz, pipe, ROUNDS, device=dev,
+                     on_round=lambda t, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(res.losses) != ROUNDS or not all(map(math.isfinite, res.losses)):
+        raise AssertionError(f"{name}: losses {res.losses}")
+    if not all(map(math.isfinite, res.p_hats)):
+        raise AssertionError(f"{name}: p_hats {res.p_hats}")
+    if not res.privacy_spent > 0:
+        raise AssertionError(f"{name}: privacy spent {res.privacy_spent}")
+    expected = expected_launches(cfg, ROUNDS, fused)
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expected}")
+    steady = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
+    print(f"path {name}: {cfg.name}, {ROUNDS} rounds; run {wall:.3f} s with "
+          f"weight init and schedule solve; steady {steady * 1e3:.1f} "
+          f"ms/round, {1 / steady:.3f} rounds/s; losses {res.losses}; "
+          f"p_hat {res.p_hats}; privacy spent {res.privacy_spent:.6g} of "
+          f"{res.privacy_budget:.6g}", flush=True)
+    print(f"path {name}: peak device memory {peak / 1e6:.1f} MB = "
+          f"{peak / theta_bytes:.2f} x theta ({theta_bytes / 1e6:.1f} MB f32)",
+          flush=True)
+    print(f"path {name}: launches {launches}", flush=True)
+    return {"name": name, "cfg": cfg, "pz": pz, "pipe": pipe,
+            "params": res.params, "launches": launches,
+            "peak_theta": peak / theta_bytes, "ms_per_round": steady * 1e3}
+
+
+def check_fused_against_fresh(torch, dev, path: dict) -> None:
+    """One full-width fused dual forward against a fresh one from the same
+    weights and batch (losses rtol 1e-4: the fused kernel sums in another
+    order than cuBLAS)."""
+    from repro_torch.core import engine, pairzero, zo
+    cfg, params = path["cfg"], path["params"]
+    batch = {k: v[0] for k, v in engine.stack_batches(path["pipe"], 0, 1,
+                                                       dev).items()}
+    loss_fn = pairzero.make_loss_fn(cfg)
+    out = {}
+    for mode in ("fused", "fresh"):
+        lp, lm, _ = zo.dual_forward(lambda p: loss_fn(p, batch), params,
+                                    zo.perturb_seed(1234, 0), 1e-3, mode=mode)
+        out[mode] = torch.stack([lp, lm]).cpu()
+    if not torch.allclose(out["fused"], out["fresh"], rtol=1e-4, atol=0):
+        raise AssertionError(f"fused dual forward {out['fused'].tolist()} vs "
+                             f"fresh {out['fresh'].tolist()}")
+    print(f"fused vs fresh dual forward at full width: max rel diff "
+          f"{float(((out['fused'] - out['fresh']) / out['fresh']).abs().max()):.3e}"
+          " (rtol 1e-4)", flush=True)
+
+
+def profile_round(torch, path: dict, dev) -> None:
+    """One more round of a path under torch.profiler: the kernels that
+    take the device time, and the share of the round's wall time the
+    device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import fedsim
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fedsim.run(cfg, pz, pipe, 1, params=params, device=dev)
+        fedsim.run(path["cfg"], path["pz"], path["pipe"], 1,
+                   params=path["params"], device=dev)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel-level rows only: the aten ops above them carry the same time
@@ -246,8 +578,9 @@ def profile_round(torch, fedsim, cfg, pz, pipe, params, dev) -> None:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile: one round, wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{busy / 1e3:.1f} ms ({busy / wall_us:.3f} of wall)", flush=True)
+    print(f"profile {path['name']}: one round, wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} of wall)",
+          flush=True)
     for dev_us, count, key in rows[:15]:
         print(f"  {dev_us / 1e3:9.3f} ms {dev_us / busy:6.3f} x{count:<5d} "
               f"{key[:90]}", flush=True)
@@ -261,12 +594,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
-    from repro_torch.core import fedsim
-    from repro_torch.data.pipeline import FederatedPipeline
-    from repro_torch.data.tasks import TaskSpec
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import seeded_axpy as sa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -280,56 +608,32 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     print(f"kernel build: {build.build():.1f} s", flush=True)
 
-    rows = [check_seeded_axpy(torch, dev), check_flash_attention(torch, dev)]
+    rows = check_seeded_axpy(torch, dev)
+    rows += [check_flash_attention(torch, dev),
+             check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev)]
     check_small_reference(torch, dev)
 
-    # -- the main path: full OPT-125M, CLI defaults -------------------------
-    cfg = get_arch("opt-125m")
-    pz = pz_defaults(cfg, rounds=800)
-    pipe = FederatedPipeline("sst2", TaskSpec("sst2", cfg.vocab_size, 64),
-                             n_clients=5, per_client_batch=8, seed=0)
-    theta_bytes = 4 * cfg.param_count()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    stamps = []
-    sa.launches = 0
-    fa.launches = 0
-    t0 = time.perf_counter()
-    res = fedsim.run(cfg, pz, pipe, ROUNDS, device=dev,
-                     on_round=lambda t, m: stamps.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"seeded_axpy": sa.launches, "flash_attention": fa.launches}
-    peak = torch.cuda.max_memory_allocated()
-
-    if len(res.losses) != ROUNDS or not all(map(math.isfinite, res.losses)):
-        raise AssertionError(f"main path losses {res.losses}")
-    if not all(map(math.isfinite, res.p_hats)):
-        raise AssertionError(f"main path p_hats {res.p_hats}")
-    if not res.privacy_spent > 0:
-        raise AssertionError(f"privacy spent {res.privacy_spent}")
-    from repro_torch.core import zo
-    leaves = len(zo.flatten(res.params))
-    expected = {"seeded_axpy": ROUNDS * 4 * 3 * leaves,
-                "flash_attention": ROUNDS * 4 * 2 * cfg.n_layers}
-    if launches != expected:
-        raise AssertionError(f"launches {launches}, expected {expected}")
-    steady = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
-    print(f"main path: opt-125m, {ROUNDS} rounds; run {wall:.3f} s with "
-          f"weight init and schedule solve; steady {steady * 1e3:.1f} "
-          f"ms/round, {1 / steady:.3f} rounds/s; "
-          f"losses {res.losses}; p_hat {res.p_hats}; privacy spent "
-          f"{res.privacy_spent:.6g} of {res.privacy_budget:.6g}", flush=True)
-    print(f"peak device memory {peak / 1e6:.1f} MB = {peak / theta_bytes:.2f}"
-          f" x theta ({theta_bytes / 1e6:.1f} MB f32)", flush=True)
-    print(f"launches on the main path: {launches}", flush=True)
-
-    if "--profile" in sys.argv[1:]:
-        profile_round(torch, fedsim, cfg, pz, pipe, res.params, dev)
+    opt, mamba = get_arch("opt-125m"), get_arch("mamba2-370m")
+    paths = []
+    for name, cfg, fused in (("chained", opt, False), ("fused", opt, True),
+                             ("mamba2", mamba, False)):
+        path = run_path(torch, dev, name, cfg, fused)
+        if fused:
+            if not path["peak_theta"] < 2.9:
+                raise AssertionError(f"fused path peak {path['peak_theta']:.2f}"
+                                     " x theta, want < 2.9")
+            check_fused_against_fresh(torch, dev, path)
+        if "--profile" in sys.argv[1:]:
+            profile_round(torch, path, dev)
+        paths.append({k: path[k] for k in ("name", "launches", "peak_theta",
+                                           "ms_per_round")})
+        del path
+        torch.cuda.empty_cache()
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        by_path = {p["name"]: p["launches"][row["name"]] for p in paths}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Configs and the architecture registry (dense only in this port)."""
-from repro_torch.configs import opt_125m
+"""Configs and the architecture registry (the dense and ssm families in
+this port)."""
+from repro_torch.configs import mamba2_370m, opt_125m
 from repro_torch.configs.base import ModelConfig
 
-_ARCHS = {"opt-125m": opt_125m.build}
+_ARCHS = {"opt-125m": opt_125m.build, "mamba2-370m": mamba2_370m.build}
 
 
 def list_archs() -> list:

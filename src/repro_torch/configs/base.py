@@ -107,8 +107,8 @@ class ModelConfig:
         return count_params(self)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family variant for CPU smoke tests (dense fields as
-        in `repro`; the other families are not ported yet)."""
+        """A tiny same-family variant for CPU smoke tests (the dense and
+        ssm fields as in `repro`; the other families are not ported yet)."""
         kw: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -119,6 +119,9 @@ class ModelConfig:
             head_dim=16,
             n_encoder_layers=min(self.n_encoder_layers, 2),
         )
+        if self.ssm.enabled:
+            kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2,
+                                  head_dim=16, chunk=32)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 

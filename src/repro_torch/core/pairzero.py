@@ -1,11 +1,12 @@
 """The pAirZero round (Algorithm 1), ported from `repro.core.pairzero`.
 
 One round: for each of n_perturb directions, every client evaluates its
-clipped projection p_k from the shared seed (the chained dual forward), the
-Transport recovers p̂ from the [K] payload vector, and w ← w − η p̂ z is
-applied from the same seed. Round-varying control (c, σ, N0, mask, CSI
-factors, the broadcast seed and the round's noise normals) is data. Mesh,
-adversary, Byzantine behaviors/defenses and desync are not ported yet.
+clipped projection p_k from the shared seed (the chained, fresh or fused
+dual forward), the Transport recovers p̂ from the [K] payload vector, and
+w ← w − η p̂ z is applied from the same seed. Round-varying control (c, σ,
+N0, mask, CSI factors, the broadcast seed and the round's noise normals)
+is data. Mesh, adversary, Byzantine behaviors/defenses and desync are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -58,17 +59,24 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
                  transport: Optional[tp.Transport] = None) -> Callable:
     """step(params, batch, ctl) → (params, metrics) for one round.
 
-    `params` is updated in place (the chained walk) and returned."""
+    `params` is updated in place and returned."""
     loss_fn = make_loss_fn(model_cfg)
     transport = transport if transport is not None else tp.resolve(pz)
-    if pz.fused_perturbation:
-        raise NotImplementedError(
-            "fused_perturbation is not ported (ROADMAP A3: fused dual "
-            "forward with perturbed_matmul, B3)")
     mu, lr, gamma = pz.zo.mu, pz.zo.lr, pz.zo.clip_gamma
     n_perturb = pz.zo.n_perturb
-    mode = "chained" if pz.zo.dual_mode in ("chained", "sequential") \
-        else "fresh"
+    if pz.fused_perturbation:
+        # fused dual forward: z regenerated inside the layer kernels
+        # (zo.tag_perturbed); the reference wires it for the transformer
+        # families only (moe is not ported: make_loss_fn raised above)
+        if model_cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"fused_perturbation supports the dense/moe families; "
+                f"{model_cfg.name!r} is family {model_cfg.family!r} "
+                "(its layer stack has consumers without a fused path)")
+        mode = "fused"
+    else:
+        mode = "chained" if pz.zo.dual_mode in ("chained", "sequential") \
+            else "fresh"
 
     def round_body(params: Params, batch: Dict, ctl: Dict
                    ) -> Tuple[Params, Dict[str, torch.Tensor]]:

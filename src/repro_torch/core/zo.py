@@ -87,6 +87,18 @@ def perturb(params: Params, seed: int, scale, *,
     return params if inplace else new
 
 
+def tag_perturbed(params: Params, seed: int, scale) -> Params:
+    """Tag every leaf as lazily perturbed: leaf → PerturbedParam(leaf,
+    leaf_seed(seed, i), 0, scale), i in `flatten` order (the fused
+    counterpart of `perturb`, with the same per-leaf streams). The layer
+    consumers draw z inside their matmul or gather, or resolve one
+    layer-sized transient; nothing is written to the leaves."""
+    def tag(i: int, leaf: torch.Tensor) -> kops.PerturbedParam:
+        return kops.PerturbedParam(leaf, leaf_seed(seed, i), 0,
+                                   _scale(scale, leaf.device))
+    return _map_leaves(tag, params, itertools.count())
+
+
 def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
                  seed: int, mu: float, mode: str = "chained"
                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
@@ -97,6 +109,9 @@ def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
     w+(μ−η·p̂)·z with a third axpy), so rounding matches `repro`'s chained
     mode step for step and the peak footprint is one θ. Returns w−μz.
     fresh: each perturbed copy is computed from w (2θ peak); returns w.
+    fused: both rollouts see tagged leaves (`tag_perturbed`), eps = +μ then
+    −μ, one after the other (`repro` batches the two with a vmap over eps);
+    w is never written and no perturbed copy exists; returns w.
     """
     if mode == "chained":
         perturb(params, seed, mu, inplace=True)            # w + μz
@@ -109,9 +124,9 @@ def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
         loss_minus = loss_fn(perturb(params, seed, -mu))
         return loss_plus, loss_minus, params
     if mode == "fused":
-        raise NotImplementedError(
-            "the fused dual forward is not ported (ROADMAP A3: fused dual "
-            "forward with perturbed_matmul, B3)")
+        loss_plus = loss_fn(tag_perturbed(params, seed, mu))
+        loss_minus = loss_fn(tag_perturbed(params, seed, -mu))
+        return loss_plus, loss_minus, params
     raise ValueError(f"unknown dual mode: {mode}")
 
 
@@ -125,9 +140,10 @@ def projection(loss_plus: torch.Tensor, loss_minus: torch.Tensor, mu: float,
 def apply_update(params_at: Params, seed: int, p_hat: torch.Tensor,
                  lr: float, mu: float, mode: str = "chained") -> Params:
     """w ← w − η p̂ z, in place. chained: params_at = w−μz, so one axpy of
-    (μ − η p̂)·z restores and updates at once; fresh: axpy of (−η p̂)·z."""
+    (μ − η p̂)·z restores and updates at once; fresh and fused: params_at =
+    w, axpy of (−η p̂)·z."""
     if mode == "chained":
         return perturb(params_at, seed, mu - lr * p_hat, inplace=True)
-    if mode == "fresh":
+    if mode in ("fresh", "fused"):
         return perturb(params_at, seed, -lr * p_hat, inplace=True)
     raise ValueError(f"unknown dual mode: {mode}")

@@ -3,15 +3,23 @@
 A CUDA tensor goes to the hand-written kernel (which launches or raises —
 there is no fallback); a CPU tensor goes to the plain PyTorch version;
 any other device raises.
+
+`PerturbedParam` is the fused dual forward's lazy leaf w + eps·z(seed):
+the consumers in `models/layers.py` fuse the perturbation into their
+matmul or gather (z drawn in the kernel, never stored) or `resolve` a
+layer-sized transient, so no θ-sized perturbed copy ever exists.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import perturbed_matmul as pmm
 from repro_torch.kernels import seeded_axpy as sa
+from repro_torch.kernels import ssd_scan
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -40,3 +48,109 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _on_cuda(q):
         return fa.flash_attention_cuda(q, k, v, causal, window, scale)
     return fa.attention_plain(q, k, v, causal, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# PerturbedParam — lazy w + eps · z(seed), ported from repro.kernels.ops
+# ---------------------------------------------------------------------------
+
+class PerturbedParam:
+    """A parameter leaf tagged as "perturbed by eps · z(seed) from counter
+    off" (`zo.tag_perturbed` tags every leaf of the tree).
+
+    w    — the unperturbed tensor (a whole leaf or one layer's view of it);
+    seed — the leaf's stream seed (`zo.leaf_seed`), a host int;
+    off  — the counter of w's first element in the leaf's stream, a host
+           int (0 for a whole leaf);
+    eps  — the perturbation scale (±μ): a float or a 0-d f32 tensor.
+
+    `pp[l]` slices layer l out of a scan-stacked [L, ...] leaf; its counters
+    continue the whole leaf's stream (off + l·prod(rest), mod 2³²), so
+    every z value equals the one `seeded_axpy` draws for the whole leaf.
+    """
+
+    def __init__(self, w: torch.Tensor, seed: int, off: int,
+                 eps: Union[float, torch.Tensor]):
+        self.w = w
+        self.seed = int(seed) & sa.MASK32
+        self.off = int(off) & sa.MASK32
+        self.eps = eps
+
+    def __getitem__(self, layer: int) -> "PerturbedParam":
+        if not isinstance(layer, int):
+            raise TypeError("PerturbedParam slices one layer (an int index)")
+        stride = math.prod(self.w.shape[1:])
+        return PerturbedParam(self.w[layer], self.seed,
+                              self.off + layer * stride, self.eps)
+
+    def scale(self) -> torch.Tensor:
+        """eps as a 0-d f32 tensor on w's device (the kernels read it from
+        device memory)."""
+        if isinstance(self.eps, torch.Tensor):
+            return self.eps.to(device=self.w.device, dtype=torch.float32)
+        return torch.tensor(float(self.eps), dtype=torch.float32,
+                            device=self.w.device)
+
+
+def perturbed_z(pp: PerturbedParam) -> torch.Tensor:
+    """z of a tagged leaf (f32, w's shape): counters off + flat index."""
+    return sa.draw_z(pp.w.shape, pp.seed, pp.w.device, pp.off)
+
+
+def resolve(pp):
+    """w + eps · z for one tagged leaf (a layer-sized transient, never a
+    θ-sized one); identity on a plain tensor."""
+    if not isinstance(pp, PerturbedParam):
+        return pp
+    if _on_cuda(pp.w):
+        return sa.seeded_axpy_cuda(pp.w, pp.seed, pp.scale(),
+                                   torch.empty_like(pp.w), pp.off)
+    return sa.seeded_axpy_plain(pp.w, pp.seed, pp.scale(), pp.off)
+
+
+def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
+    """x [..., K] @ (w + eps·z) for a 2-D tagged leaf w [K, N] → [..., N]
+    f32; on the card z is drawn inside the kernel's weight tiles."""
+    w = pp.w
+    if w.ndim != 2:
+        raise ValueError(f"perturbed_matmul wants a 2-D leaf, got "
+                         f"{tuple(w.shape)}")
+    if _on_cuda(w):
+        batch = x.shape[:-1]
+        out = pmm.perturbed_matmul_cuda(
+            x.reshape(-1, x.shape[-1]).contiguous(), w, pp.seed, pp.off,
+            pp.scale())
+        return out.reshape(tuple(batch) + (w.shape[1],))
+    return pmm.perturbed_matmul_plain(x, w, pp.seed, pp.off, pp.scale())
+
+
+def perturbed_unembed(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
+    """lm head [.., D] @ (w + eps·z)[V, D]ᵀ → f32 logits. Resolves one
+    [V, D] transient, freed after the product (as `repro` does); the
+    product itself is a plain large matmul."""
+    return torch.matmul(x.to(torch.float32),
+                        resolve(pp).to(torch.float32).t())
+
+
+def perturbed_gather(pp: PerturbedParam, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+    """Embedding rows of (w + eps·z): z drawn only for the gathered rows
+    (row v, column j draws counter off + v·D + j, its whole-table bits)."""
+    if _on_cuda(pp.w):
+        return sa.seeded_gather_cuda(pp.w, tokens, pp.seed, pp.scale(),
+                                     pp.off)
+    return sa.seeded_gather_plain(pp.w, tokens, pp.seed, pp.scale(), pp.off)
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2)
+# ---------------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, state0: Optional[torch.Tensor] = None,
+        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD. x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N], state0
+    [B,H,P,N] (zeros if None) → (y [B,S,H,P], state [B,H,P,N])."""
+    if _on_cuda(x):
+        return ssd_scan.ssd_scan_cuda(x, dt, a, b, c, state0, chunk)
+    return ssd_scan.ssd_plain(x, dt, a, b, c, state0, chunk)

@@ -1,0 +1,79 @@
+"""Fused perturbed matmul: out = x @ (w + eps · z(seed)), z never stored.
+
+Replaces the TPU kernel `repro/kernels/perturbed_matmul.py:
+perturbed_matmul_pallas` (body `_pmm_kernel`) with the hand-written CUDA
+kernel in `csrc/perturbed_matmul.cu`. Element (k, n) of w draws counter
+`off + k·N + n` of the leaf's counter-hash stream (`seeded_axpy`), so a
+layer sliced out of a scan-stacked leaf sees the whole leaf's z values.
+
+Bound on the H100 at the main path's shapes (M = 2560 rows of full
+OPT-125M; (K, N) ∈ {(768, 768), (768, 3072), (3072, 768)}): f32
+operations — 2·M·K·N, e.g. 2·2560·768·3072 = 12.1 GFLOP, at least 0.18 ms
+at 67 TFLOP/s, while x, w and out move 17 MB (5 µs). The kernel keeps
+plain f32 FMA (no TF32, no tensor cores) in 128 × 128 output tiles with an
+8 × 8 register micro-tile per thread, and generates each 16 × 128 tile of
+w + eps·z in shared memory: z is drawn M/128 = 20 times per weight at
+M = 2560, a fixed cost on top of the product.
+
+`perturbed_matmul_plain` is the plain PyTorch version (resolve w + eps·z,
+then `torch.matmul` in f32); `launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import seeded_axpy as sa
+
+#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+launches = 0
+
+
+def perturbed_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed: int,
+                           off: int, eps: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ (w [K, N] + eps · z(seed, off)) in f32."""
+    wz = sa.seeded_axpy_plain(w, seed, eps, off)
+    return torch.matmul(x.to(torch.float32), wz.to(torch.float32))
+
+
+def _lib():
+    from repro_torch.kernels import build
+    fn = build.load("perturbed_matmul").perturbed_matmul_f32
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
+                          off: int, eps: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: x [M, K] @ (w [K, N] + eps·z) → [M, N] f32.
+    x and w are contiguous f32 CUDA tensors; eps is one f32 element on
+    their device, read by the kernel from device memory."""
+    global launches
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"perturbed_matmul: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not line up as [M,K] @ [K,N]")
+    for name, t in (("x", x), ("w", w)):
+        if t.device != w.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"perturbed_matmul: {name} must be contiguous "
+                             f"f32 on {w.device}")
+    if eps.device != w.device or eps.dtype != torch.float32 \
+            or eps.numel() != 1:
+        raise ValueError(f"perturbed_matmul: eps must be one f32 element on "
+                         f"{w.device}")
+    m, k = x.shape
+    n = w.shape[1]
+    if max(m, k, n) >= 2**31:
+        raise ValueError("perturbed_matmul: dims must be below 2³¹")
+    from repro_torch.kernels import build
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
+                    int(seed) & sa.MASK32, int(off) & sa.MASK32,
+                    eps.data_ptr(), stream)
+    build.check(status, "perturbed_matmul_f32")
+    launches += 1
+    return out

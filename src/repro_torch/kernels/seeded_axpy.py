@@ -12,8 +12,15 @@ backend. This module holds the stream twice:
   — the uint32 arithmetic runs in int64 masked to 32 bits, and every
   product that could pass 2⁶³ (x·0x846CA68B, seed·0x9E3779B9) is split into
   16-bit halves (`mul32`), so nothing relies on signed overflow;
-* the CUDA wrapper (`seeded_axpy_cuda`), which launches the kernel and
-  counts its launches in `launches`.
+* the CUDA wrappers (`seeded_axpy_cuda`, `seeded_gather_cuda`), which
+  launch the kernels and count their launches in `launches` and
+  `gather_launches`.
+
+Every draw takes a base counter `off` (0 for a whole leaf): a layer sliced
+out of a scan-stacked leaf draws counters `off + i` and so continues the
+whole leaf's stream (the fused dual forward's `resolve`). The gathered-rows
+entry perturbs embedding rows: row `tok` column j draws `off + tok·D + j`,
+the bits the row has in the whole-table stream.
 
 Bound on the H100: bytes — one read and one write of w (8 bytes per f32
 element): a θ pass over full OPT-125M's 190.5M elements moves 1.52 GB, at
@@ -35,8 +42,10 @@ _M2 = 0x846CA68B
 _TWO_PI_F32 = 6.2831854820251465
 _INV24 = 2.0 ** -24
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: launches of the CUDA axpy kernel since the last reset (set to 0 to reset)
 launches = 0
+#: launches of the CUDA gathered-rows kernel since the last reset
+gather_launches = 0
 
 
 def mul32(x, c: int):
@@ -71,21 +80,47 @@ def gaussian_from_counter(idx: torch.Tensor, seed: int) -> torch.Tensor:
     return r * torch.cos(_TWO_PI_F32 * u2)
 
 
-def draw_z(shape, seed: int, device="cpu") -> torch.Tensor:
-    """z(seed) over a leaf of `shape`; counters are flat row-major indices
-    modulo 2³² (the plain counterpart of `repro.kernels.ref.draw_z_ref`)."""
+def flat_counters(shape, off: int = 0, device="cpu") -> torch.Tensor:
+    """int64 counters `off` + flat row-major index, modulo 2³², of `shape`."""
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device) & MASK32
-    return gaussian_from_counter(idx, seed).reshape(tuple(shape))
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return ((idx + (int(off) & MASK32)) & MASK32).reshape(tuple(shape))
 
 
-def seeded_axpy_plain(w: torch.Tensor, seed: int,
-                      scale: torch.Tensor) -> torch.Tensor:
+def draw_z(shape, seed: int, device="cpu", off: int = 0) -> torch.Tensor:
+    """z(seed) over a leaf of `shape` from counter `off` (with off = 0 the
+    plain counterpart of `repro.kernels.ref.draw_z_ref`)."""
+    return gaussian_from_counter(flat_counters(shape, off, device), seed)
+
+
+def seeded_axpy_plain(w: torch.Tensor, seed: int, scale: torch.Tensor,
+                      off: int = 0) -> torch.Tensor:
     """out = w + scale · z(seed) in f32 (two roundings, as the reference)."""
-    z = draw_z(w.shape, seed, w.device)
+    z = draw_z(w.shape, seed, w.device, off)
     return (w.to(torch.float32) + scale * z).to(w.dtype)
+
+
+def gather_counters(tokens: torch.Tensor, d: int, off: int = 0
+                    ) -> torch.Tensor:
+    """[..., d] int64 counters off + tok·d + j of the gathered rows."""
+    j = torch.arange(d, dtype=torch.int64, device=tokens.device)
+    return (tokens.to(torch.int64)[..., None] * d + j + (int(off) & MASK32)
+            ) & MASK32
+
+
+def seeded_gather_plain(w: torch.Tensor, tokens: torch.Tensor, seed: int,
+                        scale: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """Rows w[tokens] + scale · z, each row drawing its whole-table bits."""
+    z = gaussian_from_counter(gather_counters(tokens, w.shape[-1], off), seed)
+    return (w[tokens].to(torch.float32) + scale * z).to(w.dtype)
+
+
+def _check_scale(scale: torch.Tensor, device: torch.device, what: str):
+    if scale.device != device or scale.dtype != torch.float32 \
+            or scale.numel() != 1:
+        raise ValueError(f"{what}: scale must be one f32 element on {device}")
 
 
 def _lib():
@@ -93,29 +128,61 @@ def _lib():
     lib = build.load("seeded_axpy")
     fn = lib.seeded_axpy_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    gather = lib.seeded_gather_f32
+    gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+    gather.restype = ctypes.c_int
+    return fn, gather
 
 
 def seeded_axpy_cuda(w: torch.Tensor, seed: int, scale: torch.Tensor,
-                     out: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: out = w + scale · z(seed). `out` may be `w`
-    (in place). `scale` is a one-element f32 tensor on w's device, read by
-    the kernel from device memory."""
+                     out: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """Launch the CUDA kernel: out = w + scale · z(seed), counters from
+    `off`. `out` may be `w` (in place). `scale` is a one-element f32 tensor
+    on w's device, read by the kernel from device memory."""
     global launches
-    for name, t in (("w", w), ("out", out), ("scale", scale)):
+    for name, t in (("w", w), ("out", out)):
         if t.device != w.device or t.dtype != torch.float32:
             raise ValueError(f"seeded_axpy: {name} must be f32 on {w.device}")
+    _check_scale(scale, w.device, "seeded_axpy")
     if not (w.is_contiguous() and out.is_contiguous()):
         raise ValueError("seeded_axpy: w and out must be contiguous")
-    if out.shape != w.shape or scale.numel() != 1:
-        raise ValueError("seeded_axpy: out must match w; scale is a scalar")
+    if out.shape != w.shape:
+        raise ValueError("seeded_axpy: out must match w")
     from repro_torch.kernels import build
-    fn = _lib()
+    fn, _ = _lib()
     stream = torch.cuda.current_stream(w.device).cuda_stream
     status = fn(w.data_ptr(), out.data_ptr(), w.numel(),
-                int(seed) & MASK32, scale.data_ptr(), stream)
+                int(seed) & MASK32, int(off) & MASK32, scale.data_ptr(),
+                stream)
     build.check(status, "seeded_axpy_f32")
     launches += 1
+    return out
+
+
+def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor, seed: int,
+                       scale: torch.Tensor, off: int = 0) -> torch.Tensor:
+    """Launch the gathered-rows kernel: [..., D] rows w[tokens] + scale·z.
+    `w` is a contiguous f32 [V, D] table; token ids must lie in [0, V)."""
+    global gather_launches
+    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
+        raise ValueError("seeded_gather: w must be a contiguous f32 [V, D]")
+    if tokens.device != w.device or tokens.dtype != torch.int64:
+        raise ValueError(f"seeded_gather: tokens must be int64 on {w.device}")
+    _check_scale(scale, w.device, "seeded_gather")
+    tok = tokens.contiguous()
+    out = torch.empty(tuple(tokens.shape) + (w.shape[1],),
+                      dtype=torch.float32, device=w.device)
+    from repro_torch.kernels import build
+    _, fn = _lib()
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    status = fn(w.data_ptr(), tok.data_ptr(), out.data_ptr(), tok.numel(),
+                w.shape[1], int(seed) & MASK32, int(off) & MASK32,
+                scale.data_ptr(), stream)
+    build.check(status, "seeded_gather_f32")
+    gather_launches += 1
     return out

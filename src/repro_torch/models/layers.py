@@ -5,7 +5,10 @@ Params are nested dicts of tensors; scan-stacked layer leaves carry a
 leading L dim (the forward slices one layer's views per step). Compute is
 f32; attention goes through `kernels.ops.attention` (the CUDA kernel on
 the card, the plain version on the CPU). The projections stay
-`torch.matmul`, as `repro` leaves them to XLA.
+`torch.matmul`, as `repro` leaves them to XLA — except on leaves tagged by
+the fused dual forward (`kops.PerturbedParam`), which go to the fused
+kernels: `dense` to `perturbed_matmul`, `embed` to `perturbed_gather`,
+`unembed` to `perturbed_unembed`, and `rmsnorm` resolves its [D] gain.
 """
 from __future__ import annotations
 
@@ -18,24 +21,77 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
 
+#: init tag of a zero-initialized leaf in a family's `param_specs`
+ZEROS = "zeros"
+
+
+def init_from_specs(specs: dict, generator: torch.Generator, device) -> dict:
+    """Random f32 params from a family's `param_specs` — (shape, init) per
+    leaf, init a normal std, None for ones or ZEROS — with the reference's
+    scales (not its values: torch's generator is not threefry)."""
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        shape, std = node
+        if std is None:
+            return torch.ones(shape, dtype=torch.float32, device=device)
+        if std == ZEROS:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return w.mul_(std)
+    return build(specs)
+
+
+def layer_slice(blocks: dict, i: int) -> dict:
+    """Views of layer i of the scan-stacked block leaves. A tagged leaf
+    (`kops.PerturbedParam`) slices into layer i's tag, its counters
+    continuing the whole leaf's stream."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """x [..., D] @ w [D, F]."""
+    if isinstance(p["w"], kops.PerturbedParam):
+        # fused ZO dual forward: x @ (w + εz), z regenerated in-kernel
+        return kops.perturbed_matmul(x, p["w"])
     return torch.matmul(x, p["w"])
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.to(torch.float32)
     scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (xf * scale * p["g"].to(torch.float32)).to(x.dtype)
+    g = kops.resolve(p["g"])   # [D]-sized transient when tagged (fused ZO)
+    return (xf * scale * g.to(torch.float32)).to(x.dtype)
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["w"], kops.PerturbedParam):
+        # fused ZO: z drawn only for the gathered rows, never for the table
+        return kops.perturbed_gather(p["w"], tokens)
     return p["w"][tokens]
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """lm head: [.., D] @ [V, D]ᵀ → [.., V] f32 logits."""
+    if isinstance(p["w"], kops.PerturbedParam):
+        return kops.perturbed_unembed(x, p["w"])
     return torch.matmul(x.to(torch.float32), p["w"].to(torch.float32).t())
+
+
+def loss_per_client(forward, params: dict, cfg: ModelConfig,
+                    batch: dict) -> torch.Tensor:
+    """Per-client mean NLL of a language model: batch tokens/targets/mask
+    [K, b, S] → [K]; `forward(params, cfg, tokens)` gives the final hidden
+    states and the lm head (or the tied embedding) makes the logits."""
+    k, b, _ = batch["tokens"].shape
+    flat = lambda a: a.reshape((k * b,) + tuple(a.shape[2:]))  # noqa: E731
+    x = forward(params, cfg, flat(batch["tokens"]))
+    head = params.get("lm_head", params["embed"])
+    nll = cross_entropy(unembed(head, x), flat(batch["targets"]),
+                        flat(batch["mask"]))
+    return torch.mean(nll.reshape(k, b), dim=-1)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -1,0 +1,119 @@
+"""Mamba-2 (SSD) language model, the attention-free family, ported from
+`repro.models.ssm` (training forward; the serve path waits for ROADMAP A8).
+
+Block (arXiv:2405.21060): in_proj → (z gate | xBC | dt) with a causal
+depthwise conv over xBC → SSD mixing (`kernels.ops.ssd`: the CUDA kernel
+on the card, the plain version on the CPU) → gated RMSNorm → out_proj.
+Layers keep the reference's scan-stacked layout and sorted-key leaf order
+(blocks.{a_log, conv_w, dt_bias, gate_norm.g, in_proj.w, norm.g,
+out_proj.w}, embed.w, final_norm.g), on which every leaf seed depends.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return d_inner, n_heads, s.d_state, s.d_conv, s.head_dim
+
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """Nested dict of (shape, init) per leaf: init is the normal std of the
+    reference's initializer, None for ones, or `layers.ZEROS`
+    (`init` builds the tensors)."""
+    n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    d_inner, h, d_state, d_conv, _ = _dims(cfg)
+    conv_ch = d_inner + 2 * d_state          # x, B, C share the conv
+    specs = {
+        "blocks": {
+            "a_log": ((n, h), L.ZEROS),
+            "conv_w": ((n, d_conv, conv_ch), 1.0 / math.sqrt(d_conv)),
+            "dt_bias": ((n, h), L.ZEROS),
+            "gate_norm": {"g": ((n, d_inner), None)},
+            "in_proj": {"w": ((n, d, 2 * d_inner + 2 * d_state + h),
+                              1.0 / math.sqrt(d))},
+            "norm": {"g": ((n, d), None)},
+            "out_proj": {"w": ((n, d_inner, d), 1.0 / math.sqrt(d_inner))},
+        },
+        "embed": {"w": ((v, d), 0.02)},
+        "final_norm": {"g": ((d,), None)},
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": ((v, d), 0.02)}
+    return specs
+
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
+    """Random f32 params at the reference's scales."""
+    return L.init_from_specs(param_specs(cfg), generator, device)
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv + SiLU. x: [B, S, C]; w: [W, C] → [B, S, C]."""
+    b, s, c = x.shape
+    wlen = w.shape[0]
+    xp = torch.cat([x.new_zeros((b, wlen - 1, c)), x], dim=1)
+    # the reference's Python sum: 0 + term 0 + term 1 + ...
+    y = sum(xp[:, i:i + s] * w[i][None, None].to(x.dtype)
+            for i in range(wlen))
+    return F.silu(y.to(torch.float32)).to(x.dtype)
+
+
+def _block_apply(bp: Dict, x: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """One Mamba-2 block in its training form: x [B, S, D] → [B, S, D]."""
+    b, s, _ = x.shape
+    d_inner, h, n, _, p_dim = _dims(cfg)
+    res = x
+    xn = L.rmsnorm(bp["norm"], x, cfg.norm_eps)
+    zxbcdt = L.dense(bp["in_proj"], xn)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + d_inner + 2 * n]
+    dt_raw = zxbcdt[..., -h:]
+
+    xbc = _causal_conv(xbc, bp["conv_w"])
+    xs = xbc[..., :d_inner].reshape(b, s, h, p_dim)
+    b_mat = xbc[..., d_inner:d_inner + n]
+    c_mat = xbc[..., d_inner + n:]
+    # jax.nn.softplus has no threshold; torch's returns x above 20, where
+    # log1p(exp(-x)) < 2.1e-9 is below half an f32 ulp of x: the two agree
+    dt = F.softplus(dt_raw.to(torch.float32) + bp["dt_bias"][None, None])
+    a = -torch.exp(bp["a_log"])
+
+    chunk = min(cfg.ssm.chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    y, _ = kops.ssd(xs, dt, a, b_mat, c_mat, chunk=chunk)
+
+    y = y.reshape(b, s, d_inner)
+    y = L.rmsnorm(bp["gate_norm"],
+                  y * F.silu(z.to(torch.float32)).to(y.dtype), cfg.norm_eps)
+    # the reference's row-parallel `dense_rp` is `dense` on one device
+    return res + L.dense(bp["out_proj"], y)
+
+
+def forward(params: Dict, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: [B, S] → hidden [B, S, D]."""
+    x = L.embed(params["embed"], tokens)
+    for i in range(cfg.n_layers):
+        x = _block_apply(L.layer_slice(params["blocks"], i), x, cfg)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def loss_per_client(params: Dict, cfg: ModelConfig,
+                    batch: Dict) -> torch.Tensor:
+    """batch tokens/targets/mask: [K, b, S] → per-client losses [K]."""
+    return L.loss_per_client(forward, params, cfg, batch)
+

@@ -7,7 +7,7 @@ block leaf) so that leaf enumeration and per-leaf counter streams match;
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -17,7 +17,8 @@ from repro_torch.models import layers as L
 
 def param_specs(cfg: ModelConfig) -> Dict:
     """Nested dict of (shape, init) per leaf: init is the normal std of
-    `repro.models.layers._init`, or None for the ones-initialized norms."""
+    `repro.models.layers._init`, or None for the ones-initialized norms
+    (`init` builds the tensors)."""
     if cfg.moe.enabled or cfg.mla.enabled:
         raise NotImplementedError(
             f"{cfg.name}: MoE / MLA layers are not ported (ROADMAP A8: "
@@ -45,26 +46,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
     return specs
 
 
+
 def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    """Random f32 params with the reference's scales (not its values:
-    torch's generator is not threefry)."""
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        shape, std = node
-        if std is None:
-            return torch.ones(shape, dtype=torch.float32, device=device)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(std)
-    return build(param_specs(cfg))
-
-
-def _layer(blocks: Dict, i: int) -> Dict:
-    """Views of layer i of the stacked block leaves."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
-
+    """Random f32 params at the reference's scales."""
+    return L.init_from_specs(param_specs(cfg), generator, device)
 
 def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
@@ -80,34 +65,13 @@ def forward(params: Dict, cfg: ModelConfig,
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x = _block_apply(_layer(params["blocks"], i), x, positions, cfg)
+        x = _block_apply(L.layer_slice(params["blocks"], i), x, positions,
+                         cfg)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-
-
-def token_nll(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-              targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Per-sequence-row mean NLL: [B, S] → [B]."""
-    x = forward(params, cfg, tokens)
-    head = params.get("lm_head", params["embed"])
-    return L.cross_entropy(L.unembed(head, x), targets, mask)
 
 
 def loss_per_client(params: Dict, cfg: ModelConfig,
                     batch: Dict) -> torch.Tensor:
     """batch tokens/targets/mask: [K, b, S] → per-client losses [K]."""
-    k, b, s = batch["tokens"].shape
-    flat = lambda a: a.reshape((k * b,) + tuple(a.shape[2:]))  # noqa: E731
-    nll = token_nll(params, cfg, flat(batch["tokens"]),
-                    flat(batch["targets"]), flat(batch["mask"]))
-    return torch.mean(nll.reshape(k, b), dim=-1)
+    return L.loss_per_client(forward, params, cfg, batch)
 
-
-def shapes(cfg: ModelConfig) -> Tuple:
-    """Leaf shapes in flattening order (sorted keys)."""
-    def walk(node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                yield from walk(node[k])
-        else:
-            yield node[0]
-    return tuple(walk(param_specs(cfg)))

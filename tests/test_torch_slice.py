@@ -112,7 +112,7 @@ def test_unported_options_raise(kwargs):
 
 
 @pytest.mark.parametrize("pz_kw", [
-    dict(fused_perturbation=True), dict(byzantine=object()),
+    dict(desync=object()), dict(byzantine=object()),
     dict(transport=base.TransportConfig(mechanism="sign")),
     dict(transport=base.TransportConfig(scheme="static")),
     dict(channel=base.ChannelConfig(outage_db=-10.0))])
