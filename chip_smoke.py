@@ -13,8 +13,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      computes the same function, and the card's bound for the same work;
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the chained dense
-     round, the fused dense round and the ssm round;
-  4. three paths, each through `repro_torch.core.fedsim.run` with the
+     round, the fused dense round, the ssm round and the hybrid round;
+  4. four paths, each through `repro_torch.core.fedsim.run` with the
      training CLI's defaults (5 clients, batch 8, seq 64, n_perturb 4,
      analog/solution/Rayleigh, loop engine) for 3 rounds at full width,
      the launch counters set to 0 just before and read just after:
@@ -23,6 +23,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   weights never materialize), plus one full-width fused
                   dual forward held against a fresh one;
        mamba2   — mamba2-370m (the ssm family), chained;
+       hybrid   — recurrentgemma-2b (RG-LRU and local attention at
+                  head_dim 256), chained; fails above 2.0 θ of peak
+                  device memory;
   5. one `kernels` JSON line, then the result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
@@ -213,6 +216,11 @@ def check_flash_attention(torch, dev) -> dict:
         ((40, 12, 64, 64), (40, 12, 64, 64), True, None),   # main path
         ((2, 8, 48, 64), (2, 2, 80, 64), True, 32),          # GQA, Sq<Skv
         ((3, 4, 33, 16), (3, 4, 33, 16), False, None),       # tiny-model D
+        # head_dim 256 (recurrentgemma-2b): group 10 at the main shape,
+        # a window that binds (32 of 64 keys), Sq < Skv
+        ((40, 10, 64, 256), (40, 1, 64, 256), True, None),
+        ((4, 10, 64, 256), (4, 1, 64, 256), True, 32),
+        ((3, 10, 37, 256), (3, 1, 80, 256), True, 48),
     ]
     max_err = 0.0
     for qs, ks, causal, window in cases:
@@ -240,12 +248,38 @@ def check_flash_attention(torch, dev) -> dict:
     # per visible pair: q·k (2d), p·v (2d), exp and the sum (≈3)
     flops = b * h * visible * (4 * d + 3)
     b_ms, b_by = bound_ms(4.0 * 4 * b * h * s * d, flops)
+
+    # recurrentgemma-2b's attention: 10 q heads on one kv head, head_dim
+    # 256; the window (2048) does not bind at seq 64
+    (b2, h2, s2, d2), kv_shape = cases[3][0], cases[3][1]
+    q2 = torch.randn((b2, h2, s2, d2), generator=gen, device=dev)
+    k2, v2 = (torch.randn(kv_shape, generator=gen, device=dev)
+              for _ in range(2))
+    ms2 = time_ms(torch, lambda: fa.flash_attention_cuda(q2, k2, v2, True,
+                                                         2048))
+    plain2 = time_ms(torch, lambda: fa.attention_plain(q2, k2, v2, True,
+                                                       2048))
+    lib2 = time_ms(torch, lambda: sdpa(q2, k2, v2, is_causal=True,
+                                       enable_gqa=True))
+    flops2 = b2 * h2 * (s2 * (s2 + 1) // 2) * (4 * d2 + 3)
+    bytes2 = 4.0 * (2 * b2 * h2 * s2 * d2 + 2 * b2 * kv_shape[1] * s2 * d2)
+    b2_ms, b2_by = bound_ms(bytes2, flops2)
+    print(f"flash_attention: [{b},{h},{s},{d}] causal {ms:.4f} ms (plain "
+          f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {b_ms:.4f}); "
+          f"[{b2},{h2},{s2},{d2}] on [{','.join(map(str, kv_shape))}] causal "
+          f"{ms2:.4f} ms (plain {plain2:.4f}, SDPA {lib2:.4f}, bound "
+          f"{b2_ms:.4f} by {b2_by})", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:104",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "shape": f"[{b},{h},{s},{d}] causal"}
+            "shape": f"[{b},{h},{s},{d}] causal",
+            "head_dim_256": {
+                "ms": ms2, "plain_ms": plain2, "bound_ms": b2_ms,
+                "bound_by": b2_by, "library_ms": lib2,
+                "shape": f"q [{b2},{h2},{s2},{d2}] k/v "
+                         f"[{','.join(map(str, kv_shape))}] causal"}}
 
 
 def check_perturbed_matmul(torch, dev) -> dict:
@@ -379,6 +413,50 @@ def check_ssd_scan(torch, dev) -> dict:
             "library_ms": None, "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}"}
 
 
+def check_rglru_scan(torch, dev) -> dict:
+    """Bitwise against `linear_recurrence_plain` (both round a multiply,
+    then an add, per step) at the main shape with h0 zero and random, a
+    ragged shape and S = 1."""
+    from repro_torch.kernels import rglru_scan
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    main = (40, 64, 2560)                       # full recurrentgemma-2b
+    cases = [(main, False), (main, True), ((3, 37, 200), True),
+             ((5, 1, 96), True)]
+    for (bsz, s, d), with_h0 in cases:
+        # the hybrid's gate: a = exp(-8·softplus(2)·σ(r)) in (0, 1)
+        a = torch.exp(-8.0 * 2.127 * torch.sigmoid(
+            torch.randn((bsz, s, d), generator=gen, device=dev)))
+        x = torch.randn((bsz, s, d), generator=gen, device=dev)
+        h0 = (torch.randn((bsz, d), generator=gen, device=dev)
+              if with_h0 else None)
+        hs, last = rglru_scan.rglru_scan_cuda(a, x, h0)
+        hs_ref, last_ref = rglru_scan.linear_recurrence_plain(a, x, h0)
+        require_equal(torch, hs, hs_ref, f"rglru_scan hs [{bsz},{s},{d}]")
+        require_equal(torch, last, last_ref,
+                      f"rglru_scan h_last [{bsz},{s},{d}]")
+    print(f"rglru_scan: {len(cases)} cases bitwise (hs and h_last)",
+          flush=True)
+
+    bsz, s, d = main
+    a = torch.rand((bsz, s, d), generator=gen, device=dev)
+    x = torch.randn((bsz, s, d), generator=gen, device=dev)
+    ms = time_ms(torch, lambda: rglru_scan.rglru_scan_cuda(a, x))
+    plain_ms = time_ms(torch, lambda: rglru_scan.linear_recurrence_plain(
+        a, x))
+    # a, x read and hs written once, h_last written; a multiply and an add
+    b_ms, b_by = bound_ms(4.0 * (3 * bsz * s * d + bsz * d),
+                          2.0 * bsz * s * d)
+    print(f"rglru_scan: [{bsz},{s},{d}] {ms:.4f} ms (plain {plain_ms:.4f}, "
+          f"bound {b_ms:.4f} by {b_by})", flush=True)
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:52",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"a, x [{bsz},{s},{d}], h0 zero"}
+
+
 def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
                 fused: bool = False):
     """The training CLI's defaults (`python -m repro.launch.train`)."""
@@ -399,7 +477,8 @@ def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
 def check_small_reference(torch, dev) -> None:
     """Tiny models, 2 rounds: the GPU run (kernels) and the CPU run (plain
     versions) from the same weights agree (losses rtol 1e-4) — chained
-    dense, fused dense, and the ssm family."""
+    dense, fused dense, the ssm family and the hybrid family (5 layers: one
+    rra group and a tail of two)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import fedsim
@@ -411,12 +490,16 @@ def check_small_reference(torch, dev) -> None:
                        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
                        head_dim=16)
     ssm = get_arch("mamba2-370m").reduced()
+    hyb = get_arch("recurrentgemma-2b").reduced(n_layers=5)
     runs = (("chained", tiny, False), ("fused", tiny, True),
-            ("ssm", ssm, False))
+            ("ssm", ssm, False), ("hybrid", hyb, False))
 
     def to(tree, device):
-        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
-                for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
 
     for name, cfg, fused in runs:
         pz = pz_defaults(cfg, rounds=8, n_perturb=2, fused=fused)
@@ -441,13 +524,15 @@ def check_small_reference(torch, dev) -> None:
 def counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import perturbed_matmul as pmm
+    from repro_torch.kernels import rglru_scan
     from repro_torch.kernels import seeded_axpy as sa
     from repro_torch.kernels import ssd_scan
     return {"seeded_axpy": (sa, "launches"),
             "seeded_gather": (sa, "gather_launches"),
             "flash_attention": (fa, "launches"),
             "perturbed_matmul": (pmm, "launches"),
-            "ssd_scan": (ssd_scan, "launches")}
+            "ssd_scan": (ssd_scan, "launches"),
+            "rglru_scan": (rglru_scan, "launches")}
 
 
 def reset_launches() -> None:
@@ -462,12 +547,16 @@ def read_launches() -> dict:
 
 def expected_launches(cfg, rounds: int, fused: bool) -> dict:
     """What `rounds` rounds must launch, from the model's structure."""
-    from repro_torch.models import registry
+    from repro_torch.models import hybrid, registry
     n_leaves = len(registry.shapes(cfg))
     rollouts = rounds * N_PERTURB * 2
     out = dict.fromkeys(counters(), 0)
     if cfg.family == "ssm":
         out["ssd_scan"] = rollouts * cfg.n_layers
+    elif cfg.family == "hybrid":
+        kinds = hybrid.layer_kinds(cfg)
+        out["flash_attention"] = rollouts * kinds.count("a")
+        out["rglru_scan"] = rollouts * kinds.count("r")
     else:
         out["flash_attention"] = rollouts * cfg.n_layers
     if fused:
@@ -581,9 +670,13 @@ def profile_round(torch, path: dict, dev) -> None:
     print(f"profile {path['name']}: one round, wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} of wall)",
           flush=True)
-    for dev_us, count, key in rows[:15]:
-        print(f"  {dev_us / 1e3:9.3f} ms {dev_us / busy:6.3f} x{count:<5d} "
-              f"{key[:90]}", flush=True)
+    # the top 15, and the port's own kernels wherever they rank
+    ours = ("axpy_kernel", "gather_kernel", "flash_fwd", "pmm_kernel",
+            "ssd_kernel", "rglru_kernel")
+    for i, (dev_us, count, key) in enumerate(rows):
+        if i < 15 or any(name in key for name in ours):
+            print(f"  {dev_us / 1e3:9.3f} ms {dev_us / busy:6.3f} "
+                  f"x{count:<5d} {key[:90]}", flush=True)
 
 
 def main() -> int:
@@ -610,14 +703,22 @@ def main() -> int:
 
     rows = check_seeded_axpy(torch, dev)
     rows += [check_flash_attention(torch, dev),
-             check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev)]
+             check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev),
+             check_rglru_scan(torch, dev)]
     check_small_reference(torch, dev)
 
     opt, mamba = get_arch("opt-125m"), get_arch("mamba2-370m")
+    rgemma = get_arch("recurrentgemma-2b")
     paths = []
     for name, cfg, fused in (("chained", opt, False), ("fused", opt, True),
-                             ("mamba2", mamba, False)):
+                             ("mamba2", mamba, False),
+                             ("hybrid", rgemma, False)):
         path = run_path(torch, dev, name, cfg, fused)
+        if name == "hybrid" and not path["peak_theta"] <= 2.0:
+            # θ + the [2560, 256000] logits + their log-sum-exp ≈ 1.45 θ;
+            # a θ-sized copy would show as about 2.5 θ
+            raise AssertionError(f"hybrid path peak {path['peak_theta']:.2f}"
+                                 " x theta, want <= 2.0")
         if fused:
             if not path["peak_theta"] < 2.9:
                 raise AssertionError(f"fused path peak {path['peak_theta']:.2f}"

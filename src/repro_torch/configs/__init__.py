@@ -1,9 +1,10 @@
-"""Configs and the architecture registry (the dense and ssm families in
-this port)."""
-from repro_torch.configs import mamba2_370m, opt_125m
+"""Configs and the architecture registry (the dense, ssm and hybrid
+families in this port)."""
+from repro_torch.configs import mamba2_370m, opt_125m, recurrentgemma_2b
 from repro_torch.configs.base import ModelConfig
 
-_ARCHS = {"opt-125m": opt_125m.build, "mamba2-370m": mamba2_370m.build}
+_ARCHS = {"opt-125m": opt_125m.build, "mamba2-370m": mamba2_370m.build,
+          "recurrentgemma-2b": recurrentgemma_2b.build}
 
 
 def list_archs() -> list:

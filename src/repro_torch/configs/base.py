@@ -107,8 +107,9 @@ class ModelConfig:
         return count_params(self)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family variant for CPU smoke tests (the dense and
-        ssm fields as in `repro`; the other families are not ported yet)."""
+        """A tiny same-family variant for CPU smoke tests (the dense, ssm
+        and hybrid fields as in `repro`; the other families are not ported
+        yet)."""
         kw: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -122,6 +123,10 @@ class ModelConfig:
         if self.ssm.enabled:
             kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2,
                                   head_dim=16, chunk=32)
+        if self.hybrid.enabled:
+            kw["hybrid"] = HybridConfig(pattern=self.hybrid.pattern,
+                                        lru_width=64, local_window=32,
+                                        conv1d_width=4)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
 

@@ -22,14 +22,18 @@ from repro_torch.kernels.seeded_axpy import GOLDEN, MASK32, fmix32
 Params = Dict
 
 
-def flatten(params: Params, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(path, leaf) pairs in JAX's dict flattening order (sorted keys, depth
-    first) — the leaf index i that `leaf_seed` keys each stream by."""
+def flatten(params, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in JAX's flattening order (dicts by sorted key,
+    lists by index, depth first) — the leaf index i that `leaf_seed` keys
+    each stream by. Paths read `groups.a.norm.g`, `tail[0].conv_w`."""
+    if isinstance(params, dict):
+        items = ((f"{prefix}.{k}" if prefix else k, params[k])
+                 for k in sorted(params))
+    else:
+        items = ((f"{prefix}[{i}]", v) for i, v in enumerate(params))
     out = []
-    for k in sorted(params):
-        v = params[k]
-        path = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, dict):
+    for path, v in items:
+        if isinstance(v, (dict, list)):
             out.extend(flatten(v, path))
         else:
             out.append((path, v))
@@ -65,10 +69,14 @@ def _scale(scale, device: torch.device) -> torch.Tensor:
     return _const(float(scale), device)
 
 
-def _map_leaves(fn, node: Params, counter) -> Params:
-    """{k: fn(i, leaf)} over the tree, i counting leaves in `flatten` order."""
-    return {k: _map_leaves(fn, node[k], counter) if isinstance(node[k], dict)
-            else fn(next(counter), node[k]) for k in sorted(node)}
+def _map_leaves(fn, node, counter):
+    """The tree with each leaf replaced by fn(i, leaf), i counting leaves in
+    `flatten` order (dicts by sorted key, lists by index)."""
+    if isinstance(node, dict):
+        return {k: _map_leaves(fn, node[k], counter) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_map_leaves(fn, v, counter) for v in node]
+    return fn(next(counter), node)
 
 
 def perturb(params: Params, seed: int, scale, *,

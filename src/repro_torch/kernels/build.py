@@ -22,7 +22,8 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("seeded_axpy", "flash_attention", "perturbed_matmul", "ssd_scan")
+SOURCES = ("seeded_axpy", "flash_attention", "perturbed_matmul", "ssd_scan",
+           "rglru_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -19,6 +19,22 @@
 // normalizer l and accumulator with the rescale alpha = exp(m - m_new),
 // exactly the TPU kernel's per-tile update. Plain f32 FMA, no TF32 and no
 // tensor cores: this is the first, simple version (wgmma/TMA later).
+//
+// Head dim 256 (recurrentgemma-2b: q [40,10,64,256] against one kv head
+// [40,1,64,256], causal, window 2048) does not fit that design: a thread
+// would hold 512 floats of q and accumulator, and [32][256] key and value
+// tiles are 64 KB, over the 48 KB static limit. flash_fwd_split_kernel
+// splits each query row over kLanes = 8 adjacent lanes of a warp (four
+// rows per warp, 16 per block: 16 ran faster than 32 or 8 on the H100);
+// lane k owns the float4 columns 4k + 32i (i = 0..7), 32 of the 256, so a
+// group reads 128 contiguous bytes of a shared-memory row per step and no
+// two lanes of a group share a bank. A score is the lane's partial dot
+// reduced over its group with three xor shuffles; every lane of the group
+// then keeps the same running max and normalizer. Key tiles are 16 rows
+// (16 KB each for k and v).
+// Bound at that shape: bytes, 57.7 MB of q/k/v/out, at least 17.2 us at
+// 3.35 TB/s; the 0.85 GFLOP of the visible pairs need 12.7 us at
+// 67 TFLOP/s.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -129,6 +145,145 @@ int launch(const float* q, const float* k, const float* v, float* o, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kLanes = 8;                  // lanes per query row (split D)
+constexpr int kSplitRows = 16;             // query rows per block
+constexpr int kSplitThreads = kSplitRows * kLanes;
+constexpr int kSplitBK = 16;               // key rows per shared-memory tile
+
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_fwd_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int hq, int hkv, int sq, int skv, float scale,
+                       int causal, int window) {
+  static_assert(D % (4 * kLanes) == 0, "D must split into float4 per lane");
+  constexpr int kVec = D / (4 * kLanes);   // float4 columns per lane
+  __shared__ float4 ks[kSplitBK][D / 4];
+  __shared__ float4 vs[kSplitBK][D / 4];
+
+  const int bh = blockIdx.x;               // b * hq + h
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int kvh = b * hkv + h / (hq / hkv);
+  const int sq_offset = skv - sq;
+  const int lane = threadIdx.x % kLanes;
+  const int row = blockIdx.y * kSplitRows + threadIdx.x / kLanes;
+  const bool active = row < sq;
+  const int q_pos = sq_offset + row;
+
+  float4 qr[kVec];
+  float4 acc[kVec];
+  const float4* qp = reinterpret_cast<const float4*>(
+      q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const float4 t = qp[i * kLanes + lane];
+    qr[i] = active ? make_float4(__fmul_rn(t.x, scale), __fmul_rn(t.y, scale),
+                                 __fmul_rn(t.z, scale), __fmul_rn(t.w, scale))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = -INFINITY;
+  float l = 0.0f;
+
+  const int q_first = sq_offset + blockIdx.y * kSplitRows;
+  const int q_last =
+      sq_offset + min(static_cast<int>(blockIdx.y) * kSplitRows + kSplitRows, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
+  const float4* kb = reinterpret_cast<const float4*>(k + static_cast<int64_t>(kvh) * skv * D);
+  const float4* vb = reinterpret_cast<const float4*>(v + static_cast<int64_t>(kvh) * skv * D);
+
+  for (int k0 = (k_begin / kSplitBK) * kSplitBK; k0 < k_end; k0 += kSplitBK) {
+    __syncthreads();                       // previous tile fully consumed
+    for (int e = threadIdx.x; e < kSplitBK * (D / 4); e += kSplitThreads) {
+      const int j = e / (D / 4);
+      const int c = e - j * (D / 4);
+      const bool ok = k0 + j < skv;
+      const int64_t src = static_cast<int64_t>(k0 + j) * (D / 4) + c;
+      ks[j][c] = ok ? kb[src] : make_float4(0.f, 0.f, 0.f, 0.f);
+      vs[j][c] = ok ? vb[src] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+
+    float s[kSplitBK];
+    float m_tile = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kSplitBK; ++j) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float4 kv = ks[j][i * kLanes + lane];
+        dot = fmaf(qr[i].x, kv.x, dot);
+        dot = fmaf(qr[i].y, kv.y, dot);
+        dot = fmaf(qr[i].z, kv.z, dot);
+        dot = fmaf(qr[i].w, kv.w, dot);
+      }
+      // every lane of the warp takes part: the groups are lane-aligned
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off /= 2)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      const int kp = k0 + j;
+      bool visible = active && kp < skv;
+      if (causal) visible = visible && kp <= q_pos;
+      if (window > 0) visible = visible && kp > q_pos - window;
+      s[j] = visible ? dot : -INFINITY;
+      m_tile = fmaxf(m_tile, s[j]);
+    }
+    const float m_new = fmaxf(m, m_tile);
+    if (m_new == -INFINITY) continue;      // this row sees no key yet
+    const float alpha = expf(m - m_new);   // exp(-inf) = 0 on the first hit
+    float p_sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSplitBK; ++j) {
+      s[j] = s[j] == -INFINITY ? 0.0f : expf(s[j] - m_new);
+      p_sum += s[j];
+    }
+    l = alpha * l + p_sum;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      acc[i].x *= alpha; acc[i].y *= alpha; acc[i].z *= alpha; acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kSplitBK; ++j) {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        const float4 vv = vs[j][i * kLanes + lane];
+        acc[i].x = fmaf(s[j], vv.x, acc[i].x);
+        acc[i].y = fmaf(s[j], vv.y, acc[i].y);
+        acc[i].z = fmaf(s[j], vv.z, acc[i].z);
+        acc[i].w = fmaf(s[j], vv.w, acc[i].w);
+      }
+    }
+    m = m_new;
+  }
+
+  if (active) {
+    const float denom = fmaxf(l, 1e-30f);
+    float4* op = reinterpret_cast<float4*>(o + (static_cast<int64_t>(bh) * sq + row) * D);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i)
+      op[i * kLanes + lane] = make_float4(acc[i].x / denom, acc[i].y / denom,
+                                          acc[i].z / denom, acc[i].w / denom);
+  }
+}
+
+template <int D>
+int launch_split(const float* q, const float* k, const float* v, float* o,
+                 int b, int hq, int hkv, int sq, int skv, float scale,
+                 int causal, int window, cudaStream_t stream) {
+  // float4 rows: torch allocations are 256-byte aligned and D * 4 is a
+  // multiple of 16, so every row starts 16-byte aligned
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorMisalignedAddress;
+  const dim3 grid(static_cast<unsigned int>(b * hq),
+                  static_cast<unsigned int>((sq + kSplitRows - 1) / kSplitRows));
+  flash_fwd_split_kernel<D><<<grid, kSplitThreads, 0, stream>>>(
+      q, k, v, o, hq, hkv, sq, skv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q [b, hq, sq, d], k/v [b, hkv, skv, d], o [b, hq, sq, d]; all contiguous
@@ -145,6 +300,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 16: return launch<16>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 32: return launch<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 64: return launch<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 256: return launch_split<256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }

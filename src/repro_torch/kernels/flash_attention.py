@@ -3,12 +3,15 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py:
 flash_attention_pallas` (body `_flash_kernel`) with the hand-written CUDA
-kernel in `csrc/flash_attention.cu` (f32, head_dim 16, 32 or 64 as is — no
-padding to 128 as the TPU path needs).
+kernel in `csrc/flash_attention.cu` (f32, head_dim 16, 32, 64 or 256 as
+is — no padding to 128 as the TPU path needs).
 
-Bound on the H100 at the main path's shape ([40,12,64,64], causal): bytes,
-31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. The kernel keeps each query
-row's accumulator in registers and stages key/value tiles in shared
+Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
+31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. At recurrentgemma-2b's
+(q [40,10,64,256] against one kv head [40,1,64,256], causal, window
+2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
+67 TFLOP/s. The kernel keeps each query row's accumulator in registers
+(split over 8 lanes at head_dim 256) and stages key/value tiles in shared
 memory, so scores and probabilities never reach device memory, and skips
 key tiles no row of the block can see.
 
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 256)
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import perturbed_matmul as pmm
+from repro_torch.kernels import rglru_scan
 from repro_torch.kernels import seeded_axpy as sa
 from repro_torch.kernels import ssd_scan
 
@@ -154,3 +155,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if _on_cuda(x):
         return ssd_scan.ssd_scan_cuda(x, dt, a, b, c, state0, chunk)
     return ssd_scan.ssd_plain(x, dt, a, b, c, state0, chunk)
+
+
+# ---------------------------------------------------------------------------
+# linear recurrence (RG-LRU)
+# ---------------------------------------------------------------------------
+
+def linear_recurrence(a: torch.Tensor, x: torch.Tensor,
+                      h0: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t ⊙ h_{t−1} + x_t. a, x: [B,S,D]; h0: [B,D] (zeros if
+    None) → (hs [B,S,D], h_last [B,D])."""
+    if _on_cuda(x):
+        return rglru_scan.rglru_scan_cuda(a, x, h0)
+    return rglru_scan.linear_recurrence_plain(a, x, h0)

@@ -11,7 +11,8 @@ backend. This module holds the stream twice:
 * the plain PyTorch version (`gaussian_from_counter`, `seeded_axpy_plain`)
   — the uint32 arithmetic runs in int64 masked to 32 bits, and every
   product that could pass 2⁶³ (x·0x846CA68B, seed·0x9E3779B9) is split into
-  16-bit halves (`mul32`), so nothing relies on signed overflow;
+  16-bit halves (`mul32`), so nothing relies on signed overflow; on the
+  CPU the Box–Muller step runs on the calling thread (`_box_muller_cpu`);
 * the CUDA wrappers (`seeded_axpy_cuda`, `seeded_gather_cuda`), which
   launch the kernels and count their launches in `launches` and
   `gather_launches`.
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -71,11 +73,32 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(f, _INV24)
 
 
+def _box_muller_cpu(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Box–Muller on CPU tensors with the same f32 steps as the kernel,
+    log and cos correctly rounded (evaluated in f64, then rounded).
+
+    torch's CPU log, cos and sqrt go to MKL's vector math library over
+    OpenMP threads, and the first such call of a process sometimes returns
+    one thread's chunk wrong (up to ~1600 ulp): the library's first-use
+    set-up races between the threads. numpy evaluates on the calling
+    thread, so the draw no longer depends on which thread computes it."""
+    u1n, u2n = u1.numpy(), u2.numpy()
+    lg = np.log(u1n.astype(np.float64)).astype(np.float32)
+    r = np.sqrt(np.float32(-2.0) * lg)                # IEEE f32 sqrt
+    ang = np.float32(_TWO_PI_F32) * u2n
+    c = np.cos(ang.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(r * c)
+
+
 def gaussian_from_counter(idx: torch.Tensor, seed: int) -> torch.Tensor:
     """Standard normal z[idx] for int64 counters idx (values < 2³²)."""
     base = (idx * 2 + mul32(int(seed) & MASK32, GOLDEN)) & MASK32
     u1 = bits_to_unit(fmix32(base))
     u2 = bits_to_unit(fmix32((base + 1) & MASK32))
+    if idx.device.type == "cpu":
+        return _box_muller_cpu(u1, u2)
+    # on the card: the precise logf/sqrtf/cosf the kernel calls, so the
+    # plain version and the kernel agree bitwise
     r = torch.sqrt(-2.0 * torch.log(u1))
     return r * torch.cos(_TWO_PI_F32 * u2)
 

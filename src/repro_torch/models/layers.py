@@ -13,6 +13,7 @@ kernels: `dense` to `perturbed_matmul`, `embed` to `perturbed_gather`,
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -21,22 +22,31 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
 
-#: init tag of a zero-initialized leaf in a family's `param_specs`
-ZEROS = "zeros"
+@dataclass(frozen=True)
+class Fill:
+    """init tag of a constant-filled leaf in a family's `param_specs`"""
+    value: float
+
+
+ZEROS = Fill(0.0)
 
 
 def init_from_specs(specs: dict, generator: torch.Generator, device) -> dict:
-    """Random f32 params from a family's `param_specs` — (shape, init) per
-    leaf, init a normal std, None for ones or ZEROS — with the reference's
-    scales (not its values: torch's generator is not threefry)."""
+    """Random f32 params from a family's `param_specs` — nested dicts and
+    lists of (shape, init) per leaf, init a normal std, None for ones or a
+    `Fill` — with the reference's scales (not its values: torch's
+    generator is not threefry). Normal leaves draw in flattening order."""
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
         shape, std = node
         if std is None:
             return torch.ones(shape, dtype=torch.float32, device=device)
-        if std == ZEROS:
-            return torch.zeros(shape, dtype=torch.float32, device=device)
+        if isinstance(std, Fill):
+            return torch.full(shape, std.value, dtype=torch.float32,
+                              device=device)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
         return w.mul_(std)

@@ -1,8 +1,10 @@
-"""Architecture-family registry (the dense and ssm families in this port).
+"""Architecture-family registry (the dense, ssm and hybrid families in
+this port).
 
-Each family module gives `param_specs(cfg)` (a nested dict of (shape,
-init) per leaf), `init` and `loss_per_client`. Leaves enumerate in
-sorted-key order, as JAX flattens the reference's param dicts.
+Each family module gives `param_specs(cfg)` (nested dicts and lists of
+(shape, init) per leaf), `init` and `loss_per_client`. Leaves enumerate
+as JAX flattens the reference's params: dicts by sorted key, lists by
+index.
 """
 from __future__ import annotations
 
@@ -12,9 +14,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.core.zo import flatten
+from repro_torch.models import hybrid, ssm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm}
+_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
 
 
 def get_module(cfg: ModelConfig):
@@ -31,14 +34,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
 
 
 def shapes(cfg: ModelConfig) -> Tuple:
-    """Leaf shapes in flattening order (sorted keys)."""
-    def walk(node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                yield from walk(node[k])
-        else:
-            yield node[0]
-    return tuple(walk(get_module(cfg).param_specs(cfg)))
+    """Leaf shapes in flattening order (sorted keys, lists by index)."""
+    return tuple(spec[0] for _, spec in
+                 flatten(get_module(cfg).param_specs(cfg)))
 
 
 def count_params(cfg: ModelConfig) -> int:

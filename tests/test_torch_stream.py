@@ -69,6 +69,49 @@ def test_z_within_ulps_of_draw_z_ref(shape, seed):
     assert _ulps(z, z_ref).max() <= Z_ULPS
 
 
+_FIRST_DRAW = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import seeded_axpy as sa
+first = sa.draw_z((300, 70), 7)
+print(int((first != sa.draw_z((300, 70), 7)).sum()))
+"""
+
+
+def test_first_draw_in_a_fresh_process_is_thread_independent():
+    """The first z draw of a fresh process equals a later one, bitwise.
+
+    torch's CPU log/cos/sqrt run on MKL's vector math over OpenMP threads,
+    and the first such call of a process returned one thread's chunk wrong
+    (up to ~1600 ulp) in about 1 process in 13 started 8 at a time. 32
+    fresh processes, each drawing first thing, would all but surely show it
+    (P ≈ 0.92 at that rate)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    width = min(8, os.cpu_count() or 1)
+    diffs = []
+    for _ in range(32 // width):
+        procs = [subprocess.Popen([sys.executable, "-c", _FIRST_DRAW, src],
+                                  stdout=subprocess.PIPE, env=env, text=True)
+                 for _ in range(width)]
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=300)
+                assert p.returncode == 0
+                diffs.append(int(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    assert len(diffs) == 32 // width * width
+    assert diffs == [0] * len(diffs), diffs
+
+
 def test_seeded_axpy_plain_matches_reference():
     """ops.seeded_axpy on a CPU tensor: out = w + scale·z, in and out of
     place (atol: 3 ulp of |z| ≤ 6 times |scale|, plus one ulp of w)."""
