@@ -11,6 +11,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      shapes, with stated tolerances, then timed (CUDA events, warm-up,
      median) beside the plain version, a PyTorch library call where one
      computes the same function, and the card's bound for the same work;
+     perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
+     drawn once per weight), and with its registers, shared memory and
+     cluster size;
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the chained dense
      round, the fused dense round, the ssm round and the hybrid round;
@@ -54,7 +57,9 @@ PMM_LAYER = (((768, 768),) * 4 + ((768, 3072),) * 2 + ((3072, 768),))
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
-    """Median CUDA-event time of one call of fn, after warm-up."""
+    """Median CUDA-event time of one call of fn, after warm-up. For a call
+    whose device time is below its host launch overhead this is the
+    overhead; device_ms gives the device's own time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -68,6 +73,25 @@ def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of one call of fn: the self time of its CUDA
+    kernels under torch.profiler over reps calls, after a warm-up. Unlike
+    time_ms it leaves out the host's launch overhead, which exceeds the
+    device time of a call this short (tens of microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / reps / 1e3
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple:
@@ -221,6 +245,10 @@ def check_flash_attention(torch, dev) -> dict:
         ((40, 10, 64, 256), (40, 1, 64, 256), True, None),
         ((4, 10, 64, 256), (4, 1, 64, 256), True, 32),
         ((3, 10, 37, 256), (3, 1, 80, 256), True, 48),
+        # Skv over one key tile of the head_dim <= 64 kernel (32 keys)
+        ((2, 12, 200, 64), (2, 12, 200, 64), True, None),
+        ((2, 12, 37, 64), (2, 4, 300, 64), True, 64),
+        ((3, 4, 150, 32), (3, 4, 150, 32), False, None),
     ]
     max_err = 0.0
     for qs, ks, causal, window in cases:
@@ -244,6 +272,8 @@ def check_flash_attention(torch, dev) -> dict:
     plain_ms = time_ms(torch, lambda: fa.attention_plain(q, k, v, True))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
+    dev_ms = device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, True))
+    lib_dev_ms = device_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
     visible = s * (s + 1) // 2                 # causal pairs per head
     # per visible pair: q·k (2d), p·v (2d), exp and the sum (≈3)
     flops = b * h * visible * (4 * d + 3)
@@ -265,7 +295,8 @@ def check_flash_attention(torch, dev) -> dict:
     bytes2 = 4.0 * (2 * b2 * h2 * s2 * d2 + 2 * b2 * kv_shape[1] * s2 * d2)
     b2_ms, b2_by = bound_ms(bytes2, flops2)
     print(f"flash_attention: [{b},{h},{s},{d}] causal {ms:.4f} ms (plain "
-          f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {b_ms:.4f}); "
+          f"{plain_ms:.4f}, SDPA {library_ms:.4f}, bound {b_ms:.4f}; device "
+          f"time {dev_ms:.4f}, SDPA {lib_dev_ms:.4f}); "
           f"[{b2},{h2},{s2},{d2}] on [{','.join(map(str, kv_shape))}] causal "
           f"{ms2:.4f} ms (plain {plain2:.4f}, SDPA {lib2:.4f}, bound "
           f"{b2_ms:.4f} by {b2_by})", flush=True)
@@ -274,6 +305,7 @@ def check_flash_attention(torch, dev) -> dict:
             "replaces": "src/repro/kernels/flash_attention.py:104",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
             "shape": f"[{b},{h},{s},{d}] causal",
             "head_dim_256": {
                 "ms": ms2, "plain_ms": plain2, "bound_ms": b2_ms,
@@ -284,15 +316,21 @@ def check_flash_attention(torch, dev) -> dict:
 
 def check_perturbed_matmul(torch, dev) -> dict:
     """Against the plain version at every main-path (K, N) with M = 2560
-    and a ragged case, to max|Δ| ≤ 1e-5·max|ref| (f32 sums in another
-    order); the identity probe bitwise against the seeded_axpy kernel."""
+    and at ragged and cluster-padded shapes, to max|Δ| ≤ 1e-5·max|ref|
+    (f32 sums in another order); the identity probes bitwise against the
+    seeded_axpy kernel."""
     from repro_torch.kernels import perturbed_matmul as pmm
     from repro_torch.kernels import seeded_axpy as sa
 
     gen = torch.Generator(device=dev).manual_seed(2)
     eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
     cases = [(M_ROWS, k, n, 3 * k * n) for k, n in PMM_SHAPES]
-    cases.append((37, 200, 300, 2**32 - 7777))       # ragged, wrapping off
+    cases += [(37, 200, 300, 2**32 - 7777),        # ragged, wrapping off
+              # M not a multiple of the cluster's rows; a long K at a small
+              # M; N ragged with a wrapping off
+              (M_ROWS + 37, 768, 768, 11 * 768 * 768),
+              (300, 3072, 768, 5 * 3072 * 768),
+              (640, 768, 300, 2**32 - 4242)]
     max_err = max_rel = 0.0
     for m, k, n, off in cases:
         x = torch.randn((m, k), generator=gen, device=dev)
@@ -306,7 +344,9 @@ def check_perturbed_matmul(torch, dev) -> dict:
             raise AssertionError(f"perturbed_matmul [{m},{k}]x[{k},{n}]: max "
                                  f"err {err} > 1e-5 x {ref}")
         max_err, max_rel = max(max_err, err), max(max_rel, err / ref)
-    for k, n, off in ((768, 768, 5 * 768 * 768), (200, 300, 2**32 - 7777)):
+    probes = ((768, 768, 5 * 768 * 768), (200, 300, 2**32 - 7777),
+              (3072, 768, 7 * 3072 * 768))
+    for k, n, off in probes:
         w = torch.randn((k, n), generator=gen, device=dev)
         probe = pmm.perturbed_matmul_cuda(torch.eye(k, device=dev), w, 66,
                                           off, eps)
@@ -314,8 +354,8 @@ def check_perturbed_matmul(torch, dev) -> dict:
         require_equal(torch, probe, axpy,
                       f"perturbed_matmul identity probe [{k},{n}]")
     print(f"perturbed_matmul: {len(cases)} cases ok, max err {max_err:.3e}"
-          f", max |err|/max|ref| {max_rel:.3e}; identity probes bitwise",
-          flush=True)
+          f", max |err|/max|ref| {max_rel:.3e}; {len(probes)} identity "
+          "probes bitwise", flush=True)
 
     # one OPT-125M layer's seven projections at M = 2560
     x = {k: torch.randn((M_ROWS, k), generator=gen, device=dev)
@@ -323,33 +363,61 @@ def check_perturbed_matmul(torch, dev) -> dict:
     ws = [torch.randn(s, generator=gen, device=dev) for s in PMM_LAYER]
     resolved = [sa.seeded_axpy_cuda(w, 7, eps, torch.empty_like(w), 0)
                 for w in ws]
-    per_shape = {}
+    per_shape, per_shape_lib = {}, {}
     for (k, n) in PMM_SHAPES:
-        w = ws[PMM_LAYER.index((k, n))]
+        i = PMM_LAYER.index((k, n))
         per_shape[f"{k}x{n}"] = time_ms(
-            torch, lambda: pmm.perturbed_matmul_cuda(x[k], w, 7, 0, eps))
+            torch, lambda: pmm.perturbed_matmul_cuda(x[k], ws[i], 7, 0, eps))
+        per_shape_lib[f"{k}x{n}"] = time_ms(
+            torch, lambda: torch.matmul(x[k], resolved[i]))
     ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
         x[w.shape[0]], w, 7, 0, eps) for w in ws])
     plain_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_plain(
         x[w.shape[0]], w, 7, 0, eps) for w in ws])
     library_ms = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
                                          for w, r in zip(ws, resolved)])
+    dev_ms = device_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
+        x[w.shape[0]], w, 7, 0, eps) for w in ws], reps=5)
+    lib_dev_ms = device_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
+                                           for w, r in zip(ws, resolved)],
+                           reps=5)
+    # the same layer at M = BM·C rows (z drawn once per weight) beside
+    # cuBLAS there
+    m_one = pmm.BM * pmm.CLUSTER
+    one_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
+        x[w.shape[0]][:m_one], w, 7, 0, eps) for w in ws])
+    one_lib = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]][:m_one], r)
+                                      for w, r in zip(ws, resolved)])
+    attrs = {f"{k}x{n}": pmm.kernel_attributes(M_ROWS, n)
+             for k, n in PMM_SHAPES}
     flops = sum(2.0 * M_ROWS * k * n for k, n in PMM_LAYER)
     n_bytes = sum(4.0 * (M_ROWS * k + k * n + M_ROWS * n)
                   for k, n in PMM_LAYER)
     b_ms, b_by = bound_ms(n_bytes, flops)
+    draws = M_ROWS / (pmm.BM * pmm.CLUSTER)
     print(f"perturbed_matmul per call at M={M_ROWS}: "
-          + ", ".join(f"{s} {t:.4f} ms" for s, t in per_shape.items())
+          + ", ".join(f"{s} {t:.4f} ms (cuBLAS {per_shape_lib[s]:.4f})"
+                      for s, t in per_shape.items())
           + f"; one layer's 7 {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS "
           f"SGEMM on resolved weights {library_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+          f"{b_ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s); device time "
+          f"{dev_ms:.4f} ms, cuBLAS {lib_dev_ms:.4f} ms", flush=True)
+    print(f"perturbed_matmul one layer's 7 at M={m_one} (one draw per "
+          f"weight): {one_ms:.4f} ms, cuBLAS {one_lib:.4f} ms", flush=True)
+    for s, a in attrs.items():
+        print(f"perturbed_matmul kernel at {M_ROWS}x{s}: {a}", flush=True)
     return {"name": "perturbed_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/perturbed_matmul.cu",
             "replaces": "src/repro/kernels/perturbed_matmul.py:71",
             "max_abs_err": max_err, "max_rel_err": max_rel, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "library": "torch.matmul (cuBLAS SGEMM) on resolved w + eps*z",
-            "per_call_ms": per_shape,
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+            "per_call_ms": per_shape, "per_call_library_ms": per_shape_lib,
+            "cluster": pmm.CLUSTER, "draws_per_weight": draws,
+            "one_draw_rows": m_one,
+            "one_draw_ms": one_ms, "one_draw_library_ms": one_lib,
+            "kernel_attributes": attrs,
             "shape": f"one OPT-125M layer's 7 projections at M={M_ROWS}"}
 
 

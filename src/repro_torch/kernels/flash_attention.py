@@ -10,10 +10,11 @@ Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
 31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. At recurrentgemma-2b's
 (q [40,10,64,256] against one kv head [40,1,64,256], causal, window
 2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
-67 TFLOP/s. The kernel keeps each query row's accumulator in registers
-(split over 8 lanes at head_dim 256) and stages key/value tiles in shared
-memory, so scores and probabilities never reach device memory, and skips
-key tiles no row of the block can see.
+67 TFLOP/s. The kernel keeps each query row's accumulator in registers,
+split over 4 lanes at head_dim ≤ 64 (key/value tiles of 32 rows copied by
+`cp.async` into two buffers) and over 8 lanes at head_dim 256, so scores
+and probabilities never reach device memory, and skips key tiles no row
+of the block can see.
 
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
 `repro.kernels.ref.attention_ref`); `launches` counts kernel launches.

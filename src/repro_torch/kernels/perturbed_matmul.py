@@ -11,9 +11,12 @@ OPT-125M; (K, N) ∈ {(768, 768), (768, 3072), (3072, 768)}): f32
 operations — 2·M·K·N, e.g. 2·2560·768·3072 = 12.1 GFLOP, at least 0.18 ms
 at 67 TFLOP/s, while x, w and out move 17 MB (5 µs). The kernel keeps
 plain f32 FMA (no TF32, no tensor cores) in 128 × 128 output tiles with an
-8 × 8 register micro-tile per thread, and generates each 16 × 128 tile of
-w + eps·z in shared memory: z is drawn M/128 = 20 times per weight at
-M = 2560, a fixed cost on top of the product.
+8 × 8 register micro-tile per thread. The blocks that read the same w
+columns form a thread-block cluster of `CLUSTER` blocks stacked along M:
+each draws 1/CLUSTER of every 16 × 128 tile of w + eps·z and stores it
+into the shared memory of all of them, so z is drawn M / (128·CLUSTER)
+times per weight (5 at M = 2560), and x tiles arrive by `cp.async` ahead
+of the product.
 
 `perturbed_matmul_plain` is the plain PyTorch version (resolve w + eps·z,
 then `torch.matmul` in f32); `launches` counts kernel launches.
@@ -28,6 +31,9 @@ from repro_torch.kernels import seeded_axpy as sa
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
+#: blocks per thread-block cluster along M: kCluster of the CUDA source
+CLUSTER = 4
+BM = 128            # output rows per block
 
 
 def perturbed_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed: int,
@@ -39,11 +45,28 @@ def perturbed_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed: int,
 
 def _lib():
     from repro_torch.kernels import build
-    fn = build.load("perturbed_matmul").perturbed_matmul_f32
+    lib = build.load("perturbed_matmul")
+    fn = lib.perturbed_matmul_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_attributes(m: int, n: int) -> dict:
+    """The kernel as built and launched for an [m, ·] × [·, n] call on the
+    current CUDA device: registers and local memory per thread, shared
+    memory per block, cluster size and residency."""
+    from repro_torch.kernels import build
+    fn = build.load("perturbed_matmul").perturbed_matmul_attributes
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    build.check(fn(m, n, ctypes.addressof(info)),
+                "perturbed_matmul_attributes")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "cluster", "resident_clusters", "blocks_per_sm", "grid_blocks")
+    return dict(zip(keys, info))
 
 
 def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
@@ -68,6 +91,9 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
     n = w.shape[1]
     if max(m, k, n) >= 2**31:
         raise ValueError("perturbed_matmul: dims must be below 2³¹")
+    if -(-m // (BM * CLUSTER)) * CLUSTER > 65535:
+        raise ValueError(f"perturbed_matmul: M = {m} needs more than 65535 "
+                         "row blocks")
     from repro_torch.kernels import build
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -26,6 +26,7 @@ function.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,12 +38,26 @@ MAX_D_STATE = 128
 launches = 0
 
 
+@functools.cache
+def _serial_first_exp() -> None:
+    """One exp below the intra-op grain, so on the calling thread. torch's
+    CPU exp runs MKL's vector math over OpenMP threads, and when the first
+    such call of a process is parallel, the library's first-use set-up
+    races between the threads and one chunk may come out wrong (1 in 32
+    fresh processes for a first ssd_plain at [2, 96, 3, 16]; ROADMAP C).
+    After a serial first call it never did. The result bits are torch's
+    own either way."""
+    torch.exp(torch.zeros(1))
+
+
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor,
               state0: Optional[torch.Tensor], chunk: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD in plain PyTorch: a loop over chunks, dense products
     within. Returns (y [B,S,H,P], state [B,H,P,N] f32)."""
+    if x.device.type == "cpu":
+        _serial_first_exp()
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     chunk = min(chunk, s)

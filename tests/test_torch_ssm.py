@@ -91,6 +91,57 @@ def test_ssd_plain_rejects_ragged_chunks():
         ssd_scan.ssd_plain(*t, None, 16)
 
 
+_FIRST_SSD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from repro_torch.kernels.ssd_scan import ssd_plain
+rng = np.random.default_rng(0)
+b, s, h, p, n = 8, 96, 3, 16, 8
+args = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        for shape in ((b, s, h, p), (b, s, h), (h,), (b, s, n), (b, s, n))]
+args[1] = args[1].abs() + 0.1                 # dt > 0, made without torch math
+args[2] = -(args[2].abs() + 0.5)              # a < 0
+first, _ = ssd_plain(*args, None, 32)
+print(int((first != ssd_plain(*args, None, 32)[0]).sum()))
+"""
+
+
+def test_first_ssd_plain_in_a_fresh_process_is_thread_independent():
+    """The first ssd_plain of a fresh process equals a later one, bitwise.
+
+    Its exps are the process's first calls of MKL's vector math over
+    OpenMP threads (the inputs are made without torch math), whose
+    first-use set-up raced between threads: about 1 process in 16 got a
+    chunk of y wrong at this shape, started 8 at a time. 32 fresh
+    processes would all but surely show it (P ≈ 0.87 at that rate)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    width = min(8, os.cpu_count() or 1)
+    diffs = []
+    for _ in range(32 // width):
+        procs = [subprocess.Popen([sys.executable, "-c", _FIRST_SSD, src],
+                                  stdout=subprocess.PIPE, env=env, text=True)
+                 for _ in range(width)]
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=300)
+                assert p.returncode == 0
+                diffs.append(int(out.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    assert len(diffs) == 32 // width * width
+    assert diffs == [0] * len(diffs), diffs
+
+
 def _pair():
     cfg = get_arch("mamba2-370m").reduced()
     jcfg = jreg.get_arch("mamba2-370m").reduced()
