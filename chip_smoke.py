@@ -13,7 +13,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      computes the same function, and the card's bound for the same work;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
      drawn once per weight), and with its registers, shared memory and
-     cluster size;
+     cluster size; ssd_scan's two entries (y only, as training calls it,
+     and with the final state) checked in five cases and timed warm and
+     with the L2 flushed, with its three kernels' registers, local memory
+     and shared memory;
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the chained dense
      round, the fused dense round, the ssm round and the hybrid round;
@@ -92,6 +95,32 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA)
     return total_us / reps / 1e3
+
+
+def device_span_ms(torch, fn, reps: int = 20) -> float:
+    """Median device span of one call of fn that launches several kernels:
+    from its first kernel's start to its last kernel's end under
+    torch.profiler, after a warm-up. Unlike device_ms it counts kernels
+    that overlap (a programmatic dependent launch) once, and the gaps
+    between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    per = len(kernels) // reps
+    if per * reps != len(kernels):
+        raise AssertionError(f"{len(kernels)} kernels in {reps} calls")
+    return statistics.median(
+        max(end for _, end in kernels[i:i + per]) - kernels[i][0]
+        for i in range(0, len(kernels), per)) / 1e3
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple:
@@ -433,23 +462,70 @@ def ssd_inputs(torch, dev, gen, bsz, s, h, p, n, with_state):
     return x, dt, a, b, c, s0
 
 
+def ssd_work(bsz, s, h, p, n, q, with_state0, want_state) -> tuple:
+    """Bytes and f32 operations one ssd_scan call needs: each input read
+    and each output written once; C·Bᵀ once per (batch row, chunk) and
+    M·(x·dt) per head, both over their causal half; C·S_prev for each chunk
+    with a carried state, and the state update for each chunk whose state
+    is used (by the next chunk, or returned). Exps and scalings are not
+    counted."""
+    nc = s // q
+    tri = q * (q + 1) // 2
+    carried = nc - 1 + int(with_state0)
+    updates = nc - 1 + int(want_state)
+    flops = (2.0 * bsz * nc * n * tri + 2.0 * bsz * h * nc * p * tri
+             + 2.0 * bsz * h * q * n * p * (carried + updates))
+    n_bytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + h + 2 * bsz * s * n
+                     + bsz * h * p * n * (int(with_state0) + int(want_state)))
+    return n_bytes, flops
+
+
+def time_cold_ms(torch, fn, reps: int = 15) -> float:
+    """Median CUDA-event time of one call of fn with the L2 flushed before
+    each (a 256 MB write, outside the timed span; it also hides the host's
+    launch overhead, so this is the device's time with inputs cold)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def check_ssd_scan(torch, dev) -> dict:
-    """Against `ssd_plain` for y and the final state, to max|Δ| ≤
-    2e-5·max|ref| (f32 sums in another order)."""
+    """Both entries against `ssd_plain`, to max|Δ| ≤ 2e-5·max|ref| (f32
+    sums in another order): y in every case, the final state from the
+    stateful entry; the y-only entry returns no state. Then both timed at
+    the main shape, warm and with the L2 flushed, beside their bounds."""
     from repro_torch.kernels import ssd_scan
 
     gen = torch.Generator(device=dev).manual_seed(3)
     main = (40, 64, 32, 64, 128, 64, False)        # full mamba2-370m
     cases = [main,
              (2, 512, 4, 64, 128, 256, True),      # chunk 256, two chunks
-             (3, 48, 8, 16, 16, 48, True)]         # the tiny run's widths
+             (3, 48, 8, 16, 16, 48, True),         # the tiny run's widths
+             # zero state skipped on chunk 0, carried into chunk 1
+             (2, 512, 4, 64, 128, 256, False),
+             (2, 128, 5, 32, 64, 64, True)]        # odd H, narrow widths
     max_err = max_rel = 0.0
     for bsz, s, h, p, n, chunk, st in cases:
         args = ssd_inputs(torch, dev, gen, bsz, s, h, p, n, st)
         y, state = ssd_scan.ssd_scan_cuda(*args, chunk)
+        y1, none = ssd_scan.ssd_scan_cuda(*args, chunk, want_state=False)
         y_ref, state_ref = ssd_scan.ssd_plain(*args, chunk)
         torch.cuda.synchronize()
-        for name, got, want in (("y", y, y_ref), ("state", state, state_ref)):
+        if none is not None:
+            raise AssertionError("ssd_scan y-only entry returned a state")
+        for name, got, want in (("y", y, y_ref), ("state", state, state_ref),
+                                ("y (y-only entry)", y1, y_ref)):
             err = float((got - want).abs().max())
             ref = float(want.abs().max())
             if not err <= 2e-5 * ref:
@@ -457,28 +533,44 @@ def check_ssd_scan(torch, dev) -> dict:
                                      f"N{n} chunk {chunk}: max err {err} > "
                                      f"2e-5 x {ref}")
             max_err, max_rel = max(max_err, err), max(max_rel, err / ref)
-    print(f"ssd_scan: {len(cases)} cases ok (y and final state), max err "
-          f"{max_err:.3e}, max |err|/max|ref| {max_rel:.3e}", flush=True)
+    print(f"ssd_scan: {len(cases)} cases ok (both entries' y, the stateful "
+          f"entry's final state), max err {max_err:.3e}, max |err|/max|ref| "
+          f"{max_rel:.3e}", flush=True)
 
     bsz, s, h, p, n, chunk, _ = main
     args = ssd_inputs(torch, dev, gen, bsz, s, h, p, n, False)
-    ms = time_ms(torch, lambda: ssd_scan.ssd_scan_cuda(*args, chunk))
+    entries = {"y_only": lambda: ssd_scan.ssd_scan_cuda(
+                   *args, chunk, want_state=False),
+               "stateful": lambda: ssd_scan.ssd_scan_cuda(*args, chunk)}
+    out = {}
+    for name, fn in entries.items():
+        b_ms, b_by = bound_ms(*ssd_work(bsz, s, h, p, n, chunk, False,
+                                        name == "stateful"))
+        out[name] = {"ms": time_ms(torch, fn), "cold_ms": time_cold_ms(
+            torch, fn), "device_span_ms": device_span_ms(torch, fn),
+            "bound_ms": b_ms, "bound_by": b_by}
     plain_ms = time_ms(torch, lambda: ssd_scan.ssd_plain(*args, chunk))
-    # per chunk of Q rows: C·Bᵀ and M·(x·dt) over their causal half, C·S
-    # and the state update in full; exps and scalings not counted
-    q = chunk
-    tri = q * (q + 1) // 2
-    flops = bsz * h * (s // q) * (2 * n * tri + 2 * p * tri
-                                  + 2 * q * n * p * 2)
-    n_bytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + h
-                     + 2 * bsz * s * n + bsz * h * p * n)
-    b_ms, b_by = bound_ms(n_bytes, flops)
+    attrs = ssd_scan.kernel_attributes(chunk)
+    for name, row in out.items():
+        print(f"ssd_scan {name} B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}: "
+              f"{row['ms']:.4f} ms warm, {row['cold_ms']:.4f} ms L2 flushed, "
+              f"device span {row['device_span_ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms by {row['bound_by']}", flush=True)
+    print(f"ssd_scan plain {plain_ms:.4f} ms", flush=True)
+    for name, a in attrs.items():
+        print(f"ssd_scan kernel {name} at chunk {chunk}: {a}", flush=True)
+    y_only = out["y_only"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:82",
-            "max_abs_err": max_err, "max_rel_err": max_rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}"}
+            "max_abs_err": max_err, "max_rel_err": max_rel,
+            "ms": y_only["ms"], "plain_ms": plain_ms,
+            "bound_ms": y_only["bound_ms"], "bound_by": y_only["bound_by"],
+            "library_ms": None, "device_span_ms": y_only["device_span_ms"],
+            "cold_ms": y_only["cold_ms"], "stateful": out["stateful"],
+            "kernel_attributes": attrs,
+            "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}, y only "
+                     "(the training call); `stateful` returns the state"}
 
 
 def check_rglru_scan(torch, dev) -> dict:
@@ -740,7 +832,7 @@ def profile_round(torch, path: dict, dev) -> None:
           flush=True)
     # the top 15, and the port's own kernels wherever they rank
     ours = ("axpy_kernel", "gather_kernel", "flash_fwd", "pmm_kernel",
-            "ssd_kernel", "rglru_kernel")
+            "ssd_kernel", "ssd_cb_kernel", "rglru_kernel")
     for i, (dev_us, count, key) in enumerate(rows):
         if i < 15 or any(name in key for name in ours):
             print(f"  {dev_us / 1e3:9.3f} ms {dev_us / busy:6.3f} "

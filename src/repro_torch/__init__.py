@@ -5,8 +5,18 @@ Subpackages mirror `repro`'s (configs, data, channel, core, models,
 kernels, launch). This package imports torch and numpy only — never jax and
 nothing of `repro`. Entry points (`core.fedsim.run`, `launch.train`) run on
 the GPU unless the caller passes `device="cpu"`.
+
+Importing the package runs one exp on one element, on the calling thread.
+torch's CPU vector math (exp, tanh, sqrt, logsumexp, ...) runs over OpenMP
+threads, and the first such call of a process, when parallel, races in the
+library's first-use set-up: 2–5 of 40 fresh processes got a first call that
+differed from the second (ROADMAP C). After one serial call none did, for
+any of these functions, so this one call guards every caller in the port.
+The result bits are torch's own either way.
 """
 import torch
+
+torch.exp(torch.zeros(1))
 
 
 def resolve_device(device) -> torch.device:

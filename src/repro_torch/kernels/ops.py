@@ -149,12 +149,17 @@ def perturbed_gather(pp: PerturbedParam, tokens: torch.Tensor
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, state0: Optional[torch.Tensor] = None,
-        chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+        chunk: int = 128, want_state: bool = True
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Chunked SSD. x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N], state0
-    [B,H,P,N] (zeros if None) → (y [B,S,H,P], state [B,H,P,N])."""
+    [B,H,P,N] (zeros if None) → (y [B,S,H,P], state [B,H,P,N]), or
+    (y, None) when want_state is False: the kernel then neither updates
+    nor writes the final state (the plain version computes and drops it)."""
     if _on_cuda(x):
-        return ssd_scan.ssd_scan_cuda(x, dt, a, b, c, state0, chunk)
-    return ssd_scan.ssd_plain(x, dt, a, b, c, state0, chunk)
+        return ssd_scan.ssd_scan_cuda(x, dt, a, b, c, state0, chunk,
+                                      want_state)
+    y, state = ssd_scan.ssd_plain(x, dt, a, b, c, state0, chunk)
+    return y, (state if want_state else None)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Mamba-2 chunked SSD scan (state-space duality, ngroups = 1).
 
 Replaces the TPU kernel `repro/kernels/ssd_scan.py:ssd_scan_pallas` (body
-`_ssd_kernel`) with the hand-written CUDA kernel in `csrc/ssd_scan.cu`.
+`_ssd_kernel`) with the hand-written CUDA kernels in `csrc/ssd_scan.cu`.
 Per (batch, head), sequentially over chunks of Q rows:
 
     g       = cumsum(a·dt)                              chunk-local decay
@@ -11,22 +11,24 @@ Per (batch, head), sequentially over chunks of Q rows:
 Layouts are `repro.kernels.ops.ssd`'s: x [B,S,H,P], dt [B,S,H], a [H],
 b/c [B,S,N], state [B,H,P,N].
 
-Bound on the H100 at the main path's shape (full mamba2-370m: B = 40,
-S = 64, H = 32, P = 64, N = 128, chunk 64): f32 operations, about 3.7
-MFLOP per (b, h, chunk) × 1280 = 4.7 GFLOP counting the full Q × Q
-products (3.7 GFLOP counting only their causal half), 0.055–0.070 ms at
-67 TFLOP/s; the bytes are about 87 MB with the 42 MB final state (0.026
-ms). The kernel keeps the [N, P] state in shared memory across chunks and
-streams B and C in 64-row blocks, so chunks of 256 rows fit too.
+Two entries: the stateful one returns the final state (the whole function
+of the TPU kernel, for a prefill); `want_state=False` returns (y, None),
+and the kernel then skips the last chunk's state update and the state's
+write. Training asks for y only. Bound on the H100 at the main path's shape
+(full mamba2-370m: B = 40, S = 64, H = 32, P = 64, N = 128, chunk 64, no
+state0), counting what each entry needs: y only, 0.36 GFLOP against 44.9
+MB (13.4 µs, bytes); with the state, 1.70 GFLOP against 86.8 MB (25.9 µs,
+bytes). C·Bᵀ, which all heads share, is computed once per (batch row,
+chunk) by a first kernel into an L2-sized scratch; one block per (batch,
+head) then applies the decays and multiplies.
 
 `ssd_plain` is the plain PyTorch version (`repro`'s `_xla_chunked_ssd`);
-`launches` counts kernel launches. No single PyTorch call computes this
-function.
+`launches` counts calls that launch the kernels (two launches a call). No
+single PyTorch call computes this function.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,20 +36,9 @@ import torch
 MAX_HEAD_DIM = 64
 MAX_D_STATE = 128
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: calls that launched the CUDA kernels (one C·Bᵀ pass and one head pass
+#: each) since the last reset (set to 0 to reset)
 launches = 0
-
-
-@functools.cache
-def _serial_first_exp() -> None:
-    """One exp below the intra-op grain, so on the calling thread. torch's
-    CPU exp runs MKL's vector math over OpenMP threads, and when the first
-    such call of a process is parallel, the library's first-use set-up
-    races between the threads and one chunk may come out wrong (1 in 32
-    fresh processes for a first ssd_plain at [2, 96, 3, 16]; ROADMAP C).
-    After a serial first call it never did. The result bits are torch's
-    own either way."""
-    torch.exp(torch.zeros(1))
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -56,8 +47,6 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD in plain PyTorch: a loop over chunks, dense products
     within. Returns (y [B,S,H,P], state [B,H,P,N] f32)."""
-    if x.device.type == "cpu":
-        _serial_first_exp()
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     chunk = min(chunk, s)
@@ -98,18 +87,37 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def _lib():
     from repro_torch.kernels import build
     fn = build.load("ssd_scan").ssd_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def kernel_attributes(chunk: int) -> dict:
+    """The three kernels as built for a call with this chunk on the current
+    CUDA device: registers and local memory per thread, static and dynamic
+    shared memory per block, resident blocks per SM."""
+    from repro_torch.kernels import build
+    fn = build.load("ssd_scan").ssd_scan_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 15)()
+    build.check(fn(chunk, ctypes.addressof(info)), "ssd_scan_attributes")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm")
+    return {name: dict(zip(keys, info[5 * k:5 * k + 5])) for k, name in
+            enumerate(("ssd_cb_kernel", "ssd_kernel<false>",
+                       "ssd_kernel<true>"))}
+
+
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   b: torch.Tensor, c: torch.Tensor,
-                  state0: Optional[torch.Tensor], chunk: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on f32 CUDA tensors (made contiguous here).
-    Returns (y [B,S,H,P], state [B,H,P,N])."""
+                  state0: Optional[torch.Tensor], chunk: int,
+                  want_state: bool = True
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the CUDA kernels on f32 CUDA tensors (made contiguous here).
+    Returns (y [B,S,H,P], state [B,H,P,N]), or (y, None) when want_state
+    is False. Shapes, types and sizes are checked before any launch."""
     global launches
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -134,13 +142,17 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
     s0 = None if state0 is None else state0.contiguous()
     y = torch.empty_like(x)
-    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    state = (torch.empty((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if want_state else None)
+    # C·Bᵀ of every chunk: rows of the chunk length rounded up to 4 floats
+    cb = torch.empty((bsz * s * (-(-chunk // 4) * 4),), dtype=torch.float32,
+                     device=x.device)
     from repro_torch.kernels import build
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib()(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                     c.data_ptr(), None if s0 is None else s0.data_ptr(),
-                    y.data_ptr(), state.data_ptr(), bsz, s, h, p, n, chunk,
-                    stream)
+                    y.data_ptr(), None if state is None else state.data_ptr(),
+                    cb.data_ptr(), bsz, s, h, p, n, chunk, stream)
     build.check(status, "ssd_scan_f32")
     launches += 1
     return y, state

@@ -94,7 +94,7 @@ def _block_apply(bp: Dict, x: torch.Tensor, cfg: ModelConfig
     chunk = min(cfg.ssm.chunk, s)
     if s % chunk != 0:
         chunk = s
-    y, _ = kops.ssd(xs, dt, a, b_mat, c_mat, chunk=chunk)
+    y, _ = kops.ssd(xs, dt, a, b_mat, c_mat, chunk=chunk, want_state=False)
 
     y = y.reshape(b, s, d_inner)
     y = L.rmsnorm(bp["gate_norm"],

@@ -136,11 +136,15 @@ def test_ctypes_bindings_match_c_entry_points(monkeypatch):
         mod._lib()
     attrs = pmm.kernel_attributes(2560, 768)
     assert set(attrs) >= {"registers", "local_bytes", "cluster"}
+    ssd_attrs = ssd_scan.kernel_attributes(64)
+    assert len(ssd_attrs) == 3
+    assert all(set(a) >= {"registers", "local_bytes", "dynamic_smem"}
+               for a in ssd_attrs.values())
     sigs = _c_signatures()
     assert set(lib.fns) >= {"seeded_axpy_f32", "seeded_gather_f32",
                             "flash_attention_f32", "perturbed_matmul_f32",
                             "perturbed_matmul_attributes", "ssd_scan_f32",
-                            "rglru_scan_f32"}
+                            "ssd_scan_attributes", "rglru_scan_f32"}
     for name, fn in lib.fns.items():
         assert fn.argtypes == sigs[name], name
         assert fn.restype is ctypes.c_int, name

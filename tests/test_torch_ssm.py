@@ -84,6 +84,51 @@ def test_ssd_plain_matches_reference(case, impl):
     np.testing.assert_allclose(y0.numpy(), np.asarray(y0_ref), **SSD_TOL)
 
 
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+def test_ssd_y_only_entry_matches_reference(case, with_state, impl):
+    """want_state=False returns (y, None) with y bitwise the stateful
+    call's, held against the reference with and without a state0."""
+    bsz, s, h, p, n, chunk = case
+    x, dt, a, b, c, s0 = _ssd_inputs(bsz, s, h, p, n, seed=1,
+                                     with_state=with_state)
+    t = [torch.from_numpy(v) for v in (x, dt, a, b, c)]
+    ts0 = None if s0 is None else torch.from_numpy(s0)
+    y, none = ops.ssd(*t, ts0, chunk=chunk, want_state=False)
+    assert none is None
+    y_full, st = ops.ssd(*t, ts0, chunk=chunk)
+    assert st is not None and torch.equal(y, y_full)
+    j = [jnp.asarray(v) for v in (x, dt, a, b, c)]
+    y_ref, _ = jops.ssd(*j, None if s0 is None else jnp.asarray(s0),
+                        chunk=chunk, impl=impl)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **SSD_TOL)
+
+
+@pytest.mark.parametrize("shape,chunk,match", [
+    ((1, 32, 2, 65, 16), 32, "head_dim 65"),      # P > 64
+    ((1, 32, 2, 16, 129), 32, "d_state 129"),     # N > 128
+    ((1, 40, 2, 16, 16), 16, "multiple of chunk"),
+])
+def test_ssd_scan_cuda_rejects_before_any_launch(shape, chunk, match,
+                                                 monkeypatch):
+    """The wrapper's checks come before the library is built or loaded and
+    before anything is allocated on a device: CPU tensors suffice."""
+    from repro_torch.kernels import build
+
+    def no_library(name):
+        raise AssertionError(f"library {name} loaded before the checks")
+    monkeypatch.setattr(build, "load", no_library)
+    bsz, s, h, p, n = shape
+    x, dt, a, b, c, _ = _ssd_inputs(bsz, s, h, p, n, with_state=False)
+    t = [torch.from_numpy(v) for v in (x, dt, a, b, c)]
+    before = ssd_scan.launches
+    for want_state in (True, False):
+        with pytest.raises(ValueError, match=match):
+            ssd_scan.ssd_scan_cuda(*t, None, chunk, want_state=want_state)
+    assert ssd_scan.launches == before
+
+
 def test_ssd_plain_rejects_ragged_chunks():
     x, dt, a, b, c, _ = _ssd_inputs(1, 40, 2, 8, 8, with_state=False)
     t = [torch.from_numpy(v) for v in (x, dt, a, b, c)]
