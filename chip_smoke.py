@@ -10,7 +10,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   2. each kernel against its plain version on the card at the main paths'
      shapes, with stated tolerances, then timed (CUDA events, warm-up,
      median) beside the plain version, a PyTorch library call where one
-     computes the same function, and the card's bound for the same work;
+     computes the same function, and the card's bound for the same work,
+     and where the host's launch overhead would hide the kernel, by device
+     time under torch.profiler too; flash_attention at head_dim 256 also
+     with its registers, local and shared memory and blocks an SM;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
      drawn once per weight), and with its registers, shared memory and
      cluster size; ssd_scan's two entries (y only, as training calls it,
@@ -229,10 +232,13 @@ def check_seeded_axpy(torch, dev) -> list:
                                                         eps))
     g_plain = time_ms(torch, lambda: sa.seeded_gather_plain(table, tokens, 1,
                                                             eps))
+    g_dev = device_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens, 1,
+                                                           eps))
     n_el = tokens.numel() * cfg.d_model
     g_bound, g_by = bound_ms(8.0 * n_el + 8 * tokens.numel(), 12.0 * n_el)
     print("seeded_gather: [40,64] rows of the [50272,768] table bitwise vs "
-          "plain and vs the whole-table draw", flush=True)
+          f"plain and vs the whole-table draw; {g_ms:.4f} ms, device time "
+          f"{g_dev:.4f} ms, bound {g_bound:.6f} ms by {g_by}", flush=True)
     del table, whole, rows
 
     # one θ pass over full OPT-125M (12 launches), as `zo.perturb` runs it
@@ -258,6 +264,7 @@ def check_seeded_axpy(torch, dev) -> list:
              "replaces": "src/repro/kernels/seeded_axpy.py:83",
              "max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
              "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
+             "device_ms": g_dev,
              "shape": "[40,64] tokens of a [50272,768] table"}]
 
 
@@ -274,6 +281,17 @@ def check_flash_attention(torch, dev) -> dict:
         ((40, 10, 64, 256), (40, 1, 64, 256), True, None),
         ((4, 10, 64, 256), (4, 1, 64, 256), True, 32),
         ((3, 10, 37, 256), (3, 1, 80, 256), True, 48),
+        # head_dim 256's head chunks: group 1, 3 (80 rows not filled), 4
+        # on two kv heads; group 10 over 300 keys (ten key tiles: the
+        # online rescale runs); non-causal; window 1 (each row sees only
+        # itself); one query row
+        ((2, 4, 64, 256), (2, 4, 64, 256), True, None),
+        ((2, 6, 40, 256), (2, 2, 40, 256), True, None),
+        ((2, 8, 50, 256), (2, 2, 50, 256), True, None),
+        ((2, 10, 64, 256), (2, 1, 300, 256), True, None),
+        ((3, 10, 37, 256), (3, 1, 80, 256), False, None),
+        ((2, 10, 64, 256), (2, 1, 64, 256), True, 1),
+        ((2, 10, 1, 256), (2, 1, 70, 256), True, None),
         # Skv over one key tile of the head_dim <= 64 kernel (32 keys)
         ((2, 12, 200, 64), (2, 12, 200, 64), True, None),
         ((2, 12, 37, 64), (2, 4, 300, 64), True, 64),
@@ -320,6 +338,11 @@ def check_flash_attention(torch, dev) -> dict:
                                                        2048))
     lib2 = time_ms(torch, lambda: sdpa(q2, k2, v2, is_causal=True,
                                        enable_gqa=True))
+    dev2 = device_ms(torch, lambda: fa.flash_attention_cuda(q2, k2, v2, True,
+                                                            2048))
+    lib_dev2 = device_ms(torch, lambda: sdpa(q2, k2, v2, is_causal=True,
+                                             enable_gqa=True))
+    attrs2 = fa.kernel_attributes(d2)
     flops2 = b2 * h2 * (s2 * (s2 + 1) // 2) * (4 * d2 + 3)
     bytes2 = 4.0 * (2 * b2 * h2 * s2 * d2 + 2 * b2 * kv_shape[1] * s2 * d2)
     b2_ms, b2_by = bound_ms(bytes2, flops2)
@@ -328,7 +351,9 @@ def check_flash_attention(torch, dev) -> dict:
           f"time {dev_ms:.4f}, SDPA {lib_dev_ms:.4f}); "
           f"[{b2},{h2},{s2},{d2}] on [{','.join(map(str, kv_shape))}] causal "
           f"{ms2:.4f} ms (plain {plain2:.4f}, SDPA {lib2:.4f}, bound "
-          f"{b2_ms:.4f} by {b2_by})", flush=True)
+          f"{b2_ms:.4f} by {b2_by}; device time {dev2:.4f}, SDPA "
+          f"{lib_dev2:.4f})", flush=True)
+    print(f"flash_attention head_dim {d2} kernel: {attrs2}", flush=True)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:104",
@@ -338,7 +363,8 @@ def check_flash_attention(torch, dev) -> dict:
             "shape": f"[{b},{h},{s},{d}] causal",
             "head_dim_256": {
                 "ms": ms2, "plain_ms": plain2, "bound_ms": b2_ms,
-                "bound_by": b2_by, "library_ms": lib2,
+                "bound_by": b2_by, "library_ms": lib2, "device_ms": dev2,
+                "library_device_ms": lib_dev2, "kernel_attributes": attrs2,
                 "shape": f"q [{b2},{h2},{s2},{d2}] k/v "
                          f"[{','.join(map(str, kv_shape))}] causal"}}
 
@@ -602,19 +628,21 @@ def check_rglru_scan(torch, dev) -> dict:
     a = torch.rand((bsz, s, d), generator=gen, device=dev)
     x = torch.randn((bsz, s, d), generator=gen, device=dev)
     ms = time_ms(torch, lambda: rglru_scan.rglru_scan_cuda(a, x))
+    dev_ms = device_ms(torch, lambda: rglru_scan.rglru_scan_cuda(a, x))
     plain_ms = time_ms(torch, lambda: rglru_scan.linear_recurrence_plain(
         a, x))
     # a, x read and hs written once, h_last written; a multiply and an add
     b_ms, b_by = bound_ms(4.0 * (3 * bsz * s * d + bsz * d),
                           2.0 * bsz * s * d)
     print(f"rglru_scan: [{bsz},{s},{d}] {ms:.4f} ms (plain {plain_ms:.4f}, "
-          f"bound {b_ms:.4f} by {b_by})", flush=True)
+          f"bound {b_ms:.4f} by {b_by}; device time {dev_ms:.4f})",
+          flush=True)
     return {"name": "rglru_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:52",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"a, x [{bsz},{s},{d}], h0 zero"}
+            "device_ms": dev_ms, "shape": f"a, x [{bsz},{s},{d}], h0 zero"}
 
 
 def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,

@@ -10,11 +10,14 @@ Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
 31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. At recurrentgemma-2b's
 (q [40,10,64,256] against one kv head [40,1,64,256], causal, window
 2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
-67 TFLOP/s. The kernel keeps each query row's accumulator in registers,
-split over 4 lanes at head_dim ≤ 64 (key/value tiles of 32 rows copied by
-`cp.async` into two buffers) and over 8 lanes at head_dim 256, so scores
-and probabilities never reach device memory, and skips key tiles no row
-of the block can see.
+67 TFLOP/s. At head_dim ≤ 64 each query row's accumulator stays in
+registers, split over 4 lanes, with key/value tiles of 32 rows copied by
+`cp.async` into two buffers. At head_dim 256 one persistent block an SM
+walks work items of 80 (q head, position) rows of one kv head's query
+group, so each K/V tile is copied once for the whole group; every copy is
+a TMA bulk copy, and both products are register-blocked f32 FMA from
+shared memory. Scores and probabilities never reach device memory, and
+key tiles no row of the block can see are skipped.
 
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
 `repro.kernels.ref.attention_ref`); `launches` counts kernel launches.
@@ -64,6 +67,22 @@ def _lib():
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_attributes(d: int = 256) -> dict:
+    """The head_dim-d kernel (`flash_fwd_group_kernel<d>`) as built on the
+    current CUDA device: registers and local memory per thread, static and
+    dynamic shared memory per block, resident blocks per SM, threads, rows
+    and keys of a K/V tile per block."""
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    build.check(fn(d, ctypes.addressof(info)), "flash_attention_attributes")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads", "rows", "key_tile")
+    return dict(zip(keys, info))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

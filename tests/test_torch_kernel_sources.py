@@ -140,9 +140,14 @@ def test_ctypes_bindings_match_c_entry_points(monkeypatch):
     assert len(ssd_attrs) == 3
     assert all(set(a) >= {"registers", "local_bytes", "dynamic_smem"}
                for a in ssd_attrs.values())
+    fa_attrs = fa.kernel_attributes(256)
+    assert set(fa_attrs) >= {"registers", "local_bytes", "dynamic_smem",
+                             "blocks_per_sm", "threads", "rows", "key_tile"}
     sigs = _c_signatures()
     assert set(lib.fns) >= {"seeded_axpy_f32", "seeded_gather_f32",
-                            "flash_attention_f32", "perturbed_matmul_f32",
+                            "flash_attention_f32",
+                            "flash_attention_attributes",
+                            "perturbed_matmul_f32",
                             "perturbed_matmul_attributes", "ssd_scan_f32",
                             "ssd_scan_attributes", "rglru_scan_f32"}
     for name, fn in lib.fns.items():
@@ -168,3 +173,27 @@ def test_perturbed_matmul_rejects_too_many_row_blocks_before_launch():
     eps = torch.zeros((), device="meta")
     with pytest.raises(ValueError, match="65535 row blocks"):
         pmm.perturbed_matmul_cuda(x, w, 1, 0, eps)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,match", [
+    # head_dim 128 waits for its instantiation
+    ((2, 4, 8, 128), (2, 4, 8, 128), "head_dim 128"),
+    # k's head_dim differs from q's
+    ((2, 4, 8, 256), (2, 4, 8, 64), "do not line up"),
+    # 10 q heads on 3 kv heads
+    ((2, 10, 8, 256), (2, 3, 8, 256), "Hq % Hkv"),
+])
+def test_flash_attention_rejects_before_any_library_load(monkeypatch, q_shape,
+                                                         kv_shape, match):
+    """Shapes the kernel does not take raise in the wrapper, before nvcc
+    or the library is touched."""
+    torch = pytest.importorskip("torch")
+
+    def no_load(name):
+        raise AssertionError(f"library {name} loaded")
+
+    monkeypatch.setattr(build, "load", no_load)
+    q = torch.zeros(q_shape, device="meta")
+    k = torch.zeros(kv_shape, device="meta")
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_cuda(q, k, k.clone())

@@ -27,6 +27,10 @@ ATTN_CASES = [
     (1, 8, 2, 16, 40, 32, True, None),      # GQA, Sq < Skv
     (2, 4, 1, 33, 33, 16, True, 8),         # MQA + local window
     (1, 2, 2, 12, 20, 64, False, None),     # non-causal, Sq < Skv
+    # head_dim 256 (recurrentgemma-2b's): group 10 with a window and
+    # Sq < Skv; group 3, non-causal, odd lengths
+    (2, 10, 1, 24, 64, 256, True, 32),
+    (1, 6, 2, 17, 17, 256, False, None),
 ]
 
 
