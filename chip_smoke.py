@@ -22,11 +22,19 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      and shared memory;
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the chained dense
-     round, the fused dense round, the ssm round and the hybrid round;
+     round, the fused dense round, the ssm round and the hybrid round —
+     and the GPU scan engine (a captured CUDA graph replayed) equals the
+     GPU loop engine bitwise;
   4. four paths, each through `repro_torch.core.fedsim.run` with the
      training CLI's defaults (5 clients, batch 8, seq 64, n_perturb 4,
-     analog/solution/Rayleigh, loop engine) for 3 rounds at full width,
-     the launch counters set to 0 just before and read just after:
+     analog/solution/Rayleigh) at full width with an eval hook, first on
+     the loop engine, then from the same seed init on the scan engine
+     (SCAN: rounds, chunk, eval cadence), the launch counters set to 0
+     just before each run and read just after; each scan run equals its
+     loop run bitwise (losses, p_hat, accuracies, final weights or, for
+     the hybrid, their per-leaf checksums), launches as many kernels,
+     replays every round but each chunk's first, and passes the same peak
+     gates; steady ms/round of both engines:
        chained  — OPT-125M, the chained (MeZO) dual forward;
        fused    — OPT-125M with `fused_perturbation=True` (perturbed
                   weights never materialize), plus one full-width fused
@@ -35,17 +43,21 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
        hybrid   — recurrentgemma-2b (RG-LRU and local attention at
                   head_dim 256), chained; fails above 2.0 θ of peak
                   device memory;
-  5. one `kernels` JSON line, then the result line.
+  5. one `kernels` JSON line (launches from the loop runs), then the
+     result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
-from src/); exits non-zero without either. `--profile` adds one more round
-of each path under torch.profiler and prints where its device time goes
-(top kernels by device time, and the device's busy share).
+from src/); exits non-zero without either. `--profile` adds one more loop
+round and one more scan chunk of each path under torch.profiler and
+prints where their device time goes (top kernels by device time, and the
+device's busy share).
 """
 from __future__ import annotations
 
+import heapq
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -54,7 +66,9 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-ROUNDS = 3
+# per path: rounds (both engines), rounds a scan chunk, eval cadence
+SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "mamba2": (4, 2, 2),
+        "hybrid": (3, 3, 3)}
 N_PERTURB = 4                  # the training CLI's default
 M_ROWS = 5 * 8 * 64            # clients × batch × seq: rows of every matmul
 PMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))
@@ -146,6 +160,82 @@ def require_equal(torch, got, want, what: str) -> None:
         raise AssertionError(f"{what}: not bitwise equal (max err {err})")
 
 
+def sass_path_instructions(name: str, kernels: tuple) -> dict:
+    """The fewest SASS instructions a thread of each named kernel in the
+    built library of csrc/<name>.cu issues from its entry to its final
+    EXIT (`cuobjdump -sass`): the shortest path through the kernel's
+    control flow, with predicated early EXITs not taken and a CALL counted
+    as one instruction, so the slow paths that branches skip (the precise
+    logf/sqrtf/cosf's special cases, a 64-bit division's) count nothing. A
+    lower bound on what a thread that does the work issues."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    fns, current = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            current = next((k for k in kernels if k in fn.group(1)), None)
+            if current:
+                fns[current] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if current and ins:
+            fns[current].append((int(ins.group(1), 16), ins.group(2)))
+    if set(fns) != set(kernels):
+        raise AssertionError(f"{name}: SASS for {sorted(fns)}, want "
+                             f"{sorted(kernels)}")
+    out = {}
+    for kernel, code in fns.items():
+        at = {addr: i for i, (addr, _) in enumerate(code)}
+
+        def successors(i):
+            text = code[i][1]
+            predicated = text.startswith("@")
+            op = text.split()[1 if predicated else 0]
+            nxt = [i + 1] if i + 1 < len(code) else []
+            if op == "EXIT":
+                return nxt if predicated else None      # None: the end
+            if op.startswith("BRA"):
+                target = [at[int(text.split()[-1], 16)]]
+                conditional = predicated or "," in text
+                return target + nxt if conditional else target
+            if op.startswith("RET"):
+                return []
+            return nxt
+
+        dist, heap, best = {0: 1}, [(1, 0)], None
+        while heap:
+            d, i = heapq.heappop(heap)
+            if d > dist[i]:
+                continue
+            succ = successors(i)
+            if succ is None:
+                best = d
+                break
+            for j in succ:
+                if d + 1 < dist.get(j, math.inf):
+                    dist[j] = d + 1
+                    heapq.heappush(heap, (d + 1, j))
+        out[kernel] = best
+    return out
+
+
+def issue_bound_ms(torch, per_element: float, elements: int) -> float:
+    """The least time to issue `per_element` instructions for each of
+    `elements` elements, 32 lanes a warp instruction: one warp instruction
+    a cycle on each of an SM's 4 schedulers, at the card's maximum SM
+    clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per_element * elements / 32 / (sms * 4 * mhz * 1e6) * 1e3
+
+
 def check_seeded_axpy(torch, dev) -> list:
     from repro_torch.configs import get_arch
     from repro_torch.core import zo
@@ -156,11 +246,14 @@ def check_seeded_axpy(torch, dev) -> list:
     shapes = list(registry.shapes(cfg)) + [(1_000_003,)]   # + ragged
     gen = torch.Generator(device=dev).manual_seed(0)
     scale = torch.tensor(-3e-3, dtype=torch.float32, device=dev)
+    # the kernels read each leaf seed from device memory
+    seed_t = lambda v: sa.seed_tensor(v, dev)  # noqa: E731
     max_err = 0.0
     for i, shape in enumerate(shapes):
         w = torch.randn(shape, generator=gen, device=dev)
         seed = zo.leaf_seed(0xC0FFEE, i)
-        got = sa.seeded_axpy_cuda(w, seed, scale, torch.empty_like(w))
+        got = sa.seeded_axpy_cuda(w, seed_t(seed), scale,
+                                  torch.empty_like(w))
         want = sa.seeded_axpy_plain(w, seed, scale)
         err = float((got - want).abs().max())
         # |Δz| ≤ 4 ulp of |z| (< 6) times |scale|, plus one ulp of the sum
@@ -173,7 +266,7 @@ def check_seeded_axpy(torch, dev) -> list:
             # bits there (the fused path's resolve), bitwise as the plain
             for layer in (1, shape[0] - 1):
                 off = layer * shape[1] * shape[2]
-                sl = sa.seeded_axpy_cuda(w[layer], seed, scale,
+                sl = sa.seeded_axpy_cuda(w[layer], seed_t(seed), scale,
                                          torch.empty_like(w[layer]), off)
                 require_equal(torch, sl, got[layer],
                               f"seeded_axpy {shape} layer {layer} slice")
@@ -181,14 +274,14 @@ def check_seeded_axpy(torch, dev) -> list:
                     w[layer], seed, scale, off),
                     f"seeded_axpy {shape} layer {layer} vs plain")
         # in place (out aliases w) gives the same bits as out of place
-        sa.seeded_axpy_cuda(w, seed, scale, w)
+        sa.seeded_axpy_cuda(w, seed_t(seed), scale, w)
         if not torch.equal(w, got):
             raise AssertionError(f"seeded_axpy {shape}: in-place differs")
         del w, got, want
     # counters that wrap past 2³², on a ragged leaf
     w = torch.randn(1_000_003, generator=gen, device=dev)
     off = 2**32 - 123_457
-    require_equal(torch, sa.seeded_axpy_cuda(w, 99, scale,
+    require_equal(torch, sa.seeded_axpy_cuda(w, seed_t(99), scale,
                                              torch.empty_like(w), off),
                   sa.seeded_axpy_plain(w, 99, scale, off),
                   "seeded_axpy wrapping offset")
@@ -197,7 +290,7 @@ def check_seeded_axpy(torch, dev) -> list:
     n = 4_000_037
     one = torch.ones((), dtype=torch.float32, device=dev)
     zeros = torch.zeros(n, device=dev)
-    z_k = sa.seeded_axpy_cuda(zeros, 77, one, torch.empty_like(zeros))
+    z_k = sa.seeded_axpy_cuda(zeros, seed_t(77), one, torch.empty_like(zeros))
     z_p = sa.draw_z((n,), 77, dev)
     z_ulps = ulps(torch, z_k, z_p)
     z_same = float((z_k == z_p).float().mean())
@@ -206,8 +299,8 @@ def check_seeded_axpy(torch, dev) -> list:
     # scale 0 probe: the axpy adds exactly nothing
     w = torch.randn(n, generator=gen, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    if not torch.equal(sa.seeded_axpy_cuda(w, 5, zero, torch.empty_like(w)),
-                       w):
+    if not torch.equal(sa.seeded_axpy_cuda(w, seed_t(5), zero,
+                                           torch.empty_like(w)), w):
         raise AssertionError("seeded_axpy scale-0 probe changed w")
     print(f"seeded_axpy: {len(shapes)} shapes ok, max err {max_err:.3e}; "
           f"layer slices and a wrapping offset bitwise; z probe {z_ulps} "
@@ -219,21 +312,24 @@ def check_seeded_axpy(torch, dev) -> list:
     tokens = torch.randint(0, cfg.vocab_size, (40, 64), generator=gen,
                            device=dev)
     eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
-    rows = sa.seeded_gather_cuda(table, tokens, 4321, eps)
+    rows = sa.seeded_gather_cuda(table, tokens, seed_t(4321), eps)
     require_equal(torch, rows, sa.seeded_gather_plain(table, tokens, 4321,
                                                       eps), "seeded_gather")
-    whole = sa.seeded_axpy_cuda(table, 4321, eps, torch.empty_like(table))
+    whole = sa.seeded_axpy_cuda(table, seed_t(4321), eps,
+                                torch.empty_like(table))
     require_equal(torch, rows, whole[tokens], "seeded_gather vs table rows")
     off = 2**32 - 5000
-    require_equal(torch, sa.seeded_gather_cuda(table, tokens[:3], 8, eps, off),
+    require_equal(torch, sa.seeded_gather_cuda(table, tokens[:3], seed_t(8),
+                                               eps, off),
                   sa.seeded_gather_plain(table, tokens[:3], 8, eps, off),
                   "seeded_gather wrapping offset")
-    g_ms = time_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens, 1,
-                                                        eps))
+    one_seed = seed_t(1)
+    g_ms = time_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens,
+                                                        one_seed, eps))
     g_plain = time_ms(torch, lambda: sa.seeded_gather_plain(table, tokens, 1,
                                                             eps))
-    g_dev = device_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens, 1,
-                                                           eps))
+    g_dev = device_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens,
+                                                           one_seed, eps))
     n_el = tokens.numel() * cfg.d_model
     g_bound, g_by = bound_ms(8.0 * n_el + 8 * tokens.numel(), 12.0 * n_el)
     print("seeded_gather: [40,64] rows of the [50272,768] table bitwise vs "
@@ -245,7 +341,8 @@ def check_seeded_axpy(torch, dev) -> list:
     params = registry.init_params(cfg, gen, dev)
     leaves = [t for _, t in zo.flatten(params)]
     n_total = sum(t.numel() for t in leaves)
-    ms = time_ms(torch, lambda: zo.perturb(params, 1234, scale, inplace=True))
+    row = zo.seed_row(1234, len(leaves), dev)
+    ms = time_ms(torch, lambda: zo.perturb(params, row, scale, inplace=True))
     plain_ms = time_ms(torch, lambda: [sa.seeded_axpy_plain(t, 9, scale)
                                        for t in leaves], warmup=1, reps=3)
     # f32 work per element: 2 unit conversions + 2 floors, log, ×(−2),
@@ -253,18 +350,38 @@ def check_seeded_axpy(torch, dev) -> list:
     b_ms, b_by = bound_ms(8.0 * n_total, 12.0 * n_total)
     del params, leaves
     torch.cuda.empty_cache()
+    # the issue bound (ROADMAP B4): an axpy thread draws 4 elements, a
+    # gather thread one
+    sass = sass_path_instructions("seeded_axpy",
+                                  ("axpy_kernel", "gather_kernel"))
+    per_el = {"axpy_kernel": sass["axpy_kernel"] / 4,
+              "gather_kernel": float(sass["gather_kernel"])}
+    issue = {"axpy_kernel": issue_bound_ms(torch, per_el["axpy_kernel"],
+                                           n_total),
+             "gather_kernel": issue_bound_ms(torch, per_el["gather_kernel"],
+                                             n_el)}
+    print(f"seeded_axpy issue bound: SASS path {sass} instructions a "
+          "thread; "
+          f"{per_el['axpy_kernel']:.1f} per element over {n_total} elements "
+          f"{issue['axpy_kernel']:.4f} ms (byte bound {b_ms:.4f} ms); "
+          f"gather {per_el['gather_kernel']:.0f} per element over {n_el} "
+          f"elements {issue['gather_kernel']:.6f} ms (byte bound "
+          f"{g_bound:.6f} ms)", flush=True)
     return [{"name": "seeded_axpy", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
              "replaces": "src/repro/kernels/seeded_axpy.py:83",
              "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "issue_bound_ms": issue["axpy_kernel"],
+             "sass_instructions_per_element": per_el["axpy_kernel"],
              "shape": f"one θ pass, {n_total} f32 elements in 12 leaves"},
             {"name": "seeded_gather", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
              "replaces": "src/repro/kernels/seeded_axpy.py:83",
              "max_abs_err": 0.0, "ms": g_ms, "plain_ms": g_plain,
              "bound_ms": g_bound, "bound_by": g_by, "library_ms": None,
-             "device_ms": g_dev,
+             "device_ms": g_dev, "issue_bound_ms": issue["gather_kernel"],
+             "sass_instructions_per_element": per_el["gather_kernel"],
              "shape": "[40,64] tokens of a [50272,768] table"}]
 
 
@@ -390,7 +507,8 @@ def check_perturbed_matmul(torch, dev) -> dict:
     for m, k, n, off in cases:
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-        got = pmm.perturbed_matmul_cuda(x, w, 55, off, eps)
+        got = pmm.perturbed_matmul_cuda(x, w, sa.seed_tensor(55, dev), off,
+                                        eps)
         want = pmm.perturbed_matmul_plain(x, w, 55, off, eps)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -403,9 +521,10 @@ def check_perturbed_matmul(torch, dev) -> dict:
               (3072, 768, 7 * 3072 * 768))
     for k, n, off in probes:
         w = torch.randn((k, n), generator=gen, device=dev)
-        probe = pmm.perturbed_matmul_cuda(torch.eye(k, device=dev), w, 66,
+        s66 = sa.seed_tensor(66, dev)
+        probe = pmm.perturbed_matmul_cuda(torch.eye(k, device=dev), w, s66,
                                           off, eps)
-        axpy = sa.seeded_axpy_cuda(w, 66, eps, torch.empty_like(w), off)
+        axpy = sa.seeded_axpy_cuda(w, s66, eps, torch.empty_like(w), off)
         require_equal(torch, probe, axpy,
                       f"perturbed_matmul identity probe [{k},{n}]")
     print(f"perturbed_matmul: {len(cases)} cases ok, max err {max_err:.3e}"
@@ -416,23 +535,24 @@ def check_perturbed_matmul(torch, dev) -> dict:
     x = {k: torch.randn((M_ROWS, k), generator=gen, device=dev)
          for k in (768, 3072)}
     ws = [torch.randn(s, generator=gen, device=dev) for s in PMM_LAYER]
-    resolved = [sa.seeded_axpy_cuda(w, 7, eps, torch.empty_like(w), 0)
+    s7 = sa.seed_tensor(7, dev)
+    resolved = [sa.seeded_axpy_cuda(w, s7, eps, torch.empty_like(w), 0)
                 for w in ws]
     per_shape, per_shape_lib = {}, {}
     for (k, n) in PMM_SHAPES:
         i = PMM_LAYER.index((k, n))
         per_shape[f"{k}x{n}"] = time_ms(
-            torch, lambda: pmm.perturbed_matmul_cuda(x[k], ws[i], 7, 0, eps))
+            torch, lambda: pmm.perturbed_matmul_cuda(x[k], ws[i], s7, 0, eps))
         per_shape_lib[f"{k}x{n}"] = time_ms(
             torch, lambda: torch.matmul(x[k], resolved[i]))
     ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
-        x[w.shape[0]], w, 7, 0, eps) for w in ws])
+        x[w.shape[0]], w, s7, 0, eps) for w in ws])
     plain_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_plain(
         x[w.shape[0]], w, 7, 0, eps) for w in ws])
     library_ms = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
                                          for w, r in zip(ws, resolved)])
     dev_ms = device_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
-        x[w.shape[0]], w, 7, 0, eps) for w in ws], reps=5)
+        x[w.shape[0]], w, s7, 0, eps) for w in ws], reps=5)
     lib_dev_ms = device_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
                                            for w, r in zip(ws, resolved)],
                            reps=5)
@@ -440,7 +560,7 @@ def check_perturbed_matmul(torch, dev) -> dict:
     # cuBLAS there
     m_one = pmm.BM * pmm.CLUSTER
     one_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
-        x[w.shape[0]][:m_one], w, 7, 0, eps) for w in ws])
+        x[w.shape[0]][:m_one], w, s7, 0, eps) for w in ws])
     one_lib = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]][:m_one], r)
                                       for w, r in zip(ws, resolved)])
     attrs = {f"{k}x{n}": pmm.kernel_attributes(M_ROWS, n)
@@ -663,13 +783,14 @@ def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
 
 
 def check_small_reference(torch, dev) -> None:
-    """Tiny models, 2 rounds: the GPU run (kernels) and the CPU run (plain
-    versions) from the same weights agree (losses rtol 1e-4) — chained
-    dense, fused dense, the ssm family and the hybrid family (5 layers: one
-    rra group and a tail of two)."""
+    """Tiny models, 3 rounds: the GPU run (kernels) and the CPU run (plain
+    versions) from the same weights agree (losses rtol 1e-4), and the GPU
+    scan run (one chunk: an eager round, then two graph replays) equals the
+    GPU loop run bitwise — chained dense, fused dense, the ssm family and
+    the hybrid family (5 layers: one rra group and a tail of two)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.core import fedsim
+    from repro_torch.core import fedsim, zo
     from repro_torch.data.pipeline import FederatedPipeline
     from repro_torch.data.tasks import TaskSpec
     from repro_torch.models import registry
@@ -698,55 +819,61 @@ def check_small_reference(torch, dev) -> None:
             gen = torch.Generator().manual_seed(3)
             return to(registry.init_params(cfg, gen, "cpu"), device)
 
-        gpu = fedsim.run(cfg, pz, pipe, 2, params=weights(dev), device=dev)
-        cpu = fedsim.run(cfg, pz, pipe, 2, params=weights("cpu"),
+        gpu = fedsim.run(cfg, pz, pipe, 3, params=weights(dev), device=dev)
+        cpu = fedsim.run(cfg, pz, pipe, 3, params=weights("cpu"),
                          device="cpu")
         for a, b in zip(gpu.losses, cpu.losses):
             if not math.isclose(a, b, rel_tol=1e-4):
                 raise AssertionError(f"tiny {name} run: GPU loss {a} vs CPU "
                                      f"loss {b}")
+        # the scan engine on the card: one eager round, then two replays of
+        # the captured round, bitwise the loop engine's
+        scan = fedsim.run(cfg, pz, pipe, 3, params=weights(dev), device=dev,
+                          engine="scan", chunk_rounds=3)
+        if scan.losses != gpu.losses or not all(
+                torch.equal(a, b) for (_, a), (_, b) in
+                zip(zo.flatten(scan.params), zo.flatten(gpu.params))):
+            raise AssertionError(f"tiny {name} scan run: losses "
+                                 f"{scan.losses} vs loop {gpu.losses}, or "
+                                 "its parameters differ")
         print(f"small-input reference ({name}, {cfg.name}): GPU losses "
-              f"{gpu.losses} match CPU {cpu.losses} (rtol 1e-4)", flush=True)
+              f"{gpu.losses} match CPU {cpu.losses} (rtol 1e-4); the scan "
+              "engine's match the loop's bitwise", flush=True)
 
 
 def counters():
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import perturbed_matmul as pmm
-    from repro_torch.kernels import rglru_scan
-    from repro_torch.kernels import seeded_axpy as sa
-    from repro_torch.kernels import ssd_scan
-    return {"seeded_axpy": (sa, "launches"),
-            "seeded_gather": (sa, "gather_launches"),
-            "flash_attention": (fa, "launches"),
-            "perturbed_matmul": (pmm, "launches"),
-            "ssd_scan": (ssd_scan, "launches"),
-            "rglru_scan": (rglru_scan, "launches")}
+    from repro_torch.kernels import ops
+    return ops.LAUNCH_COUNTERS
 
 
 def reset_launches() -> None:
+    from repro_torch.core import engine
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
+    engine.replays = 0
 
 
 def read_launches() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr)
-            in counters().items()}
+    from repro_torch.kernels import ops
+    return ops.read_launches()
 
 
-def expected_launches(cfg, rounds: int, fused: bool) -> dict:
-    """What `rounds` rounds must launch, from the model's structure."""
+def expected_launches(cfg, rounds: int, fused: bool, evals: int = 0) -> dict:
+    """What `rounds` rounds and `evals` greedy evals (one forward each, on
+    untagged weights) must launch, from the model's structure."""
     from repro_torch.models import hybrid, registry
     n_leaves = len(registry.shapes(cfg))
     rollouts = rounds * N_PERTURB * 2
+    forwards = rollouts + evals
     out = dict.fromkeys(counters(), 0)
     if cfg.family == "ssm":
-        out["ssd_scan"] = rollouts * cfg.n_layers
+        out["ssd_scan"] = forwards * cfg.n_layers
     elif cfg.family == "hybrid":
         kinds = hybrid.layer_kinds(cfg)
-        out["flash_attention"] = rollouts * kinds.count("a")
-        out["rglru_scan"] = rollouts * kinds.count("r")
+        out["flash_attention"] = forwards * kinds.count("a")
+        out["rglru_scan"] = forwards * kinds.count("r")
     else:
-        out["flash_attention"] = rollouts * cfg.n_layers
+        out["flash_attention"] = forwards * cfg.n_layers
     if fused:
         # per rollout: the seven projections of each layer; one resolve per
         # layer norm (two a layer), final norm and untied lm head; one
@@ -762,53 +889,208 @@ def expected_launches(cfg, rounds: int, fused: bool) -> dict:
     return out
 
 
-def run_path(torch, dev, name: str, cfg, fused: bool = False) -> dict:
-    """`fedsim.run` for ROUNDS rounds at full width with the CLI defaults;
-    the launch counters are set to 0 just before and read just after."""
-    from repro_torch.core import fedsim
+def path_setup(cfg, fused: bool):
     from repro_torch.data.pipeline import FederatedPipeline
     from repro_torch.data.tasks import TaskSpec
-
     pz = pz_defaults(cfg, rounds=800, fused=fused)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", cfg.vocab_size, 64),
                              n_clients=5, per_client_batch=8, seed=0)
+    return pz, pipe
+
+
+class Stamp:
+    """A round hook that synchronizes the card and stamps the host clock
+    at every chunk boundary (placed before and after the eval hook, so
+    the time between chunks leaves the eval out)."""
+    cadence = 0
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.times = []
+
+    def on_start(self, exp) -> None:
+        pass
+
+    def on_round(self, t, metrics) -> None:
+        pass
+
+    def on_boundary(self, t_done: int, exp) -> None:
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+
+    def close(self, exp) -> None:
+        pass
+
+
+def fingerprint(torch, params) -> dict:
+    """Per leaf: the f64 sum, the max |w| and the sum of the f32 bit
+    patterns (exact: any changed bit moves it), on the host."""
+    from repro_torch.core import zo
+    out = {}
+    for path, t in zo.flatten(params):
+        bits = t.view(torch.int32).to(torch.int64).sum()
+        out[path] = (float(t.to(torch.float64).sum()),
+                     float(t.abs().max()), int(bits))
+    return out
+
+
+def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
+    """`fedsim.run` of the loop engine at full width with the CLI defaults
+    and an eval hook, for the rounds its scan run takes; the launch
+    counters are set to 0 just before and read just after. Steady
+    ms/round: the median over rounds 2 onward of the host-clock time
+    between synchronized stamps, eval left out."""
+    from repro_torch.core import fedsim
+
+    rounds, _, every = scan
+    pz, pipe = path_setup(cfg, fused)
     theta_bytes = 4 * cfg.param_count()
+    pre, post = Stamp(torch), Stamp(torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    stamps = []
     reset_launches()
     t0 = time.perf_counter()
-    res = fedsim.run(cfg, pz, pipe, ROUNDS, device=dev,
-                     on_round=lambda t, m: stamps.append(time.perf_counter()))
+    res = fedsim.run(cfg, pz, pipe, rounds, device=dev,
+                     hooks=[pre, fedsim.EvalHook(every), post])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
-    if len(res.losses) != ROUNDS or not all(map(math.isfinite, res.losses)):
+    if len(res.losses) != rounds or not all(map(math.isfinite, res.losses)):
         raise AssertionError(f"{name}: losses {res.losses}")
     if not all(map(math.isfinite, res.p_hats)):
         raise AssertionError(f"{name}: p_hats {res.p_hats}")
     if not res.privacy_spent > 0:
         raise AssertionError(f"{name}: privacy spent {res.privacy_spent}")
-    expected = expected_launches(cfg, ROUNDS, fused)
+    expected = expected_launches(cfg, rounds, fused, rounds // every)
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expected}")
-    steady = statistics.median(b - a for a, b in zip(stamps, stamps[1:]))
-    print(f"path {name}: {cfg.name}, {ROUNDS} rounds; run {wall:.3f} s with "
-          f"weight init and schedule solve; steady {steady * 1e3:.1f} "
-          f"ms/round, {1 / steady:.3f} rounds/s; losses {res.losses}; "
-          f"p_hat {res.p_hats}; privacy spent {res.privacy_spent:.6g} of "
+    steady = statistics.median(pre.times[r] - post.times[r - 1]
+                               for r in range(1, rounds))
+    print(f"path {name}: {cfg.name}, {rounds} rounds (loop engine); run "
+          f"{wall:.3f} s with weight init and schedule solve; steady "
+          f"{steady * 1e3:.1f} ms/round, {1 / steady:.3f} rounds/s; losses "
+          f"{res.losses}; p_hat {res.p_hats}; accuracies {res.accuracies}; "
+          f"privacy spent {res.privacy_spent:.6g} of "
           f"{res.privacy_budget:.6g}", flush=True)
     print(f"path {name}: peak device memory {peak / 1e6:.1f} MB = "
           f"{peak / theta_bytes:.2f} x theta ({theta_bytes / 1e6:.1f} MB f32)",
           flush=True)
     print(f"path {name}: launches {launches}", flush=True)
-    return {"name": name, "cfg": cfg, "pz": pz, "pipe": pipe,
+    return {"name": name, "cfg": cfg, "pz": pz, "pipe": pipe, "res": res,
             "params": res.params, "launches": launches,
             "peak_theta": peak / theta_bytes, "ms_per_round": steady * 1e3}
+
+
+def check_peak(name: str, peak_theta: float) -> None:
+    if name == "hybrid" and not peak_theta <= 2.0:
+        # θ + the [2560, 256000] logits + their log-sum-exp ≈ 1.45 θ; a
+        # θ-sized copy would show as about 2.5 θ
+        raise AssertionError(f"hybrid path peak {peak_theta:.2f} x theta, "
+                             "want <= 2.0")
+    if name == "fused" and not peak_theta < 2.9:
+        raise AssertionError(f"fused path peak {peak_theta:.2f} x theta, "
+                             "want < 2.9")
+
+
+def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
+    """The same rounds under `engine="scan"` from the same seed init, with
+    an eval hook: the same bits as the loop run (losses, p̂, accuracies and
+    the final parameters, `final` being the loop run's on the host or
+    their `fingerprint`), the same launches, one replayed graph for every
+    round but each chunk's first, and the same peak gates. Steady ms/round:
+    host-clock time over chunks 2 onward between synchronized stamps, eval
+    left out, over their rounds."""
+    from repro_torch.core import engine, fedsim, zo
+
+    name, cfg, pz, pipe = loop["name"], loop["cfg"], loop["pz"], loop["pipe"]
+    rounds, chunk, every = scan
+    fused = pz.fused_perturbation
+    theta_bytes = 4 * cfg.param_count()
+    pre, post = Stamp(torch), Stamp(torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fedsim.run(cfg, pz, pipe, rounds, engine="scan", chunk_rounds=chunk,
+                     hooks=[pre, fedsim.EvalHook(every), post], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, replays = read_launches(), engine.replays
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+
+    ref = loop["res"]
+    if res.losses != ref.losses or res.p_hats != ref.p_hats:
+        raise AssertionError(f"{name} scan: losses {res.losses} p_hat "
+                             f"{res.p_hats} differ from the loop's "
+                             f"{ref.losses} {ref.p_hats}")
+    if res.privacy_spent != ref.privacy_spent:
+        raise AssertionError(f"{name} scan: privacy spent "
+                             f"{res.privacy_spent} vs {ref.privacy_spent}")
+    n_evals = rounds // every
+    if len(res.accuracies) != n_evals or not all(
+            0.0 <= a <= 1.0 for a in res.accuracies) \
+            or res.accuracies != ref.accuracies:
+        raise AssertionError(f"{name} scan: accuracies {res.accuracies}, "
+                             f"loop {ref.accuracies}, want {n_evals} in "
+                             "[0, 1]")
+    if isinstance(final, dict) and all(isinstance(v, tuple)
+                                       for v in final.values()):
+        same = fingerprint(torch, res.params) == final
+    else:
+        same = all(torch.equal(a.cpu(), final[p])
+                   for p, a in zo.flatten(res.params))
+    if not same:
+        raise AssertionError(f"{name} scan: final parameters differ from "
+                             "the loop run's")
+    expected = expected_launches(cfg, rounds, fused, n_evals)
+    if launches != expected:
+        raise AssertionError(f"{name} scan: launches {launches}, expected "
+                             f"{expected}")
+    bounds = engine.chunk_boundaries(0, rounds, chunk, (every,))
+    if replays != rounds - len(bounds):
+        raise AssertionError(f"{name} scan: {replays} replays, want "
+                             f"{rounds - len(bounds)}")
+    check_peak(name, peak / theta_bytes)
+    steady = None
+    if len(bounds) > 1:
+        spans = [pre.times[c] - post.times[c - 1]
+                 for c in range(1, len(bounds))]
+        steady = sum(spans) / (rounds - bounds[0][1])
+    print(f"path {name} scan: {rounds} rounds in chunks of {chunk} "
+          f"({len(bounds)} chunks, {replays} rounds replayed), eval every "
+          f"{every}; run {wall:.3f} s; steady "
+          + ("n/a (one chunk)" if steady is None else
+             f"{steady * 1e3:.1f} ms/round")
+          + f" (loop {loop['ms_per_round']:.1f}); losses, p_hat, "
+          f"accuracies {res.accuracies} and final parameters equal to the "
+          f"loop run's; prep stall {res.prep_stall_s:.4f} s", flush=True)
+    print(f"path {name} scan: peak device memory {peak / 1e6:.1f} MB = "
+          f"{peak / theta_bytes:.2f} x theta; max reserved "
+          f"{reserved / 1e6:.1f} MB = {reserved / theta_bytes:.2f} x theta",
+          flush=True)
+    print(f"path {name} scan: launches {launches}", flush=True)
+    return {"params": res.params, "steady": steady,
+            "peak_theta": peak / theta_bytes,
+            "reserved_theta": reserved / theta_bytes}
+
+
+def time_scan_chunks(torch, dev, loop: dict, params, rounds: int,
+                     chunk: int) -> float:
+    """Steady ms/round of the scan engine over `rounds` rounds in chunks of
+    `chunk` on `params` (the cached graph), chunks 2 onward."""
+    from repro_torch.core import engine, fedsim
+    stamp = Stamp(torch)
+    torch.cuda.synchronize()
+    fedsim.run(loop["cfg"], loop["pz"], loop["pipe"], rounds, engine="scan",
+               chunk_rounds=chunk, params=params, hooks=[stamp], device=dev)
+    bounds = engine.chunk_boundaries(0, rounds, chunk)
+    return (stamp.times[-1] - stamp.times[0]) / (rounds - bounds[0][1])
 
 
 def check_fused_against_fresh(torch, dev, path: dict) -> None:
@@ -820,10 +1102,12 @@ def check_fused_against_fresh(torch, dev, path: dict) -> None:
     batch = {k: v[0] for k, v in engine.stack_batches(path["pipe"], 0, 1,
                                                        dev).items()}
     loss_fn = pairzero.make_loss_fn(cfg)
+    seeds = zo.seed_row(zo.perturb_seed(1234, 0), len(zo.flatten(params)),
+                        dev)
     out = {}
     for mode in ("fused", "fresh"):
         lp, lm, _ = zo.dual_forward(lambda p: loss_fn(p, batch), params,
-                                    zo.perturb_seed(1234, 0), 1e-3, mode=mode)
+                                    seeds, 1e-3, mode=mode)
         out[mode] = torch.stack([lp, lm]).cpu()
     if not torch.allclose(out["fused"], out["fresh"], rtol=1e-4, atol=0):
         raise AssertionError(f"fused dual forward {out['fused'].tolist()} vs "
@@ -833,10 +1117,10 @@ def check_fused_against_fresh(torch, dev, path: dict) -> None:
           " (rtol 1e-4)", flush=True)
 
 
-def profile_round(torch, path: dict, dev) -> None:
-    """One more round of a path under torch.profiler: the kernels that
-    take the device time, and the share of the round's wall time the
-    device was busy."""
+def profile_run(torch, path: dict, dev, what: str, **run_kw) -> None:
+    """A run of a path under torch.profiler: the kernels that take the
+    device time, and the share of the run's wall time the device was
+    busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -845,8 +1129,8 @@ def profile_round(torch, path: dict, dev) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fedsim.run(path["cfg"], path["pz"], path["pipe"], 1,
-                   params=path["params"], device=dev)
+        fedsim.run(path["cfg"], path["pz"], path["pipe"], device=dev,
+                   **run_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel-level rows only: the aten ops above them carry the same time
@@ -855,9 +1139,9 @@ def profile_round(torch, path: dict, dev) -> None:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile {path['name']}: one round, wall {wall_us / 1e3:.1f} ms, "
-          f"device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} of wall)",
-          flush=True)
+    print(f"profile {path['name']}: {what}, wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms ({busy / wall_us:.3f} of wall, "
+          f"idle {1 - busy / wall_us:.3f})", flush=True)
     # the top 15, and the port's own kernels wherever they rank
     ours = ("axpy_kernel", "gather_kernel", "flash_fwd", "pmm_kernel",
             "ssd_kernel", "ssd_cb_kernel", "rglru_kernel")
@@ -875,6 +1159,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
+    from repro_torch.core import engine, zo
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -897,26 +1182,46 @@ def main() -> int:
 
     opt, mamba = get_arch("opt-125m"), get_arch("mamba2-370m")
     rgemma = get_arch("recurrentgemma-2b")
+    profiling = "--profile" in sys.argv[1:]
     paths = []
     for name, cfg, fused in (("chained", opt, False), ("fused", opt, True),
                              ("mamba2", mamba, False),
                              ("hybrid", rgemma, False)):
-        path = run_path(torch, dev, name, cfg, fused)
-        if name == "hybrid" and not path["peak_theta"] <= 2.0:
-            # θ + the [2560, 256000] logits + their log-sum-exp ≈ 1.45 θ;
-            # a θ-sized copy would show as about 2.5 θ
-            raise AssertionError(f"hybrid path peak {path['peak_theta']:.2f}"
-                                 " x theta, want <= 2.0")
+        scan = SCAN[name]
+        path = run_path(torch, dev, name, cfg, fused, scan)
+        check_peak(name, path["peak_theta"])
         if fused:
-            if not path["peak_theta"] < 2.9:
-                raise AssertionError(f"fused path peak {path['peak_theta']:.2f}"
-                                     " x theta, want < 2.9")
             check_fused_against_fresh(torch, dev, path)
-        if "--profile" in sys.argv[1:]:
-            profile_round(torch, path, dev)
+        # the loop run's final weights on the host (the hybrid's as
+        # checksums), taken before the profiled round moves them; then
+        # freed, so the scan run's peak is its own
+        final = fingerprint(torch, path["params"]) if name == "hybrid" \
+            else {p: t.cpu() for p, t in zo.flatten(path["params"])}
+        if profiling:
+            profile_run(torch, path, dev, "one round (loop engine)",
+                        rounds=1, params=path["params"])
+        path["params"] = path["res"].params = None
+        torch.cuda.empty_cache()
+        scanned = run_scan_path(torch, dev, path, scan, final)
+        rounds, chunk, _ = scan
+        if scanned["steady"] is None:
+            # one chunk: time two more chunks on the cached graph
+            scanned["steady"] = time_scan_chunks(
+                torch, dev, path, scanned["params"], 2 * rounds, chunk)
+            print(f"path {name} scan: steady {scanned['steady'] * 1e3:.1f} "
+                  f"ms/round over a second chunk of {chunk} (loop "
+                  f"{path['ms_per_round']:.1f})", flush=True)
+        if profiling:
+            profile_run(torch, path, dev, f"one scan chunk of {chunk} rounds",
+                        rounds=chunk, engine="scan", chunk_rounds=chunk,
+                        params=scanned["params"])
         paths.append({k: path[k] for k in ("name", "launches", "peak_theta",
                                            "ms_per_round")})
-        del path
+        paths[-1].update(scan_ms_per_round=scanned["steady"] * 1e3,
+                         scan_peak_theta=scanned["peak_theta"],
+                         scan_reserved_theta=scanned["reserved_theta"])
+        del path, scanned, final
+        engine.get_executor.cache_clear()     # the graph's memory pool
         torch.cuda.empty_cache()
 
     for row in rows:

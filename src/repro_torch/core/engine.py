@@ -1,13 +1,21 @@
-"""Round execution for the loop engine, ported from `repro.core.engine`.
+"""Round executors, ported from `repro.core.engine`: per-round dispatch
+(loop) and one captured CUDA graph replayed over a chunk of rounds (scan).
 
 A pAirZero trajectory is a pure function of (params, seeds, schedule): the
-per-round control — c(t), σ(t), the broadcast seed, the survival mask, the
-CSI factors and the OTA noise — is known once the base station has solved
-the power schedule. `build_trace` stacks it for a span of rounds and ships
-it to the device in one transfer; `LoopExecutor` walks it one round at a
-time. The host keeps the DP accounting: the run's Transport prices each
-round and the hard privacy stop truncates a span at the first round that
-would overspend. The scan executor is not ported yet.
+per-round control — c(t), σ(t), the round's leaf seeds, the survival mask,
+the CSI factors and the OTA noise — is known once the base station has
+solved the power schedule. `build_trace` stacks it for a chunk of rounds
+and ships it to the device in one transfer; `BatchStager` does the same
+for the chunk's batches through slot-rotated host buffers;
+`ChunkPrefetcher` prepares chunk i+1 on a worker thread while the device
+runs chunk i. `LoopExecutor` walks a chunk one round at a time;
+`ScanExecutor` runs a chunk's first round eagerly, then replays one
+captured round for the rest. Both call the same round body on the same
+inputs, so `engine="scan"` and `engine="loop"` give the same bits.
+
+The host keeps the DP accounting: the run's Transport prices each round
+and the hard privacy stop truncates a chunk at the first round that would
+overspend.
 
 The OTA noise is data here: `noise_rows` draws each round's
 [n_perturb, K+1] standard normals from a torch.Generator seeded by
@@ -15,8 +23,12 @@ The OTA noise is data here: `noise_rows` draws each round's
 """
 from __future__ import annotations
 
+import functools
+import math
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,18 +36,25 @@ import torch
 from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant
+from repro_torch.kernels import ops as kops
 
 Params = Dict
+
+#: rounds run by replaying a captured graph since the last reset (set to 0
+#: to reset): a run shows with it that the graph, not an eager loop, ran them
+replays = 0
 
 
 @dataclass
 class ControlTrace:
     """Stacked per-round control for rounds [t0, t0+R).
 
-    `ctl` holds seed [R] (host uint32 — the kernels take seeds as launch
-    arguments) and device tensors c [R], sigma [R,K], n0 [R], mask [R,K],
-    g [R,K] and noise [R, n_perturb, K+1]. `host_masks` is the host view of
-    the mask for the uplink-bit accounting."""
+    `ctl` holds seed [R] (the round seeds, a host uint32 array kept for the
+    record: the round body reads none of it) and device tensors c [R],
+    sigma [R,K], n0 [R], mask [R,K], g [R,K], noise [R, n_perturb, K+1] and
+    leaf_seeds [R, n_perturb, n_leaves] (int32 holding the uint32 bits of
+    leaf_seed(perturb_seed(round_seed(seed, t), j), i)). `host_masks` is the
+    host view of the mask for the uplink-bit accounting."""
     t0: int
     ctl: Dict
     acct_cost: np.ndarray     # [R] per-round DP cost
@@ -66,15 +85,71 @@ def noise_rows(seed: int, t0: int, t1: int, n_perturb: int,
     return out
 
 
-def build_trace(schedule, pz, t0: int, t1: int, *, device,
+class HostBlock:
+    """Host arrays laid out in one byte buffer (each 16-byte aligned, pinned
+    when the target is the card), shipped to the device in one copy.
+
+    `host` holds numpy views to fill; `ship` returns device views of the
+    same layout. On the CPU `ship` returns views of the host buffer itself
+    (nothing is copied), so what it returned is valid only until the buffer
+    is refilled."""
+
+    def __init__(self, like: Dict[str, Tuple[tuple, np.dtype]],
+                 device: torch.device):
+        self.device = device
+        self.signature = _signature(like)
+        self._layout = {}
+        size = 0
+        for key, (shape, dtype) in like.items():
+            n = math.prod(shape) * np.dtype(dtype).itemsize
+            self._layout[key] = (size, n, tuple(shape), np.dtype(dtype))
+            size += -(-n // 16) * 16
+        self._buf = torch.empty(max(size, 16), dtype=torch.uint8,
+                                pin_memory=device.type == "cuda")
+        raw = self._buf.numpy()
+        self.host = {k: raw[o:o + n].view(dt).reshape(shape)
+                     for k, (o, n, shape, dt) in self._layout.items()}
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def wait(self) -> None:
+        """Block until the last copy out of the buffer has completed (then
+        the buffer may be refilled)."""
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
+
+    def ship(self) -> Dict[str, torch.Tensor]:
+        """One non-blocking copy of the whole buffer to the device, on the
+        current stream; the device views of each array."""
+        dev = self._buf.to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        return {k: dev[o:o + n].view(_torch_dtype(dt)).view(shape)
+                for k, (o, n, shape, dt) in self._layout.items()}
+
+
+def _signature(like: Dict[str, Tuple[tuple, Any]]) -> tuple:
+    return tuple((k, tuple(shape), np.dtype(dt).str)
+                 for k, (shape, dt) in like.items())
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+
+
+def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
                 transport: Optional[tp.Transport] = None) -> ControlTrace:
-    """Precompute the control trace for rounds [t0, t1).
+    """Precompute the control trace for rounds [t0, t1), shipped to
+    `device` in one non-blocking copy.
 
     The ported channel (Rayleigh, perfect CSI, no outage) and the absence of
     fault models make every mask and CSI factor 1, as the reference's trace
-    is for that configuration."""
+    is for that configuration. The leaf seeds of every round and direction
+    (`zo.seed_table`) come from numpy on the host."""
     if transport is None:
         transport = tp.resolve(pz)
+    device = torch.device(device)
     k = pz.n_clients
     rounds = int(t1 - t0)
     masks = np.ones((rounds, k), dtype=np.float32)
@@ -85,8 +160,14 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device,
         "mask": masks,
         "g": np.ones((rounds, k), dtype=np.float32),
         "noise": noise_rows(pz.seed, t0, t1, pz.zo.n_perturb, k),
+        "leaf_seeds": zo.seed_table(pz.seed, t0, t1, pz.zo.n_perturb,
+                                    n_leaves).view(np.int32),
     }
-    ctl = {key: torch.from_numpy(v).to(device) for key, v in host_ctl.items()}
+    block = HostBlock({key: (v.shape, v.dtype) for key, v in
+                       host_ctl.items()}, device)
+    for key, v in host_ctl.items():
+        block.host[key][...] = v
+    ctl = block.ship()
     ctl["seed"] = np.asarray([zo.round_seed(pz.seed, t)
                               for t in range(t0, t1)], dtype=np.uint32)
     charged = bool(transport.charges_privacy(schedule, pz))
@@ -116,20 +197,157 @@ def charge_rounds(accountant: PrivacyAccountant, trace: ControlTrace,
     accountant.spend_batch(np.asarray(trace.acct_cost[:n], dtype=np.float64))
 
 
+# ---------------------------------------------------------------------------
+# Batch staging (host → device, one transfer per chunk)
+# ---------------------------------------------------------------------------
+
+class BatchStager:
+    """Slot-rotated host staging for chunk batches.
+
+    Each slot keeps one `HostBlock` (pinned on the card); a chunk's batches
+    are stacked into it in place, token ids widened to int64 for indexing,
+    labels dropped, and shipped in one non-blocking copy.
+
+    Slots exist because the prefetch thread prepares chunk i+1 while chunk
+    i may still run. The lifetime rule is the reference's: on the CPU the
+    staged tensors ALIAS the host buffer, so they are valid only until their
+    slot is rewritten (two `stage` calls later), and the driver kicks chunk
+    i+1's preparation only after chunk i-1 has been synced
+    (`ChunkPrefetcher.kick`); on the card a slot is also rewritten only
+    after its last copy has completed."""
+
+    def __init__(self, pipeline, device, slots: int = 2):
+        self._pipeline = pipeline
+        self._device = torch.device(device)
+        self._slots: List[Optional[HostBlock]] = [None] * max(1, slots)
+        self._next = 0
+
+    def stage(self, t0: int, t1: int) -> Dict[str, torch.Tensor]:
+        """Stacked round batches [R, ...] for rounds [t0, t1) on the
+        device."""
+        i = self._next
+        self._next = (self._next + 1) % len(self._slots)
+        per_round = [self._pipeline.batch(int(t)) for t in range(t0, t1)]
+        like = {}
+        for key, first in per_round[0].items():
+            if key == "labels":
+                continue
+            dtype = np.asarray(first).dtype
+            like[key] = ((len(per_round),) + np.shape(first),
+                         np.int64 if dtype == np.int32 else dtype)
+        block = self._slots[i]
+        if block is not None:
+            block.wait()                        # host buffer reusable
+        if block is None or block.signature != _signature(like):
+            block = self._slots[i] = HostBlock(like, self._device)
+        for r, b in enumerate(per_round):
+            for key, view in block.host.items():
+                view[r] = b[key]
+        return block.ship()
+
+
 def stack_batches(pipeline, t0: int, t1: int, device) -> Dict[str,
                                                                torch.Tensor]:
     """Round batches [R, K, b, S] for rounds [t0, t1) on `device` (labels
-    dropped, token ids as int64 for indexing)."""
-    per_round = [pipeline.batch(t) for t in range(t0, t1)]
-    out = {}
-    for key in per_round[0]:
-        if key == "labels":
-            continue
-        arr = np.stack([b[key] for b in per_round])
-        if arr.dtype == np.int32:
-            arr = arr.astype(np.int64)
-        out[key] = torch.from_numpy(arr).to(device)
-    return out
+    dropped, token ids as int64) — one-shot, no buffer reuse."""
+    return BatchStager(pipeline, device, slots=1).stage(t0, t1)
+
+
+# ---------------------------------------------------------------------------
+# Chunk prefetch (host-side prep of chunk i+1 overlaps device compute of i)
+# ---------------------------------------------------------------------------
+
+class ChunkPrefetcher:
+    """One-chunk-ahead host pipeline with the reference's handshake.
+
+    `prepare(a, b)` does the host work for chunk [a, b): the control trace
+    and the batch staging, each ending in one non-blocking copy. Chunks are
+    prepared in round order on one worker thread. The driver calls
+    `kick(i + 1)` only AFTER it has synced chunk i-1's metrics: chunk i-1
+    has then finished, so the stager slot it shares with chunk i+1 can be
+    rewritten.
+
+    `get(i)` waits for the kicked preparation (or runs it inline when
+    nothing was kicked: chunk 0, or `overlap=False`); the wait accumulates
+    in `stall_s`. A kicked preparation that failed on the worker is re-run
+    inline once (counted in `degraded`); a second failure propagates."""
+
+    def __init__(self, prepare: Callable[[int, int], Any],
+                 bounds: Sequence[Tuple[int, int]], overlap: bool = True):
+        self._prepare = prepare
+        self._bounds = list(bounds)
+        self._overlap = overlap and len(self._bounds) > 0
+        self._pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="chunk-prefetch") \
+            if self._overlap else None
+        self._fut: Optional[Future] = None
+        self._fut_i = -1
+        self._next = 0            # next chunk index the driver may get()
+        self.stall_s = 0.0
+        self.degraded = 0         # kicked preparations re-run inline
+
+    def _run_prepare(self, i: int) -> Any:
+        a, b = self._bounds[i]
+        return self._prepare(a, b)
+
+    def kick(self, i: int) -> None:
+        """Start chunk i's preparation on the worker thread (no-op when
+        overlap is off, i is out of range, or i was already kicked or
+        consumed)."""
+        if (self._overlap and self._fut is None and i == self._next
+                and i < len(self._bounds)):
+            self._fut_i = i
+            self._fut = self._pool.submit(self._run_prepare, i)
+
+    def get(self, i: int) -> Any:
+        """The prepared payload for chunk i (blocks; stall time recorded)."""
+        if i != self._next:
+            raise ValueError(f"chunk {i} requested, chunk {self._next} is "
+                             "next: chunks are consumed in order")
+        self._next += 1
+        t0 = time.perf_counter()
+        if self._fut is not None:
+            fut, self._fut = self._fut, None
+            try:
+                out = fut.result()
+            except Exception:  # noqa: BLE001 - re-run once, inline
+                self.degraded += 1
+                out = self._run_prepare(i)
+        else:
+            out = self._run_prepare(i)
+        self.stall_s += time.perf_counter() - t0
+        return out
+
+    def close(self) -> None:
+        if self._pool is not None:
+            if self._fut is not None:          # drain an abandoned prep
+                try:
+                    self._fut.result()
+                except Exception:  # noqa: BLE001 - its chunk never runs
+                    pass
+                self._fut = None
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+# ---------------------------------------------------------------------------
+# Executors: per-round dispatch (loop) and a replayed CUDA graph (scan)
+# ---------------------------------------------------------------------------
+
+def _row(stack: Dict, r: int) -> Dict:
+    return {k: v[r] for k, v in stack.items()}
+
+
+def _run_eager(step: Callable, params: Params, ctl_stack: Dict,
+               batch_stack: Dict[str, torch.Tensor], rounds: range
+               ) -> Tuple[Params, Dict[str, List[torch.Tensor]]]:
+    collected: Dict[str, list] = {}
+    for r in rounds:
+        params, metrics = step(params, _row(batch_stack, r),
+                               _row(ctl_stack, r))
+        for k, v in metrics.items():
+            collected.setdefault(k, []).append(v)   # no per-round sync
+    return params, collected
 
 
 class LoopExecutor:
@@ -142,14 +360,113 @@ class LoopExecutor:
             batch_stack: Dict[str, torch.Tensor]
             ) -> Tuple[Params, Dict[str, torch.Tensor]]:
         rounds = len(ctl_stack["seed"])
-        collected: Dict[str, list] = {}
-        for r in range(rounds):
-            ctl = {k: v[r] for k, v in ctl_stack.items()}
-            batch = {k: v[r] for k, v in batch_stack.items()}
-            params, metrics = self._step(params, batch, ctl)
-            for k, v in metrics.items():
-                collected.setdefault(k, []).append(v)   # no per-round sync
+        params, collected = _run_eager(self._step, params, ctl_stack,
+                                       batch_stack, range(rounds))
         return params, {k: torch.stack(v) for k, v in collected.items()}
+
+
+class _Graph:
+    """One round of the step captured as a CUDA graph: static input
+    buffers (one control row, one batch row), the metrics it writes, and
+    the kernel launches its capture recorded."""
+
+    def __init__(self, step: Callable, params: Params, ctl: Dict,
+                 batch: Dict[str, torch.Tensor]):
+        self.ctl = {k: v.clone() for k, v in ctl.items()}
+        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        before = kops.read_launches()
+        # capture records the launches and runs none of them: the params
+        # do not move, and the wrappers' counts are handed back below
+        with torch.cuda.graph(self.graph):
+            _, self.metrics = step(params, self.batch, self.ctl)
+        after = kops.read_launches()
+        self.launches = {k: after[k] - before[k] for k in after}
+        kops.add_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self, ctl: Dict, batch: Dict[str, torch.Tensor]) -> None:
+        global replays
+        for static, row in ((self.ctl, ctl), (self.batch, batch)):
+            for k, buf in static.items():
+                buf.copy_(row[k])
+        self.graph.replay()
+        kops.add_launches(self.launches)
+        replays += 1
+
+
+def _graph_key(params: Params, ctl: Dict, batch: Dict) -> tuple:
+    # the graph bakes in every address it reads and writes: the leaves'
+    # (updated in place) and its own static buffers, shaped like these rows
+    return (tuple((t.data_ptr(), tuple(t.shape)) for _, t in
+                  zo.flatten(params)),
+            tuple((k, tuple(v.shape), v.dtype) for k, v in ctl.items()),
+            tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
+
+
+class ScanExecutor:
+    """A chunk of rounds with one dispatch per round from a captured CUDA
+    graph: the counterpart of the reference's `lax.scan` over the step
+    (PyTorch has no `jit` to compile a chunk into one program).
+
+    On the card `run` runs the chunk's first round eagerly, through the same
+    round body as the loop (that round makes every first use: cuBLAS
+    handles, the kernel libraries' load and their shared-memory attributes,
+    `zo._const`'s device scalars), then captures one round into a
+    `torch.cuda.CUDAGraph` whose static inputs hold one control row (leaf
+    seeds included) and one batch row. For each remaining round it copies
+    row r into those inputs, replays the graph and copies the metrics out:
+    no host sync inside a chunk. The graph is kept for the next chunk and
+    the next run of the same step while the leaves it updates in place stay
+    where they are. A failure to capture or replay raises; nothing falls
+    back to eager rounds on the card.
+
+    On the CPU there is no graph: the rounds run eagerly one after the
+    other, with no per-round sync, exactly as `LoopExecutor` runs them."""
+
+    def __init__(self, step: Callable):
+        self._step = step
+        self._graph: Optional[Tuple[tuple, _Graph]] = None
+
+    def run(self, params: Params, ctl_stack: Dict,
+            batch_stack: Dict[str, torch.Tensor]
+            ) -> Tuple[Params, Dict[str, torch.Tensor]]:
+        rounds = len(ctl_stack["seed"])
+        dev_ctl = {k: v for k, v in ctl_stack.items()
+                   if isinstance(v, torch.Tensor)}
+        on_card = dev_ctl["c"].device.type == "cuda"
+        params, collected = _run_eager(self._step, params, ctl_stack,
+                                       batch_stack,
+                                       range(1 if on_card else rounds))
+        if not on_card or rounds == 1:
+            return params, {k: torch.stack(v) for k, v in collected.items()}
+        out = {k: torch.empty((rounds,) + v[0].shape, dtype=v[0].dtype,
+                              device=v[0].device)
+               for k, v in collected.items()}
+        for k, v in collected.items():
+            out[k][0].copy_(v[0])
+        graph = self._graph_for(params, _row(dev_ctl, 0),
+                                _row(batch_stack, 0))
+        for r in range(1, rounds):
+            graph.replay(_row(dev_ctl, r), _row(batch_stack, r))
+            for k, v in graph.metrics.items():
+                out[k][r].copy_(v)
+        return params, out
+
+    def _graph_for(self, params: Params, ctl: Dict,
+                   batch: Dict[str, torch.Tensor]) -> _Graph:
+        key = _graph_key(params, ctl, batch)
+        if self._graph is None or self._graph[0] != key:
+            self._graph = None                 # free the old graph's pool
+            self._graph = (key, _Graph(self._step, params, ctl, batch))
+        return self._graph[1]
+
+
+@functools.lru_cache(maxsize=8)
+def get_executor(step: Callable) -> ScanExecutor:
+    """Executor cache keyed on the step (memoized by `pairzero.make_zo_step`),
+    so identical runs share one captured graph; `get_executor.cache_clear()`
+    releases the graphs and their memory pools."""
+    return ScanExecutor(step)
 
 
 def chunk_boundaries(start: int, stop: int, chunk_rounds: int,

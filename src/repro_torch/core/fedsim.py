@@ -1,12 +1,18 @@
 """Federated simulation driver (Algorithm 1 end to end), ported from
-`repro.core.fedsim` for the loop engine.
+`repro.core.fedsim`.
 
 `Experiment` is the host-side orchestrator: it realizes the channel for the
 horizon, asks the Transport for its schedule (Theorem-3 power control),
-then walks the rounds one at a time through the loop executor, charging the
-DP accountant before each round (hard stop on overspend) and firing the
-round hooks. Options of the reference that this port does not carry yet
-raise NotImplementedError naming their ROADMAP item; none is ignored.
+then walks the rounds in chunks through an executor (`engine="loop"`: one
+round a chunk, dispatched round by round; `engine="scan"`: up to
+`chunk_rounds` rounds a chunk, replayed from one captured CUDA graph on the
+card), charging the DP accountant before each chunk (hard stop on
+overspend, truncating the chunk before dispatch) and firing the round
+hooks. Both engines run this same loop; chunk boundaries are aligned to the
+hook cadences, chunk i+1 is prepared on a worker thread while chunk i runs
+(`overlap`), and under scan a chunk's metrics reach the host one chunk late.
+Options of the reference that this port does not carry yet raise
+NotImplementedError naming their ROADMAP item; none is ignored.
 """
 from __future__ import annotations
 
@@ -23,14 +29,13 @@ from repro_torch.core import engine as eng
 from repro_torch.core import pairzero
 from repro_torch.core import transport as tp
 from repro_torch.core.dp import PrivacyAccountant, cumulative_spend
+from repro_torch.data import tasks as T
 from repro_torch.data.pipeline import FederatedPipeline
+from repro_torch.models import layers as L
 from repro_torch.models import registry
 
 # reference options not ported yet → the ROADMAP item that ports them
 _UNPORTED = {
-    "chunk_rounds": "A5: scan executor",
-    "overlap": "A5: scan executor",
-    "eval_n": "A5: eval hook",
     "checkpoint_every": "A6: checkpoints",
     "channel_model": "A2: other channel models and wrappers",
     "fault": "A7: faults and elastic membership",
@@ -66,15 +71,60 @@ class RunResult:
     transport: Optional[Any] = None
     # [steps] cumulative Eq.-16 ledger after each executed round
     privacy_spent_per_round: Optional[np.ndarray] = None
+    accuracies: List[float] = field(default_factory=list)
+    prep_stall_s: float = 0.0        # driver blocked on host-side chunk prep
 
 
 class RoundHook:
-    """Host-side side effect wired into the driver loop (the reference's
-    start/boundary/close callbacks serve its eval and checkpoint hooks,
-    which are not ported)."""
+    """Host-side side effect wired into the driver loop.
+
+    `cadence` (rounds) aligns chunk boundaries so `on_boundary` fires at
+    exactly the multiples it would under per-round dispatch. `on_round`
+    receives every round's host metrics (one chunk late under the scan
+    engine, never reordered)."""
+    cadence: int = 0
+
+    def on_start(self, exp: "Experiment") -> None:
+        """Before round execution."""
 
     def on_round(self, t: int, metrics: Dict[str, np.ndarray]) -> None:
         """Per executed round, with that round's host-side metrics."""
+
+    def on_boundary(self, t_done: int, exp: "Experiment") -> None:
+        """At every aligned chunk boundary (t_done rounds executed)."""
+
+    def close(self, exp: "Experiment") -> None:
+        """After the run."""
+
+
+def eval_logits(params: Dict, model_cfg: ModelConfig,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """The greedy eval's logits at the last position, [n, V] f32: the
+    model's forward, then the lm head (or the tied embedding) on x[:, -1]
+    only. `tasks.accuracy` reads no other position, and for
+    recurrentgemma-2b the full [64, 64, 256000] logits would take 4.2 GB."""
+    x = registry.get_module(model_cfg).forward(params, model_cfg, tokens)
+    head = params.get("lm_head", params["embed"])
+    return L.unembed(head, x[:, -1])
+
+
+class EvalHook(RoundHook):
+    """Greedy eval on the held-out batch every `cadence` rounds, appending
+    to `RunResult.accuracies`."""
+
+    def __init__(self, every: int, eval_n: int = 64):
+        self.cadence = every
+        self.eval_n = eval_n
+
+    def on_boundary(self, t_done: int, exp: "Experiment") -> None:
+        if self.cadence and t_done % self.cadence == 0:
+            ebatch = exp.pipeline.eval_batch(self.eval_n)
+            tokens = torch.from_numpy(ebatch["tokens"].astype(np.int64))
+            logits = eval_logits(exp.params, exp.model_cfg,
+                                 tokens.to(exp.device))
+            # [n, 1, V]: the answer position is the only one scored
+            host = logits[:, None, :].cpu().numpy()
+            exp.result.accuracies.append(T.accuracy(host, ebatch))
 
 
 class CallbackHook(RoundHook):
@@ -90,20 +140,20 @@ class CallbackHook(RoundHook):
 class Experiment:
     """One federated run: model + pAirZero config + data + a Transport.
 
-    The tensors passed as `params` are updated in place by the chained walk
-    (the run owns them; pass a copy to keep the originals). Without
-    `params`, the run initializes random weights from `pz.seed`."""
+    The tensors passed as `params` are updated in place (the run owns them;
+    pass a copy to keep the originals). Without `params`, the run
+    initializes random weights from `pz.seed`."""
 
     def __init__(self, model_cfg: ModelConfig, pz: PairZeroConfig,
                  pipeline: FederatedPipeline, rounds: int, *,
-                 engine: str = "loop",
+                 engine: str = "loop", chunk_rounds: int = 32,
                  transport: Optional[tp.Transport] = None,
                  hooks: Sequence[RoundHook] = (),
-                 params: Optional[Dict] = None, device="cuda"):
-        if engine != "loop":
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported (ROADMAP A5: scan "
-                "executor); only 'loop'")
+                 params: Optional[Dict] = None, overlap: bool = True,
+                 device="cuda"):
+        if engine not in ("scan", "loop"):
+            raise ValueError(
+                f"unknown engine: {engine!r} (want 'scan'|'loop')")
         for name, item in (("byzantine", "A9: byzantine subsystem"),
                            ("desync", "A9: desync")):
             if getattr(pz, name) is not None:
@@ -114,6 +164,9 @@ class Experiment:
         self.pz = pz
         self.pipeline = pipeline
         self.rounds = rounds
+        self.engine = engine
+        self.chunk_rounds = chunk_rounds
+        self.overlap = overlap
         self.transport = transport if transport is not None \
             else tp.resolve(pz)
         self.channel_model = channel.from_config(pz.channel)
@@ -137,31 +190,80 @@ class Experiment:
         if self.params is None:
             gen = torch.Generator(device=dev).manual_seed(pz.seed)
             self.params = registry.init_params(self.model_cfg, gen, dev)
+        for hook in self.hooks:
+            hook.on_start(self)
 
-        executor = eng.LoopExecutor(self.step)
+        executor = eng.LoopExecutor(self.step) if self.engine == "loop" \
+            else eng.get_executor(self.step)
+        align = tuple(hk.cadence for hk in self.hooks if hk.cadence)
+        # the loop engine dispatches (and syncs) one round at a time: one-
+        # round chunks keep its metrics and on_round live
+        span = 1 if self.engine == "loop" else self.chunk_rounds
+        bounds = eng.chunk_boundaries(0, self.rounds, span, align)
+        n_leaves = len(registry.shapes(self.model_cfg))
+        stager = eng.BatchStager(self.pipeline, dev)
+        # the worker thread's copies go to the stream the chunks run on
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+
+        def prepare(a: int, b: int):
+            with torch.cuda.stream(stream):
+                trace = eng.build_trace(schedule, pz, a, b, device=dev,
+                                        n_leaves=n_leaves,
+                                        transport=self.transport)
+                return trace, stager.stage(a, b)
+
+        prefetch = eng.ChunkPrefetcher(prepare, bounds, overlap=self.overlap)
+        # software pipelining: chunk i-1's metrics are synced after chunk i
+        # has been dispatched, so the sync overlaps the device's work
+        pending = None            # (first_round, n_rounds, metrics)
         client_rounds = 0.0
-        # one-round spans: the loop engine dispatches and syncs per round
-        for a, b in eng.chunk_boundaries(0, self.rounds, 1):
-            trace = eng.build_trace(schedule, pz, a, b, device=dev,
-                                    transport=self.transport)
-            n_ok = eng.affordable_rounds(self.accountant, trace)
-            if n_ok == 0:
-                result.privacy_exhausted_at = a
-                break
-            eng.charge_rounds(self.accountant, trace, n_ok)
-            client_rounds += float(trace.host_masks[:n_ok].sum())
-            batches = eng.stack_batches(self.pipeline, a, a + n_ok, dev)
-            self.params, metrics = executor.run(self.params, trace.rows(n_ok),
-                                                batches)
+
+        def flush() -> None:
+            nonlocal pending
+            if pending is None:
+                return
+            a0, n_rounds, metrics = pending
+            pending = None
             host = {k: v.cpu().numpy() for k, v in metrics.items()}
             result.losses.extend(float(x) for x in host["loss"])
             result.p_hats.extend(float(x) for x in host["p_hat"])
             for hook in self.hooks:
-                for r in range(n_ok):
-                    hook.on_round(a + r, {k: v[r] for k, v in host.items()})
-            if n_ok < b - a:              # guard tripped mid-span: hard stop
-                result.privacy_exhausted_at = a + n_ok
-                break
+                for r in range(n_rounds):
+                    hook.on_round(a0 + r, {k: v[r] for k, v in host.items()})
+
+        try:
+            for i, (a, b) in enumerate(bounds):
+                trace, batches = prefetch.get(i)
+                n_ok = eng.affordable_rounds(self.accountant, trace)
+                if n_ok == 0:
+                    result.privacy_exhausted_at = a
+                    break
+                eng.charge_rounds(self.accountant, trace, n_ok)
+                client_rounds += float(trace.host_masks[:n_ok].sum())
+                if n_ok < b - a:          # guard trips mid-chunk: truncate
+                    batches = {k: v[:n_ok] for k, v in batches.items()}
+                self.params, metrics = executor.run(
+                    self.params, trace.rows(n_ok), batches)
+                flush()                   # sync chunk i-1 while chunk i runs
+                pending = (a, n_ok, metrics)
+                if self.engine == "loop":
+                    flush()               # per-round dispatch: deliver now
+                # chunk i-1 is synced, so its stager slot (shared with
+                # chunk i+1) may be rewritten: start the next preparation
+                prefetch.kick(i + 1)
+                t_done = a + n_ok
+                if n_ok < b - a:          # guard tripped mid-chunk: hard stop
+                    flush()
+                    result.privacy_exhausted_at = t_done
+                    break
+                for hook in self.hooks:
+                    hook.on_boundary(t_done, self)
+        finally:
+            prefetch.close()
+        flush()
+        for hook in self.hooks:
+            hook.close(self)
 
         result.steps = len(result.losses)
         result.privacy_spent = self.accountant.spent
@@ -172,6 +274,7 @@ class Experiment:
         result.uplink_bits = int(round(
             self.transport.payload_bits(pz, self.model_cfg.param_count())
             * client_rounds))
+        result.prep_stall_s = prefetch.stall_s
         result.wall_time_s = time.time() - t0
         result.params = self.params
         return result
@@ -179,21 +282,22 @@ class Experiment:
 
 def run(model_cfg: ModelConfig, pz: PairZeroConfig,
         pipeline: FederatedPipeline, rounds: int, *,
-        engine: str = "loop", eval_every: int = 0,
+        engine: str = "loop", chunk_rounds: int = 32,
+        eval_every: int = 0, eval_n: int = 64,
         checkpoint_dir: Optional[str] = None,
         params: Optional[Dict] = None,
         on_round: Optional[Callable[[int, Dict], None]] = None,
-        transport: Optional[tp.Transport] = None,
+        transport: Optional[tp.Transport] = None, overlap: bool = True,
         hooks: Sequence[RoundHook] = (), device="cuda",
         **unported) -> RunResult:
     """Run `rounds` rounds of pAirZero on one device (default: the GPU).
 
-    Mirrors `repro.core.fedsim.run` for the loop engine. `device="cpu"`
-    runs the plain PyTorch versions of the kernels (the tests' path);
-    "cuda" raises when no GPU is present."""
-    if eval_every:
-        raise NotImplementedError("eval_every is not ported (ROADMAP A5: "
-                                  "eval hook)")
+    Mirrors `repro.core.fedsim.run`: `engine="scan"` runs chunks of up to
+    `chunk_rounds` rounds (one captured CUDA graph replayed per round on the
+    card), `eval_every` adds an `EvalHook` (accuracies on `eval_n` held-out
+    sequences), `overlap=False` prepares each chunk inline instead of on
+    the prefetch thread. `device="cpu"` runs the plain PyTorch versions of
+    the kernels (the tests' path); "cuda" raises when no GPU is present."""
     if checkpoint_dir:
         raise NotImplementedError("checkpoint_dir is not ported (ROADMAP "
                                   "A6: checkpoints)")
@@ -203,8 +307,11 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
                             f"{option!r}")
         _reject(option, value)
     all_hooks: List[RoundHook] = list(hooks)
+    if eval_every:
+        all_hooks.append(EvalHook(eval_every, eval_n))
     if on_round is not None:
         all_hooks.append(CallbackHook(on_round))
     return Experiment(model_cfg, pz, pipeline, rounds, engine=engine,
-                      transport=transport, hooks=all_hooks, params=params,
+                      chunk_rounds=chunk_rounds, transport=transport,
+                      hooks=all_hooks, params=params, overlap=overlap,
                       device=device).run()

@@ -4,12 +4,15 @@ One round: for each of n_perturb directions, every client evaluates its
 clipped projection p_k from the shared seed (the chained, fresh or fused
 dual forward), the Transport recovers p̂ from the [K] payload vector, and
 w ← w − η p̂ z is applied from the same seed. Round-varying control (c, σ,
-N0, mask, CSI factors, the broadcast seed and the round's noise normals)
-is data. Mesh, adversary, Byzantine behaviors/defenses and desync are not
-ported yet.
+N0, mask, CSI factors, the round's leaf seeds and noise normals) is data
+on the device: the round body reads no host value and makes no host
+tensor, so one captured CUDA graph replays any round
+(`engine.ScanExecutor`). Mesh, adversary, Byzantine behaviors/defenses and
+desync are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -35,10 +38,13 @@ def make_loss_fn(model_cfg: ModelConfig) -> Callable[[Params, Dict],
 
 
 def make_control(t: int, schedule, base_seed: int, n_clients: int,
-                 n_perturb: int, device) -> Dict:
-    """Round-t control block: the broadcast seed (a host int) plus device
-    tensors c, sigma [K], n0, mask [K], g [K] and noise [n_perturb, K+1]
-    (one row of standard normals per perturbation direction)."""
+                 n_perturb: int, device, n_leaves: int) -> Dict:
+    """Round-t control block: the broadcast seed (a host int, for the
+    record) plus device tensors c, sigma [K], n0, mask [K], g [K], noise
+    [n_perturb, K+1] (one row of standard normals per perturbation
+    direction) and leaf_seeds [n_perturb, n_leaves] (int32 holding the
+    uint32 leaf seeds, the row the round body reads per direction). A
+    helper for single rounds, built on the host outside any round body."""
     from repro_torch.core.engine import noise_rows
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -52,14 +58,20 @@ def make_control(t: int, schedule, base_seed: int, n_clients: int,
         "noise": torch.from_numpy(
             noise_rows(base_seed, t, t + 1, n_perturb, n_clients)[0]
         ).to(device),
+        "leaf_seeds": torch.from_numpy(zo.seed_table(
+            base_seed, t, t + 1, n_perturb, n_leaves)[0].view(np.int32)
+        ).to(device),
     }
 
 
+@functools.lru_cache(maxsize=128)
 def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
                  transport: Optional[tp.Transport] = None) -> Callable:
     """step(params, batch, ctl) → (params, metrics) for one round.
 
-    `params` is updated in place and returned."""
+    `params` is updated in place and returned. Memoized on the (frozen)
+    configs, as the reference's is, so identical runs share one step and
+    the scan engine's cached graph (`engine.get_executor`)."""
     loss_fn = make_loss_fn(model_cfg)
     transport = transport if transport is not None else tp.resolve(pz)
     mu, lr, gamma = pz.zo.mu, pz.zo.lr, pz.zo.clip_gamma
@@ -84,13 +96,13 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
         p_hat_sum = 0.0
         loss_acc = 0.0
         for j in range(n_perturb):
-            seed = zo.perturb_seed(int(ctl["seed"]), j)
+            seeds = ctl["leaf_seeds"][j]          # device row, no host read
             lp, lm, params_at = zo.dual_forward(
-                lambda p: loss_fn(p, batch), params, seed, mu, mode=mode)
+                lambda p: loss_fn(p, batch), params, seeds, mu, mode=mode)
             p_k = zo.projection(lp, lm, mu, gamma)                 # [K]
             p_hat = transport.aggregate(p_k, {**ctl, "noise": ctl["noise"][j]})
             # restore + update fused into one axpy (chained mode)
-            params = zo.apply_update(params_at, seed, p_hat,
+            params = zo.apply_update(params_at, seeds, p_hat,
                                      lr / n_perturb, mu, mode=mode)
             p_hat_sum = p_hat_sum + p_hat
             loss_acc = loss_acc + torch.mean(0.5 * (lp + lm))

@@ -5,8 +5,17 @@ A client needs only p_k = (F_k(w + μz) − F_k(w − μz)) / (2μ) (Eq. 7), and
 update is w ← w − η p̂ z (Algorithm 1, line 14). z is regenerated on demand
 from the broadcast seed, leaf by leaf: leaf i of the parameter tree (in the
 reference's sorted-key flattening, `flatten`) draws the counter-hash
-stream seeded by `leaf_seed(seed, i)`. Seeds are host integers; the kernels
-take them as launch arguments.
+stream seeded by `leaf_seed(seed, i)`.
+
+`leaf_seed`, `perturb_seed` and `round_seed` are host integer functions.
+What the update functions take is a direction's seed row: the `n_leaves`
+leaf seeds of one perturbation direction, indexed in `flatten` order, as a
+1-D int32 tensor on the leaves' device holding the uint32 bits (int32, not
+int64, because the kernels read each element as a uint32 from device
+memory). `seed_row` makes one from a direction seed, and the control trace
+carries one per round and direction (`seed_table`, `ctl["leaf_seeds"]`),
+so a round launches no kernel with a host seed and a captured CUDA graph
+replays any round from its inputs.
 """
 from __future__ import annotations
 
@@ -14,10 +23,11 @@ import functools
 import itertools
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.seeded_axpy import GOLDEN, MASK32, fmix32
+from repro_torch.kernels.seeded_axpy import GOLDEN, MASK32, fmix32, mul32
 
 Params = Dict
 
@@ -57,6 +67,27 @@ def perturb_seed(round_seed_t: int, j: int) -> int:
                   & MASK32)
 
 
+def seed_table(base_seed: int, t0: int, t1: int, n_perturb: int,
+               n_leaves: int) -> np.ndarray:
+    """[R, n_perturb, n_leaves] uint32: leaf_seed(perturb_seed(round_seed(
+    base_seed, t), j), i) for rounds t in [t0, t1), vectorized over int64
+    arrays with the same uint32 arithmetic as the scalar functions."""
+    t = np.arange(t0, t1, dtype=np.int64)[:, None, None]
+    j = np.arange(n_perturb, dtype=np.int64)[None, :, None]
+    i = np.arange(n_leaves, dtype=np.int64)[None, None, :]
+    rs = fmix32((int(base_seed) & MASK32) ^ mul32(t & MASK32, 0x85EBCA6B))
+    ps = fmix32((rs + mul32(j + 1, GOLDEN)) & MASK32)
+    return fmix32((mul32(ps, GOLDEN) + i) & MASK32).astype(np.uint32)
+
+
+def seed_row(seed: int, n_leaves: int, device="cpu") -> torch.Tensor:
+    """The seed row of direction seed `seed`: [n_leaves] int32 holding the
+    uint32 bits of leaf_seed(seed, i)."""
+    row = np.asarray([leaf_seed(seed, i) for i in range(n_leaves)],
+                     dtype=np.uint32)
+    return torch.from_numpy(row.view(np.int32)).to(device)
+
+
 @functools.lru_cache(maxsize=64)
 def _const(value: float, device: torch.device) -> torch.Tensor:
     # device-resident f32 scalars for the fixed scales (±μ, −2μ), made once
@@ -79,38 +110,39 @@ def _map_leaves(fn, node, counter):
     return fn(next(counter), node)
 
 
-def perturb(params: Params, seed: int, scale, *,
+def perturb(params: Params, seeds: torch.Tensor, scale, *,
             inplace: bool = False) -> Params:
-    """params + scale · z(seed), z regenerated leaf by leaf.
+    """params + scale · z(seeds), z regenerated leaf by leaf: leaf i draws
+    the stream of seeds[i] (`seeds` is a direction's seed row).
 
     `scale` is a float or a 0-d f32 tensor (e.g. μ − η·p̂ on the device).
     `inplace=True` overwrites the leaves (the chained walk); otherwise a new
     tree is returned and `params` is untouched.
     """
     def axpy(i: int, leaf: torch.Tensor) -> torch.Tensor:
-        return kops.seeded_axpy(leaf, leaf_seed(seed, i),
-                                _scale(scale, leaf.device),
+        return kops.seeded_axpy(leaf, seeds[i], _scale(scale, leaf.device),
                                 out=leaf if inplace else None)
     new = _map_leaves(axpy, params, itertools.count())
     return params if inplace else new
 
 
-def tag_perturbed(params: Params, seed: int, scale) -> Params:
+def tag_perturbed(params: Params, seeds: torch.Tensor, scale) -> Params:
     """Tag every leaf as lazily perturbed: leaf → PerturbedParam(leaf,
-    leaf_seed(seed, i), 0, scale), i in `flatten` order (the fused
+    seeds[i], 0, scale), i in `flatten` order (the fused
     counterpart of `perturb`, with the same per-leaf streams). The layer
     consumers draw z inside their matmul or gather, or resolve one
     layer-sized transient; nothing is written to the leaves."""
     def tag(i: int, leaf: torch.Tensor) -> kops.PerturbedParam:
-        return kops.PerturbedParam(leaf, leaf_seed(seed, i), 0,
+        return kops.PerturbedParam(leaf, seeds[i], 0,
                                    _scale(scale, leaf.device))
     return _map_leaves(tag, params, itertools.count())
 
 
 def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
-                 seed: int, mu: float, mode: str = "chained"
+                 seeds: torch.Tensor, mu: float, mode: str = "chained"
                  ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
-    """(loss(w+μz), loss(w−μz), params positioned for the update).
+    """(loss(w+μz), loss(w−μz), params positioned for the update); z is
+    drawn from the direction's seed row `seeds`.
 
     chained: the leaves are updated IN PLACE along the reference's exact
     axpy sequence w → w+μz → w−μz (the caller's update then walks to
@@ -122,18 +154,18 @@ def dual_forward(loss_fn: Callable[[Params], torch.Tensor], params: Params,
     w is never written and no perturbed copy exists; returns w.
     """
     if mode == "chained":
-        perturb(params, seed, mu, inplace=True)            # w + μz
+        perturb(params, seeds, mu, inplace=True)            # w + μz
         loss_plus = loss_fn(params)
-        perturb(params, seed, -2.0 * mu, inplace=True)     # w − μz
+        perturb(params, seeds, -2.0 * mu, inplace=True)     # w − μz
         loss_minus = loss_fn(params)
         return loss_plus, loss_minus, params
     if mode == "fresh":
-        loss_plus = loss_fn(perturb(params, seed, mu))
-        loss_minus = loss_fn(perturb(params, seed, -mu))
+        loss_plus = loss_fn(perturb(params, seeds, mu))
+        loss_minus = loss_fn(perturb(params, seeds, -mu))
         return loss_plus, loss_minus, params
     if mode == "fused":
-        loss_plus = loss_fn(tag_perturbed(params, seed, mu))
-        loss_minus = loss_fn(tag_perturbed(params, seed, -mu))
+        loss_plus = loss_fn(tag_perturbed(params, seeds, mu))
+        loss_minus = loss_fn(tag_perturbed(params, seeds, -mu))
         return loss_plus, loss_minus, params
     raise ValueError(f"unknown dual mode: {mode}")
 
@@ -145,13 +177,13 @@ def projection(loss_plus: torch.Tensor, loss_minus: torch.Tensor, mu: float,
     return torch.clamp(p, -clip_gamma, clip_gamma)
 
 
-def apply_update(params_at: Params, seed: int, p_hat: torch.Tensor,
+def apply_update(params_at: Params, seeds: torch.Tensor, p_hat: torch.Tensor,
                  lr: float, mu: float, mode: str = "chained") -> Params:
     """w ← w − η p̂ z, in place. chained: params_at = w−μz, so one axpy of
     (μ − η p̂)·z restores and updates at once; fresh and fused: params_at =
     w, axpy of (−η p̂)·z."""
     if mode == "chained":
-        return perturb(params_at, seed, mu - lr * p_hat, inplace=True)
+        return perturb(params_at, seeds, mu - lr * p_hat, inplace=True)
     if mode in ("fresh", "fused"):
-        return perturb(params_at, seed, -lr * p_hat, inplace=True)
+        return perturb(params_at, seeds, -lr * p_hat, inplace=True)
     raise ValueError(f"unknown dual mode: {mode}")

@@ -2,7 +2,8 @@
 
 Every client owns a private stream seeded from (seed, client, round), so
 batch(t) is a pure function of (seed, t, K, shape) and bitwise equal to the
-reference's. Batches come out as [K, b, S] host arrays.
+reference's. Batches come out as [K, b, S] host arrays; `eval_batch` gives
+the reference's held-out [n, S] batch.
 """
 from __future__ import annotations
 
@@ -33,3 +34,10 @@ class FederatedPipeline:
                         self.per_client_batch)
                for k in range(self.n_clients)]
         return {key: np.stack([p[key] for p in per]) for key in per[0]}
+
+    def eval_batch(self, n: int, t: int = 10 ** 9) -> Dict[str, np.ndarray]:
+        """Held-out batch [n, S] (a disjoint stream index range). The seed
+        is the reference's expression as Python parses it:
+        seed ^ (0xE7A1 + t)."""
+        rng = np.random.default_rng(self.seed ^ 0xE7A1 + t)
+        return T.sample(self.task, self.spec, rng, n)

@@ -59,3 +59,10 @@ def sample(task: str, spec: TaskSpec, rng: np.random.Generator,
             f"task {task!r} is not ported (ROADMAP A2: squad/lm tasks); "
             "only sst2")
     return sample_sst2(spec, rng, n)
+
+
+def accuracy(logits: np.ndarray, batch: Dict) -> float:
+    """Answer-position accuracy (SST-2 accuracy): the argmax of the logits
+    at the last position against the target there."""
+    pred = np.argmax(logits[:, -1], axis=-1)
+    return float(np.mean(pred == batch["targets"][:, -1]))

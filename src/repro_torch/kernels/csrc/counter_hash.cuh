@@ -32,7 +32,8 @@ __device__ __forceinline__ float bits_to_unit(uint32_t bits) {
   return fmaxf(f, kInv24);
 }
 
-// seed_mix is seed * kGolden (mod 2^32), computed once on the host.
+// seed_mix is seed * kGolden (mod 2^32), formed once per thread from the
+// leaf seed the kernel reads from device memory.
 __device__ __forceinline__ float gaussian(uint32_t idx, uint32_t seed_mix) {
   const uint32_t base = idx * 2u + seed_mix;
   const float u1 = bits_to_unit(fmix32(base));

@@ -12,7 +12,7 @@ layer-sized transient, so no θ-sized perturbed copy ever exists.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +23,30 @@ from repro_torch.kernels import seeded_axpy as sa
 from repro_torch.kernels import ssd_scan
 
 
+#: each kernel's launch counter: the module and the attribute its CUDA
+#: wrapper adds one to when it launches the kernel
+LAUNCH_COUNTERS = {"seeded_axpy": (sa, "launches"),
+                   "seeded_gather": (sa, "gather_launches"),
+                   "flash_attention": (fa, "launches"),
+                   "perturbed_matmul": (pmm, "launches"),
+                   "ssd_scan": (ssd_scan, "launches"),
+                   "rglru_scan": (rglru_scan, "launches")}
+
+
+def read_launches() -> Dict[str, int]:
+    """Every kernel's launch count."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in LAUNCH_COUNTERS.items()}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add `delta` to the launch counts (a replayed CUDA graph launches the
+    kernels its capture recorded without calling their wrappers)."""
+    for name, n in delta.items():
+        mod, attr = LAUNCH_COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -31,14 +55,16 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device} (want cuda or cpu)")
 
 
-def seeded_axpy(w: torch.Tensor, seed: int, scale: torch.Tensor,
+def seeded_axpy(w: torch.Tensor, seed: torch.Tensor, scale: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out = w + scale · z(seed); `out=w` updates in place. `scale` is a
-    0-d f32 tensor on w's device."""
+    """out = w + scale · z(seed); `out=w` updates in place. `seed` is the
+    leaf's stream seed as one int32 element (`sa.seed_tensor`) and `scale`
+    a 0-d f32 tensor, both on w's device; on the CPU the seed is read as a
+    host int (a plain int is taken too)."""
     if _on_cuda(w):
         return sa.seeded_axpy_cuda(w, seed, scale,
                                    torch.empty_like(w) if out is None else out)
-    res = sa.seeded_axpy_plain(w, seed, scale)
+    res = sa.seeded_axpy_plain(w, sa.seed_value(seed), scale)
     return res if out is None else out.copy_(res)
 
 
@@ -60,7 +86,9 @@ class PerturbedParam:
     off" (`zo.tag_perturbed` tags every leaf of the tree).
 
     w    — the unperturbed tensor (a whole leaf or one layer's view of it);
-    seed — the leaf's stream seed (`zo.leaf_seed`), a host int;
+    seed — the leaf's stream seed (`zo.leaf_seed`): one int32 element on
+           w's device holding its uint32 bits (an element of `zo.seed_row`),
+           which the kernels read from device memory;
     off  — the counter of w's first element in the leaf's stream, a host
            int (0 for a whole leaf);
     eps  — the perturbation scale (±μ): a float or a 0-d f32 tensor.
@@ -70,10 +98,10 @@ class PerturbedParam:
     every z value equals the one `seeded_axpy` draws for the whole leaf.
     """
 
-    def __init__(self, w: torch.Tensor, seed: int, off: int,
+    def __init__(self, w: torch.Tensor, seed: torch.Tensor, off: int,
                  eps: Union[float, torch.Tensor]):
         self.w = w
-        self.seed = int(seed) & sa.MASK32
+        self.seed = seed
         self.off = int(off) & sa.MASK32
         self.eps = eps
 
@@ -95,7 +123,8 @@ class PerturbedParam:
 
 def perturbed_z(pp: PerturbedParam) -> torch.Tensor:
     """z of a tagged leaf (f32, w's shape): counters off + flat index."""
-    return sa.draw_z(pp.w.shape, pp.seed, pp.w.device, pp.off)
+    return sa.draw_z(pp.w.shape, sa.seed_value(pp.seed), pp.w.device,
+                     pp.off)
 
 
 def resolve(pp):
@@ -106,7 +135,8 @@ def resolve(pp):
     if _on_cuda(pp.w):
         return sa.seeded_axpy_cuda(pp.w, pp.seed, pp.scale(),
                                    torch.empty_like(pp.w), pp.off)
-    return sa.seeded_axpy_plain(pp.w, pp.seed, pp.scale(), pp.off)
+    return sa.seeded_axpy_plain(pp.w, sa.seed_value(pp.seed), pp.scale(),
+                                pp.off)
 
 
 def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
@@ -122,7 +152,8 @@ def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
             x.reshape(-1, x.shape[-1]).contiguous(), w, pp.seed, pp.off,
             pp.scale())
         return out.reshape(tuple(batch) + (w.shape[1],))
-    return pmm.perturbed_matmul_plain(x, w, pp.seed, pp.off, pp.scale())
+    return pmm.perturbed_matmul_plain(x, w, sa.seed_value(pp.seed), pp.off,
+                                      pp.scale())
 
 
 def perturbed_unembed(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
@@ -140,7 +171,8 @@ def perturbed_gather(pp: PerturbedParam, tokens: torch.Tensor
     if _on_cuda(pp.w):
         return sa.seeded_gather_cuda(pp.w, tokens, pp.seed, pp.scale(),
                                      pp.off)
-    return sa.seeded_gather_plain(pp.w, tokens, pp.seed, pp.scale(), pp.off)
+    return sa.seeded_gather_plain(pp.w, tokens, sa.seed_value(pp.seed),
+                                  pp.scale(), pp.off)
 
 
 # ---------------------------------------------------------------------------

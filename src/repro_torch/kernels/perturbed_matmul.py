@@ -48,7 +48,7 @@ def _lib():
     lib = build.load("perturbed_matmul")
     fn = lib.perturbed_matmul_f32
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,11 +69,13 @@ def kernel_attributes(m: int, n: int) -> dict:
     return dict(zip(keys, info))
 
 
-def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
-                          off: int, eps: torch.Tensor) -> torch.Tensor:
+def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
+                          seed: torch.Tensor, off: int, eps: torch.Tensor
+                          ) -> torch.Tensor:
     """Launch the CUDA kernel: x [M, K] @ (w [K, N] + eps·z) → [M, N] f32.
-    x and w are contiguous f32 CUDA tensors; eps is one f32 element on
-    their device, read by the kernel from device memory."""
+    x and w are contiguous f32 CUDA tensors; seed (one int32 element
+    holding the uint32 bits, `sa.seed_tensor`) and eps (one f32 element)
+    lie on their device and are read by the kernel from device memory."""
     global launches
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"perturbed_matmul: x {tuple(x.shape)} and w "
@@ -87,6 +89,7 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
             or eps.numel() != 1:
         raise ValueError(f"perturbed_matmul: eps must be one f32 element on "
                          f"{w.device}")
+    sa.check_seed(seed, w.device, "perturbed_matmul")
     m, k = x.shape
     n = w.shape[1]
     if max(m, k, n) >= 2**31:
@@ -98,8 +101,8 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor, seed: int,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _lib()(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                    int(seed) & sa.MASK32, int(off) & sa.MASK32,
-                    eps.data_ptr(), stream)
+                    seed.data_ptr(), int(off) & sa.MASK32, eps.data_ptr(),
+                    stream)
     build.check(status, "perturbed_matmul_f32")
     launches += 1
     return out

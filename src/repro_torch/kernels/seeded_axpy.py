@@ -17,16 +17,25 @@ backend. This module holds the stream twice:
   launch the kernels and count their launches in `launches` and
   `gather_launches`.
 
+The plain versions take the leaf's stream seed as a host int. The kernels
+read it from device memory, as they read the scale: the wrappers take a
+one-element int32 tensor on the card holding the seed's uint32 bits
+(`seed_tensor`; `zo.seed_row` makes a row of them), so a captured CUDA
+graph replays a round with whatever seeds its input buffer holds, and no
+host value is baked into a launch. `seed_value` reads one back on the host.
+
 Every draw takes a base counter `off` (0 for a whole leaf): a layer sliced
 out of a scan-stacked leaf draws counters `off + i` and so continues the
 whole leaf's stream (the fused dual forward's `resolve`). The gathered-rows
 entry perturbs embedding rows: row `tok` column j draws `off + tok·D + j`,
 the bits the row has in the whole-table stream.
 
-Bound on the H100: bytes — one read and one write of w (8 bytes per f32
-element): a θ pass over full OPT-125M's 190.5M elements moves 1.52 GB, at
-least 0.45 ms at 3.35 TB/s. The kernel generates z in registers, so device
-memory sees nothing else.
+Bound on the H100: instruction issue, then bytes. One read and one write
+of w (8 bytes per f32 element): a θ pass over full OPT-125M's 190.5M
+elements moves 1.52 GB, at least 0.45 ms at 3.35 TB/s; z is generated in
+registers, so device memory sees nothing else. But every element costs a
+whole draw, about 105 instructions on the kernel's shortest SASS path,
+which `chip_smoke.py` turns into an issue bound above the byte bound.
 """
 from __future__ import annotations
 
@@ -140,6 +149,28 @@ def seeded_gather_plain(w: torch.Tensor, tokens: torch.Tensor, seed: int,
     return (w[tokens].to(torch.float32) + scale * z).to(w.dtype)
 
 
+def seed_tensor(seed: int, device="cpu") -> torch.Tensor:
+    """A leaf seed as the kernels read it: a 0-d int32 tensor holding the
+    uint32 bits of `seed`."""
+    bits = np.asarray(int(seed) & MASK32, dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(bits.copy()).to(device)
+
+
+def seed_value(seed) -> int:
+    """A leaf seed as a host int in [0, 2³²): from an int, or from a
+    one-element int tensor holding the uint32 bits (on the card this reads
+    the device)."""
+    return int(seed) & MASK32
+
+
+def check_seed(seed, device: torch.device, what: str):
+    if not isinstance(seed, torch.Tensor) or seed.device != device \
+            or seed.dtype != torch.int32 or seed.numel() != 1:
+        raise ValueError(f"{what}: seed must be one int32 element on {device}"
+                         " (seed_tensor / zo.seed_row); the kernel reads it "
+                         "from device memory")
+
+
 def _check_scale(scale: torch.Tensor, device: torch.device, what: str):
     if scale.device != device or scale.dtype != torch.float32 \
             or scale.numel() != 1:
@@ -151,26 +182,29 @@ def _lib():
     lib = build.load("seeded_axpy")
     fn = lib.seeded_axpy_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     gather = lib.seeded_gather_f32
     gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
     gather.restype = ctypes.c_int
     return fn, gather
 
 
-def seeded_axpy_cuda(w: torch.Tensor, seed: int, scale: torch.Tensor,
-                     out: torch.Tensor, off: int = 0) -> torch.Tensor:
+def seeded_axpy_cuda(w: torch.Tensor, seed: torch.Tensor,
+                     scale: torch.Tensor, out: torch.Tensor, off: int = 0
+                     ) -> torch.Tensor:
     """Launch the CUDA kernel: out = w + scale · z(seed), counters from
-    `off`. `out` may be `w` (in place). `scale` is a one-element f32 tensor
-    on w's device, read by the kernel from device memory."""
+    `off`. `out` may be `w` (in place). `seed` (one int32 element holding
+    the uint32 bits) and `scale` (one f32 element) lie on w's device and
+    are read by the kernel from device memory."""
     global launches
     for name, t in (("w", w), ("out", out)):
         if t.device != w.device or t.dtype != torch.float32:
             raise ValueError(f"seeded_axpy: {name} must be f32 on {w.device}")
+    check_seed(seed, w.device, "seeded_axpy")
     _check_scale(scale, w.device, "seeded_axpy")
     if not (w.is_contiguous() and out.is_contiguous()):
         raise ValueError("seeded_axpy: w and out must be contiguous")
@@ -179,23 +213,25 @@ def seeded_axpy_cuda(w: torch.Tensor, seed: int, scale: torch.Tensor,
     from repro_torch.kernels import build
     fn, _ = _lib()
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    status = fn(w.data_ptr(), out.data_ptr(), w.numel(),
-                int(seed) & MASK32, int(off) & MASK32, scale.data_ptr(),
-                stream)
+    status = fn(w.data_ptr(), out.data_ptr(), w.numel(), seed.data_ptr(),
+                int(off) & MASK32, scale.data_ptr(), stream)
     build.check(status, "seeded_axpy_f32")
     launches += 1
     return out
 
 
-def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor, seed: int,
-                       scale: torch.Tensor, off: int = 0) -> torch.Tensor:
+def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor,
+                       seed: torch.Tensor, scale: torch.Tensor, off: int = 0
+                       ) -> torch.Tensor:
     """Launch the gathered-rows kernel: [..., D] rows w[tokens] + scale·z.
-    `w` is a contiguous f32 [V, D] table; token ids must lie in [0, V)."""
+    `w` is a contiguous f32 [V, D] table; token ids must lie in [0, V);
+    `seed` and `scale` as for `seeded_axpy_cuda`."""
     global gather_launches
     if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError("seeded_gather: w must be a contiguous f32 [V, D]")
     if tokens.device != w.device or tokens.dtype != torch.int64:
         raise ValueError(f"seeded_gather: tokens must be int64 on {w.device}")
+    check_seed(seed, w.device, "seeded_gather")
     _check_scale(scale, w.device, "seeded_gather")
     tok = tokens.contiguous()
     out = torch.empty(tuple(tokens.shape) + (w.shape[1],),
@@ -204,7 +240,7 @@ def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor, seed: int,
     _, fn = _lib()
     stream = torch.cuda.current_stream(w.device).cuda_stream
     status = fn(w.data_ptr(), tok.data_ptr(), out.data_ptr(), tok.numel(),
-                w.shape[1], int(seed) & MASK32, int(off) & MASK32,
+                w.shape[1], seed.data_ptr(), int(off) & MASK32,
                 scale.data_ptr(), stream)
     build.check(status, "seeded_gather_f32")
     gather_launches += 1

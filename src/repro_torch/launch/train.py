@@ -1,11 +1,12 @@
 """Training launcher: federated pAirZero fine-tuning on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cuda \\
-        --arch opt-125m --rounds 800 --clients 5 --eval-every 0
+        --arch opt-125m --rounds 800 --clients 5 --engine scan
 
 The main-path subset of `repro.launch.train`'s flags (analog transport,
-`solution` schedule, Rayleigh channel, sst2, loop engine), plus --device.
-Prints the reference's JSON summary keys that this slice fills.
+`solution` schedule, Rayleigh channel, sst2, the loop and scan engines,
+the eval hook), plus --device. Prints the reference's JSON summary keys
+that the port fills.
 """
 from __future__ import annotations
 
@@ -30,7 +31,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--transport", default="analog", choices=["analog"])
     ap.add_argument("--scheme", default="solution", choices=["solution"])
     ap.add_argument("--channel", default="rayleigh", choices=["rayleigh"])
-    ap.add_argument("--engine", default="loop", choices=["loop"])
+    ap.add_argument("--engine", default="loop", choices=["loop", "scan"])
+    ap.add_argument("--chunk-rounds", type=int, default=32,
+                    help="rounds per chunk under --engine scan (one "
+                         "captured CUDA graph replayed per round)")
+    ap.add_argument("--no-overlap", action="store_true",
+                    help="prepare each chunk inline instead of on the "
+                         "prefetch thread")
     ap.add_argument("--rounds", type=int, default=800)
     ap.add_argument("--clients", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8,
@@ -45,9 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--power", type=float, default=100.0)
     ap.add_argument("--n0", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--eval-every", type=int, default=0,
-                    help="must be 0: the eval hook is not ported "
-                         "(ROADMAP A5)")
+    ap.add_argument("--eval-every", type=int, default=100,
+                    help="greedy eval every N rounds (0 = off)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--out", default=None, help="write result JSON here")
@@ -79,8 +85,9 @@ def main(argv=None) -> dict:
             print(f"round {t:5d} loss {metrics['loss']:.4f}", flush=True)
 
     res = fedsim.run(cfg, pz, pipe, rounds=args.rounds, engine=args.engine,
+                     chunk_rounds=args.chunk_rounds,
                      eval_every=args.eval_every, on_round=log,
-                     device=args.device)
+                     overlap=not args.no_overlap, device=args.device)
     summary = {
         "arch": cfg.name, "transport": args.transport, "scheme": args.scheme,
         "channel": args.channel, "engine": args.engine,
@@ -90,6 +97,8 @@ def main(argv=None) -> dict:
         "final_loss": res.losses[-1] if res.losses else None,
         "privacy_spent": res.privacy_spent,
         "privacy_budget": res.privacy_budget,
+        "accuracies": res.accuracies,
+        "prep_stall_s": round(res.prep_stall_s, 3),
         "wall_time_s": round(res.wall_time_s, 1),
     }
     print(json.dumps(summary, indent=2))

@@ -60,7 +60,8 @@ def _jtag(w: np.ndarray, seed=SEED, eps=EPS):
 
 
 def _tag(w: np.ndarray, seed=SEED, eps=EPS):
-    return zo.tag_perturbed({"w": torch.from_numpy(w)}, seed, eps)["w"]
+    return zo.tag_perturbed({"w": torch.from_numpy(w)}, zo.seed_row(seed, 1),
+                            eps)["w"]
 
 
 def _jslice(pp, layer: int):
@@ -211,11 +212,12 @@ def test_fused_dual_forward_matches_fresh_and_reference(which):
     before = {p: t.clone() for p, t in zo.flatten(params)}
     tb = _torch_batch(batch)
     loss = lambda p: transformer.loss_per_client(p, cfg, tb)  # noqa: E731
-    lp, lm, at = zo.dual_forward(loss, params, SEED, EPS, mode="fused")
+    seeds = zo.seed_row(SEED, len(zo.flatten(params)))
+    lp, lm, at = zo.dual_forward(loss, params, seeds, EPS, mode="fused")
     assert at is params
     for path, t in zo.flatten(params):       # θ is never written
         assert torch.equal(t, before[path]), path
-    flp, flm, _ = zo.dual_forward(loss, params, SEED, EPS, mode="fresh")
+    flp, flm, _ = zo.dual_forward(loss, params, seeds, EPS, mode="fresh")
     assert torch.equal(lp, flp) and torch.equal(lm, flm)
     np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=1e-5)
     np.testing.assert_allclose(lm.numpy(), np.asarray(jlm), rtol=1e-5)
@@ -227,8 +229,9 @@ def test_fused_update_equals_fresh_update_bitwise():
     params = registry.init_params(cfg, gen, "cpu")
     twin = jax.tree_util.tree_map(torch.clone, params)
     p_hat = torch.tensor(0.37)
-    zo.apply_update(params, 9, p_hat, 0.1, EPS, mode="fused")
-    zo.apply_update(twin, 9, p_hat, 0.1, EPS, mode="fresh")
+    seeds = zo.seed_row(9, len(zo.flatten(params)))
+    zo.apply_update(params, seeds, p_hat, 0.1, EPS, mode="fused")
+    zo.apply_update(twin, seeds, p_hat, 0.1, EPS, mode="fresh")
     for (path, a), (_, b) in zip(zo.flatten(params), zo.flatten(twin)):
         assert torch.equal(a, b), path
 

@@ -107,7 +107,8 @@ def test_control_trace_matches_reference_rows():
     pz, jpz = _pz(base, rounds=16), _pz(jbase, rounds=16)
     h = JRayleigh().realize(pz.seed ^ 0xC4A7, 16, 5)
     sched = jtp.resolve(jpz).make_schedule(h, jpz)
-    ours = engine.build_trace(sched, pz, 3, 16, device=torch.device("cpu"))
+    ours = engine.build_trace(sched, pz, 3, 16, device=torch.device("cpu"),
+                              n_leaves=4)
     ref = jeng.build_trace(sched, jpz, 3, 16)
     np.testing.assert_array_equal(ours.ctl["seed"], np.asarray(ref.ctl["seed"]))
     for k in ("c", "sigma", "n0", "mask", "g"):
@@ -116,7 +117,8 @@ def test_control_trace_matches_reference_rows():
     np.testing.assert_array_equal(ours.acct_cost, ref.acct_cost)
     assert ours.charged == ref.charged
     assert ours.ctl["noise"].shape == (13, 4, 6)
-    again = engine.build_trace(sched, pz, 7, 9, device=torch.device("cpu"))
+    again = engine.build_trace(sched, pz, 7, 9, device=torch.device("cpu"),
+                               n_leaves=4)
     np.testing.assert_array_equal(again.ctl["noise"].numpy(),
                                   ours.ctl["noise"][4:6].numpy())
 

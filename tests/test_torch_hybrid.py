@@ -135,7 +135,8 @@ def test_map_leaves_and_perturb_walk_lists():
     cfg, _ = _pair(5)
     params = registry.init_params(cfg, torch.Generator().manual_seed(1),
                                   "cpu")
-    new = zo.perturb(params, 77, 0.5)
+    seeds = zo.seed_row(77, len(zo.flatten(params)))
+    new = zo.perturb(params, seeds, 0.5)
     assert isinstance(new["tail"], list) and len(new["tail"]) == 2
     flat_old, flat_new = zo.flatten(params), zo.flatten(new)
     for i, ((path, old), (path2, got)) in enumerate(zip(flat_old, flat_new)):
@@ -143,8 +144,8 @@ def test_map_leaves_and_perturb_walk_lists():
         want = ops.seeded_axpy(old, zo.leaf_seed(77, i),
                                torch.tensor(0.5, dtype=torch.float32))
         assert torch.equal(got, want), path
-    tagged = zo.tag_perturbed(params, 77, 0.5)
-    assert tagged["tail"][1]["out"]["w"].seed == zo.leaf_seed(
+    tagged = zo.tag_perturbed(params, seeds, 0.5)
+    assert int(tagged["tail"][1]["out"]["w"].seed) == zo.leaf_seed(
         77, [p for p, _ in flat_old].index("tail[1].out.w"))
 
 
@@ -263,7 +264,8 @@ def test_one_round_matches_reference():
 
     params = _to_torch(jparams)
     ctl = pairzero.make_control(t, sched, pz.seed, 5, pz.zo.n_perturb,
-                                torch.device("cpu"))
+                                torch.device("cpu"),
+                                n_leaves=len(zo.flatten(params)))
     ctl["noise"] = torch.from_numpy(
         jax_noise_rows(jctl["noise_bits"], pz.zo.n_perturb, 5))
     new, m = pairzero.make_zo_step(cfg, pz)(params, _torch_batch(batch), ctl)

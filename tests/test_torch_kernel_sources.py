@@ -171,8 +171,9 @@ def test_perturbed_matmul_rejects_too_many_row_blocks_before_launch():
     x = torch.zeros((m, 4), device="meta")
     w = torch.zeros((4, 4), device="meta")
     eps = torch.zeros((), device="meta")
+    seed = torch.zeros((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="65535 row blocks"):
-        pmm.perturbed_matmul_cuda(x, w, 1, 0, eps)
+        pmm.perturbed_matmul_cuda(x, w, seed, 0, eps)
 
 
 @pytest.mark.parametrize("q_shape,kv_shape,match", [

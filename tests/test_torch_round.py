@@ -82,7 +82,8 @@ def test_one_round_matches_reference(dual_mode):
 
     cpu = torch.device("cpu")
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
-    ctl = pairzero.make_control(t, sched, pz.seed, 5, pz.zo.n_perturb, cpu)
+    ctl = pairzero.make_control(t, sched, pz.seed, 5, pz.zo.n_perturb, cpu,
+                                n_leaves=len(zo.flatten(params)))
     assert ctl["seed"] == int(jctl["seed"])
     ctl["noise"] = torch.from_numpy(
         jax_noise_rows(jctl["noise_bits"], pz.zo.n_perturb, 5))
@@ -122,10 +123,11 @@ def test_chained_walk_is_in_place_and_restores():
         calls.append({k: t.clone() for k, t in zo.flatten(p)})
         return torch.zeros(5)
 
-    _, _, at = zo.dual_forward(loss_fn, params, 1234, 1e-3, mode="chained")
+    seeds = zo.seed_row(1234, len(ptrs))
+    _, _, at = zo.dual_forward(loss_fn, params, seeds, 1e-3, mode="chained")
     assert at is params
     assert {p: t.data_ptr() for p, t in zo.flatten(params)} == ptrs
-    zo.apply_update(at, 1234, torch.tensor(0.0), 0.1, 1e-3, mode="chained")
+    zo.apply_update(at, seeds, torch.tensor(0.0), 0.1, 1e-3, mode="chained")
     for path, t in zo.flatten(params):
         assert t.data_ptr() == ptrs[path]
         np.testing.assert_allclose(t.numpy(), before[path].numpy(), rtol=0,

@@ -102,7 +102,8 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(engine="scan"), dict(eval_every=5), dict(checkpoint_dir="ckpt"),
+    dict(checkpoint_every=5), dict(adversary=object()),
+    dict(checkpoint_dir="ckpt"),
     dict(mesh="8"), dict(fault=object()), dict(telemetry=object())])
 def test_unported_options_raise(kwargs):
     cfg, pz = configs(base, n_perturb=1)

@@ -276,7 +276,8 @@ def test_one_round_matches_reference():
 
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
     ctl = pairzero.make_control(t, sched, pz.seed, 5, pz.zo.n_perturb,
-                                torch.device("cpu"))
+                                torch.device("cpu"),
+                                n_leaves=len(zo.flatten(params)))
     ctl["noise"] = torch.from_numpy(
         jax_noise_rows(jctl["noise_bits"], pz.zo.n_perturb, 5))
     new, m = pairzero.make_zo_step(cfg, pz)(params, _torch_batch(batch), ctl)
