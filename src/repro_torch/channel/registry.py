@@ -1,8 +1,10 @@
 """ChannelModel protocol + registry (mirrors `repro.channel.registry`).
 
 A ChannelModel owns host-side trace synthesis: `realize(seed, rounds,
-n_clients) -> ChannelTrace`. Only the default stack is ported: a plain
-Rayleigh model, no geometry / imperfect-CSI / outage wrappers.
+n_clients) -> ChannelTrace`. Models are frozen dataclasses registered by
+name; wrapper models (geometry, imperfect CSI, outage) hold a `base` model
+and post-process its trace. `from_config(ChannelConfig)` builds the stack a
+run config asks for.
 """
 from __future__ import annotations
 
@@ -39,26 +41,53 @@ def register(name: str):
     return deco
 
 
+def available() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
 def get(name: str) -> Type[ChannelModel]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"channel model {name!r} is not ported (ROADMAP A2: other "
-            f"channel models); ported: {sorted(_REGISTRY)}") from None
+        raise ValueError(f"unknown channel model {name!r} "
+                         f"(registered: {available()})") from None
 
 
 def from_config(cc) -> ChannelModel:
-    """The ChannelModel a ChannelConfig asks for. Any wrapper field set
-    (geometry, imperfect CSI, outage, Doppler) is rejected, not ignored."""
-    wrapped = {"cell_radius": cc.cell_radius > 0.0,
-               "shadow_std_db": cc.shadow_std_db > 0.0,
-               "phase_err_std": cc.phase_err_std > 0.0,
-               "outage_db": cc.outage_db is not None,
-               "doppler_hz": cc.doppler_hz is not None}
-    set_fields = [k for k, v in wrapped.items() if v]
-    if set_fields:
-        raise NotImplementedError(
-            f"ChannelConfig sets {set_fields}: the channel wrappers are not "
-            "ported (ROADMAP A2: other channel models and wrappers)")
-    return get(cc.model or cc.fading).from_config(cc)
+    """The (possibly wrapped) ChannelModel a ChannelConfig asks for.
+
+    `cc.model` names the fading base (falling back to `cc.fading`); the
+    wrappers stack on top in the reference's fixed order — geometry scales
+    magnitudes, CSI error rotates phases, outage thresholds the result. A
+    field that would be dropped silently (Doppler without ar1, shadowing
+    without a cell) raises."""
+    from repro_torch.channel import wrappers as wr
+    base_name = cc.model or cc.fading
+    if getattr(cc, "doppler_hz", None) is not None and base_name != "ar1":
+        raise ValueError(
+            f"doppler_hz is set but channel model is {base_name!r}: the "
+            "Jakes mapping parameterizes the AR(1) correlation — select "
+            "model='ar1' (or unset doppler_hz)")
+    model = get(base_name).from_config(cc)
+    if cc.cell_radius > 0.0:
+        model = wr.PathLossGeometry(
+            base=model, cell_radius=cc.cell_radius,
+            pathloss_exp=cc.pathloss_exp,
+            shadow_std_db=getattr(cc, "shadow_std_db", 0.0),
+            shadow_corr=getattr(cc, "shadow_corr", 0.5))
+    elif getattr(cc, "shadow_std_db", 0.0) > 0.0:
+        raise ValueError(
+            "shadow_std_db is set but cell_radius == 0: log-normal "
+            "shadowing perturbs the PathLossGeometry gains — set "
+            "cell_radius > 0 to enable the geometry wrapper")
+    if cc.phase_err_std > 0.0:
+        model = wr.ImperfectCSI(base=model, phase_err_std=cc.phase_err_std)
+    if cc.outage_db is not None:
+        model = wr.OutageModel(base=model, threshold_db=cc.outage_db)
+    return model
+
+
+def realize_from_config(cc, seed: int, rounds: int,
+                        n_clients: int) -> ChannelTrace:
+    """Config -> composed model -> realized trace."""
+    return from_config(cc).realize(seed, rounds, n_clients)

@@ -146,10 +146,9 @@ class ZOConfig:
 
 @dataclass(frozen=True)
 class ChannelConfig:
-    """Wireless channel (paper Sec. III-B), realized by repro_torch.channel.
-
-    The fields match the reference; this port realizes the default stack
-    (Rayleigh, perfect CSI, no outage) and rejects the others."""
+    """Wireless channel (paper Sec. III-B), realized by repro_torch.channel:
+    a fading base (`model`) with the geometry, imperfect-CSI and outage
+    wrappers its fields compose."""
     n0: float = 1.0                 # server noise power N0
     power: float = 100.0            # per-client power budget P
     fading: str = "rayleigh"        # DEPRECATED alias for `model`

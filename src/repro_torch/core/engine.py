@@ -139,13 +139,17 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 
 
 def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
-                transport: Optional[tp.Transport] = None) -> ControlTrace:
+                transport: Optional[tp.Transport] = None,
+                channel=None) -> ControlTrace:
     """Precompute the control trace for rounds [t0, t1), shipped to
     `device` in one non-blocking copy.
 
-    The ported channel (Rayleigh, perfect CSI, no outage) and the absence of
-    fault models make every mask and CSI factor 1, as the reference's trace
-    is for that configuration. The leaf seeds of every round and direction
+    `channel` is the horizon's realized ChannelTrace: its cos θ CSI factors
+    (the cosine taken in float64) become ctl["g"] and its deep-fade
+    participation ctl["mask"]; a round whose mask is empty re-admits its
+    strongest client, as the reference does. The port has no fault models
+    yet, so nothing else masks a client. None (or a perfect-CSI, no-outage
+    trace) gives all-ones rows. The leaf seeds of every round and direction
     (`zo.seed_table`) come from numpy on the host."""
     if transport is None:
         transport = tp.resolve(pz)
@@ -153,12 +157,21 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
     k = pz.n_clients
     rounds = int(t1 - t0)
     masks = np.ones((rounds, k), dtype=np.float32)
+    if channel is None:
+        g = np.ones((rounds, k), dtype=np.float32)
+    else:
+        g = np.asarray(np.cos(channel.phase[t0:t1]), dtype=np.float32)
+        masks = masks * np.asarray(channel.participation[t0:t1], np.float32)
+        empty = np.flatnonzero(masks.sum(axis=1) == 0)
+        if empty.size:
+            h_rows = np.asarray(channel.h[t0:t1])[empty]
+            masks[empty, np.argmax(h_rows, axis=1)] = 1.0
     host_ctl = {
         "c": np.asarray(schedule.c[t0:t1], dtype=np.float32),
         "sigma": np.asarray(schedule.sigma[t0:t1], dtype=np.float32),
         "n0": np.full((rounds,), schedule.n0, dtype=np.float32),
         "mask": masks,
-        "g": np.ones((rounds, k), dtype=np.float32),
+        "g": g,
         "noise": noise_rows(pz.seed, t0, t1, pz.zo.n_perturb, k),
         "leaf_seeds": zo.seed_table(pz.seed, t0, t1, pz.zo.n_perturb,
                                     n_leaves).view(np.int32),

@@ -2,9 +2,10 @@
 `repro.core.fedsim`.
 
 `Experiment` is the host-side orchestrator: it realizes the channel for the
-horizon, asks the Transport for its schedule (Theorem-3 power control),
-then walks the rounds in chunks through an executor (`engine="loop"`: one
-round a chunk, dispatched round by round; `engine="scan"`: up to
+horizon (`channel_model`, or the stack `pz.channel` configures), asks the
+Transport for its schedule (Theorem-3/4 power control), then walks the
+rounds in chunks through an executor (`engine="loop"`: one round a chunk,
+dispatched round by round; `engine="scan"`: up to
 `chunk_rounds` rounds a chunk, replayed from one captured CUDA graph on the
 card), charging the DP accountant before each chunk (hard stop on
 overspend, truncating the chunk before dispatch) and firing the round
@@ -37,7 +38,6 @@ from repro_torch.models import registry
 # reference options not ported yet → the ROADMAP item that ports them
 _UNPORTED = {
     "checkpoint_every": "A6: checkpoints",
-    "channel_model": "A2: other channel models and wrappers",
     "fault": "A7: faults and elastic membership",
     "elastic": "A7: faults and elastic membership",
     "adversary": "A9: privacy subsystem",
@@ -148,6 +148,7 @@ class Experiment:
                  pipeline: FederatedPipeline, rounds: int, *,
                  engine: str = "loop", chunk_rounds: int = 32,
                  transport: Optional[tp.Transport] = None,
+                 channel_model: Optional[channel.ChannelModel] = None,
                  hooks: Sequence[RoundHook] = (),
                  params: Optional[Dict] = None, overlap: bool = True,
                  device="cuda"):
@@ -169,7 +170,9 @@ class Experiment:
         self.overlap = overlap
         self.transport = transport if transport is not None \
             else tp.resolve(pz)
-        self.channel_model = channel.from_config(pz.channel)
+        # an explicit ChannelModel overrides the pz.channel config stack
+        self.channel_model = channel_model if channel_model is not None \
+            else channel.from_config(pz.channel)
         self.step = pairzero.make_zo_step(model_cfg, pz, self.transport)
         self.hooks = list(hooks)
         self.params = params
@@ -210,7 +213,8 @@ class Experiment:
             with torch.cuda.stream(stream):
                 trace = eng.build_trace(schedule, pz, a, b, device=dev,
                                         n_leaves=n_leaves,
-                                        transport=self.transport)
+                                        transport=self.transport,
+                                        channel=ctrace)
                 return trace, stager.stage(a, b)
 
         prefetch = eng.ChunkPrefetcher(prepare, bounds, overlap=self.overlap)
@@ -271,9 +275,9 @@ class Experiment:
         if costs.size != result.steps:
             costs = np.zeros(result.steps, dtype=np.float64)
         result.privacy_spent_per_round = cumulative_spend(costs)
-        result.uplink_bits = int(round(
-            self.transport.payload_bits(pz, self.model_cfg.param_count())
-            * client_rounds))
+        result.uplink_bits = tp.uplink_bits_total(
+            self.transport, None, pz, self.model_cfg.param_count(),
+            client_rounds, result.steps)
         result.prep_stall_s = prefetch.stall_s
         result.wall_time_s = time.time() - t0
         result.params = self.params
@@ -287,9 +291,10 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
         checkpoint_dir: Optional[str] = None,
         params: Optional[Dict] = None,
         on_round: Optional[Callable[[int, Dict], None]] = None,
-        transport: Optional[tp.Transport] = None, overlap: bool = True,
-        hooks: Sequence[RoundHook] = (), device="cuda",
-        **unported) -> RunResult:
+        transport: Optional[tp.Transport] = None,
+        channel_model: Optional[channel.ChannelModel] = None,
+        overlap: bool = True, hooks: Sequence[RoundHook] = (),
+        device="cuda", **unported) -> RunResult:
     """Run `rounds` rounds of pAirZero on one device (default: the GPU).
 
     Mirrors `repro.core.fedsim.run`: `engine="scan"` runs chunks of up to
@@ -313,5 +318,5 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
         all_hooks.append(CallbackHook(on_round))
     return Experiment(model_cfg, pz, pipeline, rounds, engine=engine,
                       chunk_rounds=chunk_rounds, transport=transport,
-                      hooks=all_hooks, params=params, overlap=overlap,
-                      device=device).run()
+                      channel_model=channel_model, hooks=all_hooks,
+                      params=params, overlap=overlap, device=device).run()

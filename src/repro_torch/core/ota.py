@@ -46,3 +46,38 @@ def analog_ota(p: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
     safe_c = torch.where(c > 0, c, torch.ones_like(c))
     p_hat = torch.where(c > 0, y / (k_eff * safe_c), torch.zeros_like(y))
     return p_hat, k_eff
+
+
+def sign_ota(p: torch.Tensor, c: torch.Tensor, sigma: torch.Tensor,
+             n0: torch.Tensor, noise: torch.Tensor,
+             mask: Optional[torch.Tensor] = None,
+             g: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sign-pAirZero uplink (Eq. 11): clients transmit sign{p_k} + n_k and
+    the server inverts by (K_eff c) as in the analog case. torch.sign of an
+    exact 0 is 0, as jnp.sign's is."""
+    return analog_ota(torch.sign(p), c, sigma, n0, noise, mask, g)
+
+
+def perfect_analog(p: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Noise-free upper-bound baseline (Eq. 38): the surviving clients'
+    mean."""
+    if mask is None:
+        return torch.mean(p)
+    mask = mask.to(p.dtype)
+    return torch.sum(mask * p) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def perfect_sign(p: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Noise-free majority vote (Eq. 39): sign{Σ_k sign{p_k}}."""
+    if mask is None:
+        mask = torch.ones_like(p)
+    return torch.sign(torch.sum(mask.to(p.dtype) * torch.sign(p)))
+
+
+def effective_noise_std(c: torch.Tensor, sigma: torch.Tensor,
+                        n0: torch.Tensor) -> torch.Tensor:
+    """m(t) = sqrt(c² Σ_k σ_k² + N0)  (Eq. 12)."""
+    return torch.sqrt(c * c * torch.sum(sigma * sigma) + n0)

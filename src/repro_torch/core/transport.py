@@ -1,10 +1,11 @@
 """Uplink mechanisms: the Transport protocol, ported from
-`repro.core.transport` with the analog mechanism only.
+`repro.core.transport` with the OTA mechanisms (analog, sign, perfect).
 
 A Transport owns (a) the device-side `aggregate(p_k, ctl) -> p̂`, (b) the
 host-side schedule solve, (c) the per-round DP cost charged to the
-accountant and (d) the uplink bits per round. The other mechanisms (sign,
-perfect, digital, smart_digital, fo) are not ported yet.
+accountant and (d) the uplink bits per round. The digital baselines
+(digital, smart_digital) and the first-order baseline (fo) are not ported
+yet; naming one raises NotImplementedError with its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,6 +17,17 @@ import torch
 
 from repro_torch.core import ota
 from repro_torch.core.dp import round_privacy_cost
+
+# Power-control schemes understood by the OTA transports. "perfect" doubles
+# as the noise-free channel (no schedule solve, no DP spend).
+OTA_SCHEMES = ("solution", "static", "reversed", "perfect")
+
+# reference mechanisms not ported yet → the ROADMAP item that ports them
+_UNPORTED = {
+    "digital": "A4: digital transports, with A7",
+    "smart_digital": "A4: digital transports, with A7",
+    "fo": "A7: the fo baseline",
+}
 
 
 @dataclass(frozen=True)
@@ -34,7 +46,9 @@ class Transport:
         raise NotImplementedError
 
     def make_schedule(self, trace, pz):
-        raise NotImplementedError
+        """The transmit plan for the horizon; `trace` is a ChannelTrace or
+        a bare [T, K] magnitude array."""
+        return _trivial_schedule(trace_magnitudes(trace), scheme="perfect")
 
     def charges_privacy(self, schedule, pz) -> bool:
         return False
@@ -45,6 +59,34 @@ class Transport:
     def payload_bits(self, pz, d: int) -> int:
         """Uplink bits one client sends per round (d = model dimension)."""
         raise NotImplementedError
+
+    def bits_per_round(self, pz, d: int) -> int:
+        """Total uplink bits per round: payload × clients."""
+        return pz.n_clients * self.payload_bits(pz, d)
+
+
+def uplink_bits_total(transport: Transport, defense, pz, d: int,
+                      client_rounds: float, rounds: int) -> int:
+    """Total uplink spend for `rounds` executed rounds with Σ_t K_eff(t) =
+    `client_rounds` transmitting client-rounds: the payload per
+    transmitting client times client-rounds, in the reference's operation
+    order. Defenses (which bill extra bits) are not ported (ROADMAP A9)."""
+    if defense is not None:
+        raise NotImplementedError("defenses are not ported (ROADMAP A9: "
+                                  "byzantine subsystem)")
+    return int(round(transport.payload_bits(pz, d) * client_rounds))
+
+
+def trace_magnitudes(trace) -> np.ndarray:
+    """[T, K] channel magnitudes from a ChannelTrace or a bare array."""
+    return np.asarray(getattr(trace, "h", trace), dtype=np.float64)
+
+
+def _trivial_schedule(h: np.ndarray, scheme: str = "perfect"):
+    from repro_torch.core.power_control import PowerSchedule
+    t, k = trace_magnitudes(h).shape
+    return PowerSchedule(c=np.ones(t), sigma=np.zeros((t, k)),
+                         scheme=scheme, n0=0.0)
 
 
 def ota_dp_costs(schedule, t0: int, t1: int, gamma: float) -> np.ndarray:
@@ -68,13 +110,25 @@ def register(name: str):
     return deco
 
 
+def available() -> tuple:
+    """Sorted names of every registered (ported) transport mechanism."""
+    return tuple(sorted(_REGISTRY))
+
+
+def _unported(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"transport {name!r} is not ported (ROADMAP {_UNPORTED[name]}); "
+        f"ported: {available()}")
+
+
 def get(name: str) -> Type[Transport]:
+    if name in _UNPORTED:
+        raise _unported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise NotImplementedError(
-            f"transport {name!r} is not ported (ROADMAP A4: other "
-            f"transports); ported: {sorted(_REGISTRY)}") from None
+        raise ValueError(f"unknown transport {name!r} "
+                         f"(registered: {available()})") from None
 
 
 def resolve(pz) -> Transport:
@@ -83,7 +137,18 @@ def resolve(pz) -> Transport:
     tc = pz.transport
     if tc is not None:
         return get(tc.mechanism).from_config(tc, pz)
-    return get(pz.variant)(scheme=pz.power.scheme)
+    return from_strings(pz.variant, pz.power.scheme, pz)
+
+
+def from_strings(variant: str, scheme: str, pz=None) -> Transport:
+    """Legacy (variant, scheme) strings -> Transport instance."""
+    if variant == "analog":
+        return AnalogOTA(scheme=scheme)
+    if variant == "sign":
+        return SignOTA(scheme=scheme)
+    if variant in _UNPORTED:
+        raise _unported(variant)
+    raise ValueError(f"unknown variant: {variant!r}")
 
 
 @register("analog")
@@ -99,21 +164,22 @@ class AnalogOTA(Transport):
         return cls(scheme=tc.scheme)
 
     def aggregate(self, p, ctl):
+        if self.scheme == "perfect":
+            return ota.perfect_analog(p, ctl["mask"])
         return ota.analog_ota(p, ctl["c"], ctl["sigma"], ctl["n0"],
                               ctl["noise"], ctl["mask"], ctl["g"])[0]
 
+    variant = "analog"   # the power-control family of the schedule solve
+
     def make_schedule(self, trace, pz):
         from repro_torch.core import power_control as pc
-        if self.scheme != "solution":
-            raise NotImplementedError(
-                f"power-control scheme {self.scheme!r} is not ported "
-                "(ROADMAP A2: static/reversed/sign schedules); only "
-                "'solution'")
-        return pc.solve_analog(
-            np.asarray(trace.h, dtype=np.float64), power=pz.channel.power,
-            n0=pz.channel.n0, gamma=pz.zo.clip_gamma,
-            contraction_a=pz.power.contraction_a, epsilon=pz.dp.epsilon,
-            delta=pz.dp.delta)
+        return pc.make_schedule(
+            self.variant, self.scheme, trace_magnitudes(trace),
+            power=pz.channel.power, n0=pz.channel.n0,
+            gamma=pz.zo.clip_gamma, n_clients=pz.n_clients, e0=pz.power.e0,
+            contraction_a=pz.power.contraction_a,
+            contraction_a_tilde=pz.power.contraction_a_tilde,
+            epsilon=pz.dp.epsilon, delta=pz.dp.delta)
 
     def charges_privacy(self, schedule, pz) -> bool:
         return bool(pz.dp.enabled and schedule.scheme != "perfect")
@@ -123,3 +189,36 @@ class AnalogOTA(Transport):
 
     def payload_bits(self, pz, d):
         return 16 * pz.zo.n_perturb
+
+
+@register("sign")
+@dataclass(frozen=True)
+class SignOTA(AnalogOTA):
+    """Sign-pAirZero: 1-bit majority consensus via superposition (Eq. 11),
+    Theorem-4 power control. The DP sensitivity is 1 (signs), not γ."""
+    scheme: str = "solution"
+    variant = "sign"
+
+    def aggregate(self, p, ctl):
+        if self.scheme == "perfect":
+            return ota.perfect_sign(p, ctl["mask"])
+        return ota.sign_ota(p, ctl["c"], ctl["sigma"], ctl["n0"],
+                            ctl["noise"], ctl["mask"], ctl["g"])[0]
+
+    def round_dp_costs(self, schedule, t0, t1, pz):
+        return ota_dp_costs(schedule, t0, t1, 1.0)
+
+    def payload_bits(self, pz, d):
+        return 1 * pz.zo.n_perturb
+
+
+@register("perfect")
+@dataclass(frozen=True)
+class PerfectUplink(AnalogOTA):
+    """Noise-free superposition upper bound (Eq. 38) as a mechanism of its
+    own (legacy spelling: variant="analog", scheme="perfect")."""
+    scheme: str = "perfect"
+
+    @classmethod
+    def from_config(cls, tc, pz) -> "PerfectUplink":
+        return cls()

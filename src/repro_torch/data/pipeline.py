@@ -17,7 +17,7 @@ from repro_torch.data import tasks as T
 
 @dataclass
 class FederatedPipeline:
-    task: str                 # sst2
+    task: str                 # sst2 | squad | lm
     spec: T.TaskSpec
     n_clients: int
     per_client_batch: int

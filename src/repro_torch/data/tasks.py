@@ -1,14 +1,18 @@
-"""Synthetic SST-2 stand-in, copied from `repro.data.tasks`.
+"""Synthetic task generators, copied from `repro.data.tasks`:
 
-Sequences carry a latent sentiment (an excess of "positive" vs "negative"
-lexicon tokens); the model must emit the verdict token at the answer
-position. Purely seeded numpy, so batches are bitwise equal to the
-reference's. The other tasks (squad, lm) are not ported yet.
+  * sst2  — binary sentiment: sequences carry an excess of "positive" or
+    "negative" lexicon tokens; the model emits the verdict token at the
+    answer position (accuracy);
+  * squad — extraction: a KEY marker followed by an answer token; after the
+    QUESTION marker the model reproduces the answer (exact match);
+  * lm    — next-token modeling over a seeded order-1 Markov chain.
+
+Purely seeded numpy, so batches are bitwise equal to the reference's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -52,17 +56,59 @@ def sample_sst2(spec: TaskSpec, rng: np.random.Generator, n: int) -> Dict:
             "labels": labels.astype(np.int32)}
 
 
-def sample(task: str, spec: TaskSpec, rng: np.random.Generator,
-           n: int) -> Dict:
-    if task != "sst2":
+def sample_squad(spec: TaskSpec, rng: np.random.Generator, n: int) -> Dict:
+    """Extraction: reproduce the token that followed the KEY marker."""
+    s = spec.seq_len
+    usable = np.arange(N_RESERVED, spec.vocab_size)
+    tokens = rng.choice(usable, size=(n, s)).astype(np.int32)
+    targets = np.zeros((n, s), dtype=np.int32)
+    mask = np.zeros((n, s), dtype=np.float32)
+    answers = rng.choice(usable, size=n)
+    key_pos = rng.integers(1, s - 3, size=n)
+    for i in range(n):
+        tokens[i, key_pos[i]] = KEY
+        tokens[i, key_pos[i] + 1] = answers[i]
+        tokens[i, -1] = QUESTION
+        targets[i, -1] = answers[i]
+        mask[i, -1] = 1.0
+    return {"tokens": tokens, "targets": targets, "mask": mask,
+            "labels": answers.astype(np.int32)}
+
+
+def sample_lm(spec: TaskSpec, rng: np.random.Generator, n: int) -> Dict:
+    """Order-1 Markov stream with a per-task random transition structure."""
+    v = spec.vocab_size
+    s = spec.seq_len
+    # sparse deterministic-ish successor table
+    succ = (np.arange(v) * 31 + 7) % (v - N_RESERVED) + N_RESERVED
+    tokens = np.zeros((n, s + 1), dtype=np.int32)
+    tokens[:, 0] = rng.integers(N_RESERVED, v, size=n)
+    noise = rng.random((n, s)) < 0.15
+    rand_tok = rng.integers(N_RESERVED, v, size=(n, s))
+    for t in range(s):
+        nxt = succ[tokens[:, t]]
+        tokens[:, t + 1] = np.where(noise[:, t], rand_tok[:, t], nxt)
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+            "mask": np.ones((n, s), dtype=np.float32),
+            "labels": np.zeros(n, dtype=np.int32)}
+
+
+_SAMPLERS = {"sst2": sample_sst2, "squad": sample_squad, "lm": sample_lm}
+
+
+def sample(task: str, spec: TaskSpec, rng: np.random.Generator, n: int,
+           client_bias: Optional[np.ndarray] = None) -> Dict:
+    """`n` sequences of `task`. Every client draws from the one IID
+    distribution: a per-client bias (a non-IID split) is not implemented,
+    so passing one raises instead of being dropped."""
+    if client_bias is not None:
         raise NotImplementedError(
-            f"task {task!r} is not ported (ROADMAP A2: squad/lm tasks); "
-            "only sst2")
-    return sample_sst2(spec, rng, n)
+            "client_bias is not implemented: the samplers draw IID batches")
+    return _SAMPLERS[task](spec, rng, n)
 
 
 def accuracy(logits: np.ndarray, batch: Dict) -> float:
-    """Answer-position accuracy (SST-2 accuracy): the argmax of the logits
-    at the last position against the target there."""
+    """Answer-position accuracy (SST-2 accuracy / SQuAD exact match): the
+    argmax of the logits at the last position against the target there."""
     pred = np.argmax(logits[:, -1], axis=-1)
     return float(np.mean(pred == batch["targets"][:, -1]))

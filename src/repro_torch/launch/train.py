@@ -3,10 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cuda \\
         --arch opt-125m --rounds 800 --clients 5 --engine scan
 
-The main-path subset of `repro.launch.train`'s flags (analog transport,
-`solution` schedule, Rayleigh channel, sst2, the loop and scan engines,
-the eval hook), plus --device. Prints the reference's JSON summary keys
-that the port fills.
+The ported subset of `repro.launch.train`'s flags, with its defaults: the
+tasks (sst2, squad, lm), the OTA transports (analog, sign, perfect; the
+deprecated --variant alias), the power-control schemes, every channel model
+and its wrappers
+
+    --channel rician --rician-k 4 --csi-phase-err 0.1 --outage-db -10 \
+        --cell-radius 150
+
+the loop and scan engines and the eval hook, plus --device. Prints the
+reference's JSON summary keys that the port fills.
 """
 from __future__ import annotations
 
@@ -27,10 +33,50 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="opt-125m", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced same-family config (CPU-scale)")
-    ap.add_argument("--task", default="sst2", choices=["sst2"])
-    ap.add_argument("--transport", default="analog", choices=["analog"])
-    ap.add_argument("--scheme", default="solution", choices=["solution"])
-    ap.add_argument("--channel", default="rayleigh", choices=["rayleigh"])
+    ap.add_argument("--task", default="sst2",
+                    choices=["sst2", "squad", "lm"])
+    ap.add_argument("--transport", default=None,
+                    help="uplink mechanism: analog, sign or perfect "
+                         "(digital, smart_digital and fo are not ported "
+                         "yet); default: --variant")
+    ap.add_argument("--variant", default="analog",
+                    choices=["analog", "sign"],
+                    help="DEPRECATED alias for --transport")
+    ap.add_argument("--scheme", default="solution",
+                    choices=["solution", "static", "reversed", "perfect"],
+                    help="power-control schedule for the OTA transports")
+    ap.add_argument("--channel", default=None,
+                    choices=["rayleigh", "rician", "static", "ar1"],
+                    help="base fading model; default rayleigh. The "
+                         "geometry/imperfect-CSI/outage wrappers compose "
+                         "on top via --cell-radius/--csi-phase-err/"
+                         "--outage-db")
+    ap.add_argument("--rician-k", type=float, default=3.0,
+                    help="K-factor for --channel rician")
+    ap.add_argument("--ar1-rho", type=float, default=0.9,
+                    help="lag-1 temporal correlation for --channel ar1")
+    ap.add_argument("--doppler-hz", type=float, default=None,
+                    help="maximum Doppler shift f_D (Hz) for --channel "
+                         "ar1: rho from Jakes' J0(2*pi*f_D*tau) instead of "
+                         "--ar1-rho")
+    ap.add_argument("--round-s", type=float, default=1e-3,
+                    help="round duration tau (s) in the Jakes mapping of "
+                         "--doppler-hz")
+    ap.add_argument("--csi-phase-err", type=float, default=0.0,
+                    help="residual CSI phase-error std (radians); >0 wraps "
+                         "the channel in ImperfectCSI")
+    ap.add_argument("--outage-db", type=float, default=None,
+                    help="deep-fade outage threshold (dB); set to wrap the "
+                         "channel in OutageModel (straggling clients)")
+    ap.add_argument("--cell-radius", type=float, default=0.0,
+                    help="cell radius (m); >0 wraps the channel in "
+                         "PathLossGeometry (per-client mean powers)")
+    ap.add_argument("--shadow-std-db", type=float, default=0.0,
+                    help="correlated log-normal shadowing std (dB) on the "
+                         "PathLossGeometry gains; requires --cell-radius")
+    ap.add_argument("--shadow-corr", type=float, default=0.5,
+                    help="inter-client shadowing correlation in [0, 1] for "
+                         "--shadow-std-db")
     ap.add_argument("--engine", default="loop", choices=["loop", "scan"])
     ap.add_argument("--chunk-rounds", type=int, default=32,
                     help="rounds per chunk under --engine scan (one "
@@ -65,16 +111,24 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mechanism = args.transport or args.variant
     pz = PairZeroConfig(
-        variant=args.transport, n_clients=args.clients, rounds=args.rounds,
+        variant=args.variant, n_clients=args.clients, rounds=args.rounds,
         zo=ZOConfig(mu=args.mu, lr=args.lr, clip_gamma=args.gamma,
                     n_perturb=args.n_perturb),
         channel=ChannelConfig(n0=args.n0, power=args.power,
-                              d=cfg.param_count(), model=args.channel),
+                              d=cfg.param_count(), model=args.channel,
+                              rician_k=args.rician_k, ar1_rho=args.ar1_rho,
+                              doppler_hz=args.doppler_hz,
+                              round_duration_s=args.round_s,
+                              phase_err_std=args.csi_phase_err,
+                              outage_db=args.outage_db,
+                              cell_radius=args.cell_radius,
+                              shadow_std_db=args.shadow_std_db,
+                              shadow_corr=args.shadow_corr),
         dp=DPConfig(epsilon=args.epsilon, delta=args.delta),
         power=PowerControlConfig(scheme=args.scheme),
-        transport=TransportConfig(mechanism=args.transport,
-                                  scheme=args.scheme),
+        transport=TransportConfig(mechanism=mechanism, scheme=args.scheme),
         seed=args.seed)
     pipe = FederatedPipeline(
         task=args.task, spec=TaskSpec(args.task, cfg.vocab_size, args.seq_len),
@@ -89,8 +143,8 @@ def main(argv=None) -> dict:
                      eval_every=args.eval_every, on_round=log,
                      overlap=not args.no_overlap, device=args.device)
     summary = {
-        "arch": cfg.name, "transport": args.transport, "scheme": args.scheme,
-        "channel": args.channel, "engine": args.engine,
+        "arch": cfg.name, "transport": mechanism, "scheme": args.scheme,
+        "channel": args.channel or "rayleigh", "engine": args.engine,
         "device": args.device,
         "rounds": res.steps,
         "uplink_bits": res.uplink_bits,

@@ -114,9 +114,9 @@ def test_unported_options_raise(kwargs):
 
 @pytest.mark.parametrize("pz_kw", [
     dict(desync=object()), dict(byzantine=object()),
-    dict(transport=base.TransportConfig(mechanism="sign")),
-    dict(transport=base.TransportConfig(scheme="static")),
-    dict(channel=base.ChannelConfig(outage_db=-10.0))])
+    dict(transport=None, variant="digital"),
+    dict(transport=None, variant="smart_digital"),
+    dict(transport=None, variant="fo")])
 def test_unported_config_fields_raise(pz_kw):
     cfg, pz = configs(base, n_perturb=1)
     pz = base.PairZeroConfig(**{**pz.__dict__, **pz_kw})
