@@ -7,6 +7,10 @@ against its plain PyTorch version.
 Phases, each of which raises (non-zero exit, no result line) on failure:
   1. the card's name and power limit; build every CUDA kernel from
      src/repro_torch/kernels/csrc (one nvcc per source, in parallel);
+     then the reference's threefry draws (`repro_torch.prng`) on the card
+     against the CPU: bits and uniforms over 2²⁴ elements bitwise, normals
+     within the CPU tests' 4 ulp, and the time to draw OPT-125M's and
+     recurrentgemma-2b's initial weights on the card;
   2. each kernel against its plain version on the card at the main paths'
      shapes, with stated tolerances, then timed (CUDA events, warm-up,
      median) beside the plain version, a PyTorch library call where one
@@ -26,10 +30,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      the tiny dense round on squad over a wrapped rician channel (path
      loss, CSI phase error, outage) under analog/static, analog/reversed,
      perfect, sign/solution, sign/static and sign/reversed, and
-     sign/solution at horizon 800, whose first rounds are silent — and the
-     GPU scan engine (a captured CUDA graph replayed) equals the GPU loop
-     engine bitwise;
-  4. five paths, each through `repro_torch.core.fedsim.run` at full width
+     sign/solution at horizon 800, whose first rounds are silent, then the
+     tiny dense round under digital and smart_digital (the card's uniform
+     rows bitwise the host's) and FO-Adam on the tiny dense, ssm and hybrid
+     models — and the GPU scan engine (a captured CUDA graph replayed)
+     equals the GPU loop engine bitwise;
+  4. six paths, each through `repro_torch.core.fedsim.run` at full width
      with an eval hook, first on the loop engine, then from the same seed
      init on the scan engine (SCAN: rounds, chunk, eval cadence), the
      launch counters set to 0 just before each run and read just after;
@@ -52,8 +58,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   schedule at horizon 32 on squad over the wrapped rician
                   channel; fails if a round is silent, if no round has a
                   client in outage, or at 2.9 θ;
-  5. one `kernels` JSON line (launches from the loop runs), then the
-     result line.
+       fo       — OPT-125M, the first-order baseline (FO-Adam at the
+                  CLI's lr, `transport="fo"`): one forward and one backward
+                  a round, captured whole under scan; scan ≡ loop also in
+                  both Adam moments, no privacy spent, 16·d uplink bits a
+                  client; fails at 12 θ;
+  5. one `table2` JSON line (peak / θ of the chained, sign and fo paths,
+     the ZO / FO-Adam peak ratio, and OPT-125M's uplink bits a round under
+     every transport), one `kernels` JSON line (launches from the loop
+     runs), then the result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
 from src/); exits non-zero without either. `--profile` adds one more loop
@@ -77,7 +90,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # per path: rounds (both engines), rounds a scan chunk, eval cadence
 SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "mamba2": (4, 2, 2),
-        "hybrid": (3, 3, 3), "sign": (8, 4, 4)}
+        "hybrid": (3, 3, 3), "sign": (8, 4, 4), "fo": (8, 4, 4)}
 # the sign path's channel: rician under path loss, CSI phase error and
 # deep-fade outage, so clients drop out of some rounds (mask rows < K)
 WRAPPED_RICIAN = dict(model="rician", rician_k=3.0, cell_radius=100.0,
@@ -91,6 +104,8 @@ M_ROWS = 5 * 8 * 64            # clients × batch × seq: rows of every matmul
 PMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))
 # one OPT-125M layer: wq, wk, wv, wo; wi, wg; wd
 PMM_LAYER = (((768, 768),) * 4 + ((768, 3072),) * 2 + ((3072, 768),))
+# the CPU tests' tolerance for normals (tests/test_torch_prng.py)
+NORMAL_ULPS = 4
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
@@ -253,7 +268,53 @@ def issue_bound_ms(torch, per_element: float, elements: int) -> float:
     return per_element * elements / 32 / (sms * 4 * mhz * 1e6) * 1e3
 
 
+def check_prng(torch, dev) -> dict:
+    """The reference's threefry draws on the card against the CPU: bits
+    and uniforms of 2²⁴ elements bitwise, a draw from a batch of split keys
+    too, normals within NORMAL_ULPS (the card's and the CPU's log1p may
+    round apart); then the weight init of OPT-125M and recurrentgemma-2b
+    on the card, timed."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+
+    n = 1 << 24
+    key = prng.key(20)
+    keys = prng.split(prng.fold_in(key, 7), 3)
+    for what, fn in (("bits", lambda k: prng.random_bits(k, (n,))),
+                     ("uniform", lambda k: prng.uniform(k, (n,))),
+                     ("batched uniform", lambda k: prng.uniform(
+                         prng.split(prng.fold_in(k, 7), 3), (1000, 37)))):
+        require_equal(torch, fn(key.to(dev)).cpu(), fn(key), f"prng {what}")
+    z_dev = prng.normal(key.to(dev), (n,)).cpu()
+    z_cpu = prng.normal(key, (n,))
+    z_ulps = ulps(torch, z_dev, z_cpu)
+    z_share = float((z_dev != z_cpu).float().mean())
+    if z_ulps > NORMAL_ULPS:
+        raise AssertionError(f"prng normal: {z_ulps} ulp between the card "
+                             f"and the CPU (> {NORMAL_ULPS})")
+    require_equal(torch, prng.normal(keys.to(dev), (64, 33)).cpu(),
+                  prng.normal(keys, (64, 33)), "prng batched normal")
+    init_s = {}
+    for name in ("opt-125m", "recurrentgemma-2b"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = registry.init_params(get_arch(name), prng.key(0), dev)
+        torch.cuda.synchronize()
+        init_s[name] = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+    print(f"prng: bits and uniform over {n} elements bitwise card vs CPU; "
+          f"normal {z_ulps} ulp max, {z_share:.3e} of elements differ; init "
+          f"on the card: OPT-125M {init_s['opt-125m']:.3f} s, "
+          f"recurrentgemma-2b {init_s['recurrentgemma-2b']:.3f} s",
+          flush=True)
+    return {"normal_max_ulp": z_ulps, "normal_share_differ": z_share,
+            "init_s": init_s}
+
+
 def check_seeded_axpy(torch, dev) -> list:
+    from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.core import zo
     from repro_torch.kernels import seeded_axpy as sa
@@ -355,7 +416,7 @@ def check_seeded_axpy(torch, dev) -> list:
     del table, whole, rows
 
     # one θ pass over full OPT-125M (12 launches), as `zo.perturb` runs it
-    params = registry.init_params(cfg, gen, dev)
+    params = registry.init_params(cfg, prng.key(0), dev)
     leaves = [t for _, t in zo.flatten(params)]
     n_total = sum(t.numel() for t in leaves)
     row = zo.seed_row(1234, len(leaves), dev)
@@ -806,8 +867,8 @@ def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
 
 class Payloads:
     """A round hook that keeps each round's host metrics: the clients'
-    payloads of the first direction (`p_clients`) and the mask's sum
-    (`k_eff`)."""
+    payloads of the first direction (`p_clients`; none under FO) and the
+    mask's sum (`k_eff`)."""
     cadence = 0
 
     def __init__(self):
@@ -817,7 +878,8 @@ class Payloads:
         pass
 
     def on_round(self, t, metrics) -> None:
-        self.p_clients.append([float(x) for x in metrics["p_clients"]])
+        self.p_clients.append([float(x) for x in
+                               metrics.get("p_clients", ())])
         self.k_eff.append(float(metrics["k_eff"]))
 
     def on_boundary(self, t_done: int, exp) -> None:
@@ -825,6 +887,33 @@ class Payloads:
 
     def close(self, exp) -> None:
         pass
+
+
+def parted_at_flip(name: str, pz, a, b):
+    """Two runs of a digital transport from the same weights: the round at
+    which they part, or None. Their losses agree (rtol 1e-4) up to that
+    round, and there their p̂ differ by a whole number of quantizer cells
+    over K·n_perturb: a projection within rounding of a cell's threshold
+    rounds to the neighbouring cell on one device (every client is
+    scheduled on the Rayleigh channel, so K_eff = K). Raises on any other
+    difference."""
+    from repro_torch.core import transport as tp
+    mech = tp.resolve(pz)
+    cell = 2 * mech.clip / (2 ** mech.quant_bits - 1) / (
+        pz.n_clients * pz.zo.n_perturb)
+    for r, (la, lb, pa, pb) in enumerate(zip(a.losses, b.losses, a.p_hats,
+                                             b.p_hats)):
+        if not math.isclose(la, lb, rel_tol=1e-4):
+            raise AssertionError(f"tiny {name}, round {r}: losses {la} vs "
+                                 f"{lb}")
+        cells = (pa - pb) / cell
+        if abs(pa - pb) <= 1e-5:
+            continue
+        if round(cells) == 0 or abs(pa - pb - round(cells) * cell) > 1e-5:
+            raise AssertionError(f"tiny {name}, round {r}: p_hat {pa} vs "
+                                 f"{pb}, {cells:.4f} cells of {cell}")
+        return r
+    return None
 
 
 def check_small_reference(torch, dev) -> None:
@@ -836,14 +925,20 @@ def check_small_reference(torch, dev) -> None:
     default round; then the tiny dense model on squad over WRAPPED_RICIAN
     at horizon SIGN_HORIZON under each further (transport, scheme) pair,
     and sign/solution at horizon 800, whose first rounds are silent (p_hat
-    0 and no privacy spent on both engines). Each GPU run, silent rounds
+    0 and no privacy spent on both engines); then the tiny dense round
+    under digital and smart_digital, whose GPU and CPU runs may part where
+    a payload rounds into the neighbouring quantizer cell
+    (`parted_at_flip`), and whose uniform rows drawn on the card equal the
+    host's bitwise; then FO-Adam on the tiny dense, ssm and hybrid models
+    (scan ≡ loop also in both Adam moments). Each GPU run, silent rounds
     included, launches what expected_launches counts. Where a sign run's
     GPU and CPU losses part, the payloads of both runs are printed: a
     projection within rounding of 0 can take opposite signs on the two
     devices."""
+    from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.core import fedsim, zo
+    from repro_torch.core import engine, fedsim, zo
     from repro_torch.data.pipeline import FederatedPipeline
     from repro_torch.data.tasks import TaskSpec
     from repro_torch.models import registry
@@ -868,6 +963,12 @@ def check_small_reference(torch, dev) -> None:
     runs.append(("sign/solution, horizon 800 (silent)", tiny, "squad",
                  pz_defaults(tiny, rounds=800, n_perturb=2, mechanism="sign",
                              wrapped=True)))
+    for mechanism in ("digital", "smart_digital"):
+        runs.append((mechanism, tiny, "sst2", pz_defaults(
+            tiny, rounds=8, n_perturb=2, mechanism=mechanism)))
+    for name, cfg in (("fo", tiny), ("fo ssm", ssm), ("fo hybrid", hyb)):
+        runs.append((name, cfg, "sst2", pz_defaults(
+            cfg, rounds=8, n_perturb=2, mechanism="fo")))
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -879,21 +980,33 @@ def check_small_reference(torch, dev) -> None:
     for name, cfg, task, pz in runs:
         pipe = FederatedPipeline(task, TaskSpec(task, cfg.vocab_size, 24),
                                  5, 4, seed=0)
+        mechanism = pz.transport.mechanism
+        fo = mechanism == "fo"
+        digital = mechanism in ("digital", "smart_digital")
 
         def weights(device):
-            gen = torch.Generator().manual_seed(3)
-            return to(registry.init_params(cfg, gen, "cpu"), device)
+            return to(registry.init_params(cfg, prng.key(3), "cpu"), device)
 
         seen = {"gpu": Payloads(), "cpu": Payloads(), "scan": Payloads()}
         want = expected_launches(cfg, 3, pz.fused_perturbation,
-                                 n_perturb=pz.zo.n_perturb)
+                                 n_perturb=pz.zo.n_perturb, fo=fo)
         reset_launches()
         gpu = fedsim.run(cfg, pz, pipe, 3, params=weights(dev), device=dev,
                          hooks=[seen["gpu"]])
         launches = {"loop": read_launches()}
         cpu = fedsim.run(cfg, pz, pipe, 3, params=weights("cpu"),
                          device="cpu", hooks=[seen["cpu"]])
+        parted = None
+        if digital:
+            parted = parted_at_flip(name, pz, gpu, cpu)
+            rows = engine.uniform_rows(pz.seed, 0, 3, pz.zo.n_perturb, 5)
+            on_card = prng.uniform(engine.direction_keys(
+                pz.seed, 0, 3, pz.zo.n_perturb).to(dev), (5,))
+            require_equal(torch, on_card.cpu(), torch.from_numpy(rows),
+                          f"tiny {name}: uniform rows on the card")
         for r, (a, b) in enumerate(zip(gpu.losses, cpu.losses)):
+            if digital:
+                break
             if not math.isclose(a, b, rel_tol=1e-4):
                 for q in range(r + 1):
                     print(f"tiny {name} round {q}: payloads GPU "
@@ -910,32 +1023,40 @@ def check_small_reference(torch, dev) -> None:
         if launches["loop"] != want or launches["scan"] != want:
             raise AssertionError(f"tiny {name}: launches {launches}, "
                                  f"expected {want} on each engine")
+        state = {"params": (scan.params, gpu.params)}
+        if fo:
+            state.update(m=(scan.opt_state["m"], gpu.opt_state["m"]),
+                         v=(scan.opt_state["v"], gpu.opt_state["v"]))
         if scan.losses != gpu.losses or scan.p_hats != gpu.p_hats \
                 or scan.privacy_spent != gpu.privacy_spent or not all(
-                torch.equal(a, b) for (_, a), (_, b) in
-                zip(zo.flatten(scan.params), zo.flatten(gpu.params))):
+                torch.equal(a, b) for x, y in state.values()
+                for (_, a), (_, b) in zip(zo.flatten(x), zo.flatten(y))):
             raise AssertionError(f"tiny {name} scan run: losses "
                                  f"{scan.losses} vs loop {gpu.losses}, or "
-                                 "its p_hat, privacy spent or parameters "
-                                 "differ")
+                                 "its p_hat, privacy spent, parameters or "
+                                 "Adam moments differ")
         if seen["gpu"].k_eff != seen["cpu"].k_eff \
                 or seen["scan"].k_eff != seen["gpu"].k_eff:
             raise AssertionError(f"tiny {name}: mask sums {seen['gpu'].k_eff}"
                                  f" (GPU), {seen['cpu'].k_eff} (CPU), "
                                  f"{seen['scan'].k_eff} (scan)")
-        if "silent" in name:
+        if "silent" in name or fo or digital:
             for what, res in (("GPU loop", gpu), ("CPU", cpu),
                               ("GPU scan", scan)):
-                if any(p != 0.0 for p in res.p_hats) \
-                        or res.privacy_spent != 0.0:
+                if res.privacy_spent != 0.0 or ("silent" in name and any(
+                        p != 0.0 for p in res.p_hats)):
                     raise AssertionError(
                         f"tiny {name} ({what}): p_hat {res.p_hats}, privacy "
-                        f"spent {res.privacy_spent}; want 0 in silent rounds")
+                        f"spent {res.privacy_spent}; want none spent"
+                        + (" and p_hat 0" if "silent" in name else ""))
+        agree = "match CPU" if parted is None else \
+            f"part from CPU at a one-cell flip in round {parted}:"
         print(f"small-input reference ({name}, {cfg.name}, {task}): GPU "
-              f"losses {gpu.losses} match CPU {cpu.losses} (rtol 1e-4); p_hat "
+              f"losses {gpu.losses} {agree} {cpu.losses} (rtol 1e-4"
+              + ("" if parted is None else " before it") + f"); p_hat "
               f"{gpu.p_hats}; mask sums {seen['gpu'].k_eff}; privacy spent "
               f"{gpu.privacy_spent:.6g}; the scan engine's match the loop's "
-              "bitwise", flush=True)
+              "bitwise" + (" (Adam moments too)" if fo else ""), flush=True)
 
 
 def counters():
@@ -956,13 +1077,15 @@ def read_launches() -> dict:
 
 
 def expected_launches(cfg, rounds: int, fused: bool, evals: int = 0,
-                      n_perturb: int = N_PERTURB) -> dict:
+                      n_perturb: int = N_PERTURB, fo: bool = False) -> dict:
     """What `rounds` rounds and `evals` greedy evals (one forward each, on
     untagged weights) must launch, from the model's structure. A silent
-    round (c = 0) launches as many: its update runs with p_hat = 0."""
+    round (c = 0) launches as many: its update runs with p_hat = 0. An FO
+    round is one forward through the kernels (its backward recomputes the
+    plain versions) and no axpy."""
     from repro_torch.models import hybrid, registry
     n_leaves = len(registry.shapes(cfg))
-    rollouts = rounds * n_perturb * 2
+    rollouts = rounds * (1 if fo else n_perturb * 2)
     forwards = rollouts + evals
     out = dict.fromkeys(counters(), 0)
     if cfg.family == "ssm":
@@ -973,6 +1096,8 @@ def expected_launches(cfg, rounds: int, fused: bool, evals: int = 0,
         out["rglru_scan"] = forwards * kinds.count("r")
     else:
         out["flash_attention"] = forwards * cfg.n_layers
+    if fo:
+        return out
     if fused:
         # per rollout: the seven projections of each layer; one resolve per
         # layer norm (two a layer), final norm and untied lm head; one
@@ -990,8 +1115,8 @@ def expected_launches(cfg, rounds: int, fused: bool, evals: int = 0,
 
 def path_setup(name: str, cfg, fused: bool):
     """A path's run config and data: the CLI's defaults on sst2 at horizon
-    800, or for `sign` Sign-pAirZero over WRAPPED_RICIAN on squad at
-    horizon SIGN_HORIZON."""
+    800 (for `fo` with the first-order transport), or for `sign`
+    Sign-pAirZero over WRAPPED_RICIAN on squad at horizon SIGN_HORIZON."""
     from repro_torch.data.pipeline import FederatedPipeline
     from repro_torch.data.tasks import TaskSpec
     if name == "sign":
@@ -1000,22 +1125,24 @@ def path_setup(name: str, cfg, fused: bool):
                          wrapped=True)
     else:
         task = "sst2"
-        pz = pz_defaults(cfg, rounds=800, fused=fused)
+        pz = pz_defaults(cfg, rounds=800, fused=fused,
+                         mechanism="fo" if name == "fo" else "analog")
     pipe = FederatedPipeline(task, TaskSpec(task, cfg.vocab_size, 64),
                              n_clients=5, per_client_batch=8, seed=0)
     return pz, pipe
 
 
-def check_uplink(name: str, res, pz, k_eff: list) -> None:
-    """The uplink bits equal the payload bits of one client times the sum
-    of the mask rows the rounds ran with; on the sign path also every
-    round transmits (c > 0) and some round has a client in outage."""
+def check_uplink(name: str, res, pz, k_eff: list, d: int) -> None:
+    """The uplink bits equal the payload bits of one client (a model of d
+    parameters) times the sum of the mask rows the rounds ran with; on the
+    sign path also every round transmits (c > 0) and some round has a
+    client in outage."""
     from repro_torch.core import transport as tp
     mech = tp.resolve(pz)
-    want = mech.payload_bits(pz, 0) * sum(k_eff)
+    want = mech.payload_bits(pz, d) * sum(k_eff)
     if len(k_eff) != res.steps or res.uplink_bits != want:
         raise AssertionError(f"{name}: uplink bits {res.uplink_bits}, want "
-                             f"{mech.payload_bits(pz, 0)} x {sum(k_eff)} "
+                             f"{mech.payload_bits(pz, d)} x {sum(k_eff)} "
                              f"(mask sums {k_eff})")
     if name != "sign":
         return
@@ -1027,7 +1154,7 @@ def check_uplink(name: str, res, pz, k_eff: list) -> None:
                              f"fewer than {pz.n_clients} clients")
     print(f"path sign: c {[float(x) for x in c]} (no silent round); mask "
           f"sums {k_eff}; uplink bits {res.uplink_bits} = "
-          f"{mech.payload_bits(pz, 0)} x {sum(k_eff)}", flush=True)
+          f"{mech.payload_bits(pz, d)} x {sum(k_eff)}", flush=True)
 
 
 class Stamp:
@@ -1052,6 +1179,20 @@ class Stamp:
 
     def close(self, exp) -> None:
         pass
+
+
+def final_state(torch, res, name: str) -> dict:
+    """A run's final state on the host, by path: the parameters (the
+    hybrid's as `fingerprint` checksums) and under FO both Adam moments."""
+    from repro_torch.core import zo
+    if name == "hybrid":
+        return fingerprint(torch, res.params)
+    out = {p: t.cpu() for p, t in zo.flatten(res.params)}
+    if res.opt_state is not None:
+        for moment in ("m", "v"):
+            out.update({f"{moment}:{p}": t.cpu() for p, t in
+                        zo.flatten(res.opt_state[moment])})
+    return out
 
 
 def fingerprint(torch, params) -> dict:
@@ -1090,17 +1231,19 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
 
+    fo = name == "fo"
     if len(res.losses) != rounds or not all(map(math.isfinite, res.losses)):
         raise AssertionError(f"{name}: losses {res.losses}")
-    if not all(map(math.isfinite, res.p_hats)):
+    if not all(map(math.isfinite, res.p_hats)) \
+            or len(res.p_hats) != (0 if fo else rounds):
         raise AssertionError(f"{name}: p_hats {res.p_hats}")
-    if not res.privacy_spent > 0:
+    if not (res.privacy_spent == 0 if fo else res.privacy_spent > 0):
         raise AssertionError(f"{name}: privacy spent {res.privacy_spent}")
-    expected = expected_launches(cfg, rounds, fused, rounds // every)
+    expected = expected_launches(cfg, rounds, fused, rounds // every, fo=fo)
     if launches != expected:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{expected}")
-    check_uplink(name, res, pz, seen.k_eff)
+    check_uplink(name, res, pz, seen.k_eff, cfg.param_count())
     steady = statistics.median(pre.times[r] - post.times[r - 1]
                                for r in range(1, rounds))
     print(f"path {name}: {cfg.name}, {rounds} rounds (loop engine); run "
@@ -1109,9 +1252,11 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
           f"{res.losses}; p_hat {res.p_hats}; accuracies {res.accuracies}; "
           f"privacy spent {res.privacy_spent:.6g} of "
           f"{res.privacy_budget:.6g}", flush=True)
+    reserved = torch.cuda.max_memory_reserved()
     print(f"path {name}: peak device memory {peak / 1e6:.1f} MB = "
-          f"{peak / theta_bytes:.2f} x theta ({theta_bytes / 1e6:.1f} MB f32)",
-          flush=True)
+          f"{peak / theta_bytes:.2f} x theta ({theta_bytes / 1e6:.1f} MB "
+          f"f32); max reserved {reserved / 1e6:.1f} MB = "
+          f"{reserved / theta_bytes:.2f} x theta", flush=True)
     print(f"path {name}: launches {launches}", flush=True)
     return {"name": name, "cfg": cfg, "pz": pz, "pipe": pipe, "res": res,
             "params": res.params, "launches": launches,
@@ -1129,6 +1274,11 @@ def check_peak(name: str, peak_theta: float) -> None:
         # θ-sized copy would show as about 3.4 θ
         raise AssertionError(f"{name} path peak {peak_theta:.2f} x theta, "
                              "want < 2.9")
+    if name == "fo" and not peak_theta < 12.0:
+        # weights, grads and two moments 4 θ, the saved activations and the
+        # logits with their log-softmax and grad about 5 θ (PERF.md §6)
+        raise AssertionError(f"fo path peak {peak_theta:.2f} x theta, "
+                             "want < 12")
 
 
 def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
@@ -1139,7 +1289,7 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
     round but each chunk's first, and the same peak gates. Steady ms/round:
     host-clock time over chunks 2 onward between synchronized stamps, eval
     left out, over their rounds."""
-    from repro_torch.core import engine, fedsim, zo
+    from repro_torch.core import engine, fedsim
 
     name, cfg, pz, pipe = loop["name"], loop["cfg"], loop["pz"], loop["pipe"]
     rounds, chunk, every = scan
@@ -1171,7 +1321,7 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
                              f"{res.privacy_spent} vs {ref.privacy_spent}, "
                              f"uplink bits {res.uplink_bits} vs "
                              f"{ref.uplink_bits}")
-    check_uplink(name, res, pz, seen.k_eff)
+    check_uplink(name, res, pz, seen.k_eff, cfg.param_count())
     n_evals = rounds // every
     if len(res.accuracies) != n_evals or not all(
             0.0 <= a <= 1.0 for a in res.accuracies) \
@@ -1179,16 +1329,14 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
         raise AssertionError(f"{name} scan: accuracies {res.accuracies}, "
                              f"loop {ref.accuracies}, want {n_evals} in "
                              "[0, 1]")
-    if isinstance(final, dict) and all(isinstance(v, tuple)
-                                       for v in final.values()):
-        same = fingerprint(torch, res.params) == final
-    else:
-        same = all(torch.equal(a.cpu(), final[p])
-                   for p, a in zo.flatten(res.params))
-    if not same:
-        raise AssertionError(f"{name} scan: final parameters differ from "
-                             "the loop run's")
-    expected = expected_launches(cfg, rounds, fused, n_evals)
+    mine = final_state(torch, res, name)
+    if mine.keys() != final.keys() or not all(
+            a == final[k] if isinstance(a, tuple) else torch.equal(a, final[k])
+            for k, a in mine.items()):
+        raise AssertionError(f"{name} scan: final parameters (or Adam "
+                             "moments) differ from the loop run's")
+    expected = expected_launches(cfg, rounds, fused, n_evals,
+                                 fo=name == "fo")
     if launches != expected:
         raise AssertionError(f"{name} scan: launches {launches}, expected "
                              f"{expected}")
@@ -1208,8 +1356,10 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
           + ("n/a (one chunk)" if steady is None else
              f"{steady * 1e3:.1f} ms/round")
           + f" (loop {loop['ms_per_round']:.1f}); losses, p_hat, "
-          f"accuracies {res.accuracies} and final parameters equal to the "
-          f"loop run's; prep stall {res.prep_stall_s:.4f} s", flush=True)
+          f"accuracies {res.accuracies} and final parameters "
+          + ("and Adam moments " if name == "fo" else "")
+          + f"equal to the loop run's; prep stall {res.prep_stall_s:.4f} s",
+          flush=True)
     print(f"path {name} scan: peak device memory {peak / 1e6:.1f} MB = "
           f"{peak / theta_bytes:.2f} x theta; max reserved "
           f"{reserved / 1e6:.1f} MB = {reserved / theta_bytes:.2f} x theta",
@@ -1257,22 +1407,52 @@ def check_fused_against_fresh(torch, dev, path: dict) -> None:
           " (rtol 1e-4)", flush=True)
 
 
-def profile_run(torch, path: dict, dev, what: str, **run_kw) -> None:
-    """A run of a path under torch.profiler: the kernels that take the
-    device time, and the share of the run's wall time the device was
-    busy."""
+class StartProfile:
+    """A round hook that synchronizes the card and starts the profiler (and
+    the wall clock) at the chunk boundary after `at` rounds."""
+    cadence = 0
+
+    def __init__(self, torch, prof, at: int):
+        self.torch, self.prof, self.at = torch, prof, at
+        self.t0 = None
+
+    def on_start(self, exp) -> None:
+        pass
+
+    def on_round(self, t, metrics) -> None:
+        pass
+
+    def on_boundary(self, t_done: int, exp) -> None:
+        if t_done == self.at:
+            self.torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+            self.prof.start()
+
+    def close(self, exp) -> None:
+        pass
+
+
+def profile_run(torch, path: dict, dev, what: str, skip: int = 0,
+                **run_kw) -> None:
+    """A run of a path under torch.profiler, from its start or from the
+    chunk boundary after `skip` rounds: the kernels that take the device
+    time, and the share of the profiled wall time the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import fedsim
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    start = StartProfile(torch, prof, skip)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    if not skip:
+        start.on_boundary(0, None)
+    try:
         fedsim.run(path["cfg"], path["pz"], path["pipe"], device=dev,
-                   **run_kw)
+                   hooks=[start], **run_kw)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - start.t0) * 1e6
+    finally:
+        prof.stop()
     # kernel-level rows only: the aten ops above them carry the same time
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -1291,6 +1471,42 @@ def profile_run(torch, path: dict, dev, what: str, **run_kw) -> None:
                   f"x{count:<5d} {key[:90]}", flush=True)
 
 
+def release_device_memory(torch) -> None:
+    """Free what earlier runs keep on the card, so the next path's peak is
+    its own: the cached executors' graphs and their memory pools, and
+    cuBLAS's workspaces (32 MiB for each pair of cuBLAS handle and stream
+    it ran on: the FO runs' backward adds a handle, on the autograd
+    engine's device thread, for each stream)."""
+    from repro_torch.core import engine
+    torch.cuda.synchronize()
+    engine.get_executor.cache_clear()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+
+
+def table2(paths: list, cfg) -> dict:
+    """The paper's Table II columns from this run: peak device memory / θ
+    of the chained (ZO), sign and fo (FO-Adam) paths on each engine, the
+    chained path's peak over FO-Adam's (the paper's "25%"), and the uplink
+    bits a round of OPT-125M under every transport at the CLI's defaults
+    (5 clients, n_perturb 4, 8 quantizer bits)."""
+    from repro_torch.core import transport as tp
+    peaks = {p["name"]: {"loop": p["peak_theta"],
+                         "scan": p["scan_peak_theta"]}
+             for p in paths if p["name"] in ("chained", "sign", "fo")}
+    d = cfg.param_count()
+    bits = {}
+    for mechanism in tp.available():
+        pz = pz_defaults(cfg, rounds=800, mechanism=mechanism)
+        bits[mechanism] = tp.resolve(pz).bits_per_round(pz, d)
+    return {"peak_theta": peaks,
+            "zo_over_fo_peak": {e: peaks["chained"][e] / peaks["fo"][e]
+                                for e in ("loop", "scan")},
+            "bits_per_round": bits, "d": d}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1299,7 +1515,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_arch
-    from repro_torch.core import engine, zo
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1314,11 +1529,13 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     print(f"kernel build: {build.build():.1f} s", flush=True)
 
+    prng_row = check_prng(torch, dev)
     rows = check_seeded_axpy(torch, dev)
     rows += [check_flash_attention(torch, dev),
              check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev),
              check_rglru_scan(torch, dev)]
     check_small_reference(torch, dev)
+    release_device_memory(torch)
 
     opt, mamba = get_arch("opt-125m"), get_arch("mamba2-370m")
     rgemma = get_arch("recurrentgemma-2b")
@@ -1326,21 +1543,21 @@ def main() -> int:
     paths = []
     for name, cfg, fused in (("chained", opt, False), ("fused", opt, True),
                              ("mamba2", mamba, False),
-                             ("hybrid", rgemma, False), ("sign", opt, False)):
+                             ("hybrid", rgemma, False), ("sign", opt, False),
+                             ("fo", opt, False)):
         scan = SCAN[name]
         path = run_path(torch, dev, name, cfg, fused, scan)
         check_peak(name, path["peak_theta"])
         if fused:
             check_fused_against_fresh(torch, dev, path)
-        # the loop run's final weights on the host (the hybrid's as
-        # checksums), taken before the profiled round moves them; then
-        # freed, so the scan run's peak is its own
-        final = fingerprint(torch, path["params"]) if name == "hybrid" \
-            else {p: t.cpu() for p, t in zo.flatten(path["params"])}
+        # the loop run's final weights (and Adam moments) on the host (the
+        # hybrid's as checksums), taken before the profiled round moves
+        # them; then freed, so the scan run's peak is its own
+        final = final_state(torch, path["res"], name)
         if profiling:
             profile_run(torch, path, dev, "one round (loop engine)",
                         rounds=1, params=path["params"])
-        path["params"] = path["res"].params = None
+        path["params"] = path["res"].params = path["res"].opt_state = None
         torch.cuda.empty_cache()
         scanned = run_scan_path(torch, dev, path, scan, final)
         rounds, chunk, _ = scan
@@ -1352,18 +1569,23 @@ def main() -> int:
                   f"ms/round over a second chunk of {chunk} (loop "
                   f"{path['ms_per_round']:.1f})", flush=True)
         if profiling:
+            # an FO run starts a fresh Adam state, whose leaves the cached
+            # graph does not read: profile its second chunk, after the
+            # capture
+            skip = chunk if name == "fo" else 0
             profile_run(torch, path, dev, f"one scan chunk of {chunk} rounds",
-                        rounds=chunk, engine="scan", chunk_rounds=chunk,
-                        params=scanned["params"])
+                        skip=skip, rounds=skip + chunk, engine="scan",
+                        chunk_rounds=chunk, params=scanned["params"])
         paths.append({k: path[k] for k in ("name", "launches", "peak_theta",
                                            "ms_per_round")})
         paths[-1].update(scan_ms_per_round=scanned["steady"] * 1e3,
                          scan_peak_theta=scanned["peak_theta"],
                          scan_reserved_theta=scanned["reserved_theta"])
         del path, scanned, final
-        engine.get_executor.cache_clear()     # the graph's memory pool
-        torch.cuda.empty_cache()
+        release_device_memory(torch)
 
+    print(json.dumps({"table2": table2(paths, opt), "prng": prng_row}),
+          flush=True)
     for row in rows:
         by_path = {p["name"]: p["launches"][row["name"]] for p in paths}
         row["launches"] = sum(by_path.values())

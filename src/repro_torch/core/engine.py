@@ -17,9 +17,12 @@ The host keeps the DP accounting: the run's Transport prices each round
 and the hard privacy stop truncates a chunk at the first round that would
 overspend.
 
-The OTA noise is data here: `noise_rows` draws each round's
-[n_perturb, K+1] standard normals from a torch.Generator seeded by
-(seed ^ 0x5EED, t), so a trace does not depend on how rounds are chunked.
+The random draws a transport reads are data here, made on the host with
+the reference's own threefry draws (`repro_torch.prng`) from the keys the
+reference derives: round t's key is fold_in(key(seed ^ 0x5EED), t),
+direction j's fold_in(round key, j). `noise_rows` gives the OTA normals
+and `uniform_rows` the digital dither, each a pure function of (seed, t),
+so a trace does not depend on how rounds are chunked.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant
@@ -51,10 +55,12 @@ class ControlTrace:
 
     `ctl` holds seed [R] (the round seeds, a host uint32 array kept for the
     record: the round body reads none of it) and device tensors c [R],
-    sigma [R,K], n0 [R], mask [R,K], g [R,K], noise [R, n_perturb, K+1] and
-    leaf_seeds [R, n_perturb, n_leaves] (int32 holding the uint32 bits of
-    leaf_seed(perturb_seed(round_seed(seed, t), j), i)). `host_masks` is the
-    host view of the mask for the uplink-bit accounting."""
+    sigma [R,K], n0 [R], mask [R,K], g [R,K], leaf_seeds [R, n_perturb,
+    n_leaves] (int32 holding the uint32 bits of
+    leaf_seed(perturb_seed(round_seed(seed, t), j), i)) and the draws the
+    transport reads (`Transport.draws`): noise [R, n_perturb, K+1] and
+    uniform [R, n_perturb, K]. `host_masks` is the host view of the mask
+    for the uplink-bit accounting."""
     t0: int
     ctl: Dict
     acct_cost: np.ndarray     # [R] per-round DP cost
@@ -71,18 +77,35 @@ class ControlTrace:
         return {k: v[:n] for k, v in self.ctl.items()}
 
 
+def direction_keys(seed: int, t0: int, t1: int,
+                   n_perturb: int) -> torch.Tensor:
+    """[R, n_perturb, 2] round keys of rounds [t0, t1): direction j of round
+    t has fold_in(fold_in(key(seed ^ 0x5EED), t), j), the reference's
+    `round_key` (`repro.core.pairzero.make_control` and its round body)."""
+    base = prng.key(int(seed) ^ 0x5EED)
+    rounds = prng.fold_in(base, torch.arange(t0, t1))
+    return prng.fold_in(rounds[:, None, :], torch.arange(n_perturb))
+
+
 def noise_rows(seed: int, t0: int, t1: int, n_perturb: int,
                n_clients: int) -> np.ndarray:
     """[R, n_perturb, K+1] f32 standard normals for rounds [t0, t1): per
-    direction j, K artificial-noise draws then the receiver-noise draw.
-    Round t's rows come from its own generator, seeded by (seed ^ 0x5EED, t)."""
-    out = np.empty((t1 - t0, n_perturb, n_clients + 1), dtype=np.float32)
-    key = ((int(seed) ^ 0x5EED) & 0xFFFFFFFF) << 32
-    for r, t in enumerate(range(t0, t1)):
-        gen = torch.Generator().manual_seed(key | (t & 0xFFFFFFFF))
-        out[r] = torch.randn((n_perturb, n_clients + 1), generator=gen,
-                             dtype=torch.float32).numpy()
-    return out
+    direction, the K artificial-noise draws normal(nk, (K,)), then the
+    receiver-noise draw normal(zk, ()), with nk, zk = split(round key), as
+    `repro.core.ota.superpose` draws them. normal(zk, ()) is element 0 of
+    normal(zk, (K,)), so both come from one draw of the split keys."""
+    split = prng.split(direction_keys(seed, t0, t1, n_perturb))
+    z = prng.normal(split, (n_clients,))            # [R, P, 2, K]
+    return torch.cat([z[..., 0, :], z[..., 1, :1]], dim=-1).numpy()
+
+
+def uniform_rows(seed: int, t0: int, t1: int, n_perturb: int,
+                 n_clients: int) -> np.ndarray:
+    """[R, n_perturb, K] f32 uniforms on [0, 1) for rounds [t0, t1):
+    uniform(round key, (K,)), the digital transports' dither
+    (`repro.core.transport.stochastic_quantize`)."""
+    return prng.uniform(direction_keys(seed, t0, t1, n_perturb),
+                        (n_clients,)).numpy()
 
 
 class HostBlock:
@@ -138,9 +161,20 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
+def draw_rows(transport: tp.Transport, pz, t0: int,
+              t1: int) -> Dict[str, np.ndarray]:
+    """The random rows `transport` reads (`Transport.draws`) for rounds
+    [t0, t1), by name."""
+    draws = {"noise": noise_rows, "uniform": uniform_rows}
+    return {name: draws[name](pz.seed, t0, t1, pz.zo.n_perturb,
+                              pz.n_clients) for name in transport.draws}
+
+
 def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
                 transport: Optional[tp.Transport] = None,
-                channel=None) -> ControlTrace:
+                channel=None,
+                draws: Optional[Dict[str, np.ndarray]] = None
+                ) -> ControlTrace:
     """Precompute the control trace for rounds [t0, t1), shipped to
     `device` in one non-blocking copy.
 
@@ -150,7 +184,11 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
     strongest client, as the reference does. The port has no fault models
     yet, so nothing else masks a client. None (or a perfect-CSI, no-outage
     trace) gives all-ones rows. The leaf seeds of every round and direction
-    (`zo.seed_table`) come from numpy on the host."""
+    (`zo.seed_table`) come from numpy on the host. `draws` are the
+    transport's random rows for [t0, t1) when the caller drew them ahead
+    (`draw_rows`; a run draws its whole horizon in one go, since a draw
+    costs about the same few hundred small CPU ops for one round as for
+    a thousand); None draws them here."""
     if transport is None:
         transport = tp.resolve(pz)
     device = torch.device(device)
@@ -172,10 +210,11 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
         "n0": np.full((rounds,), schedule.n0, dtype=np.float32),
         "mask": masks,
         "g": g,
-        "noise": noise_rows(pz.seed, t0, t1, pz.zo.n_perturb, k),
         "leaf_seeds": zo.seed_table(pz.seed, t0, t1, pz.zo.n_perturb,
                                     n_leaves).view(np.int32),
     }
+    host_ctl.update(draw_rows(transport, pz, t0, t1) if draws is None
+                    else draws)
     block = HostBlock({key: (v.shape, v.dtype) for key, v in
                        host_ctl.items()}, device)
     for key, v in host_ctl.items():
@@ -421,12 +460,21 @@ class ScanExecutor:
     graph: the counterpart of the reference's `lax.scan` over the step
     (PyTorch has no `jit` to compile a chunk into one program).
 
+    The step's carry (`params` below) is the parameter tree, or the FO
+    step's (params, optimizer state) pair; either is updated in place.
+
     On the card `run` runs the chunk's first round eagerly, through the same
     round body as the loop (that round makes every first use: cuBLAS
-    handles, the kernel libraries' load and their shared-memory attributes,
-    `zo._const`'s device scalars), then captures one round into a
+    handles, the kernel libraries' load and their shared-memory
+    attributes, `zo._const`'s device scalars, the autograd engine's device
+    thread under FO). When no graph for these leaves and row shapes is
+    cached, that round is the capture's warm-up and runs on a side stream
+    (PyTorch's whole-network capture recipe), and one round is then
+    captured into a
     `torch.cuda.CUDAGraph` whose static inputs hold one control row (leaf
-    seeds included) and one batch row. For each remaining round it copies
+    seeds included) and one batch row; under FO the capture holds the
+    whole round, forward, backward (`torch.autograd.grad`) and the
+    optimizer's in-place update. For each remaining round it copies
     row r into those inputs, replays the graph and copies the metrics out:
     no host sync inside a chunk. The graph is kept for the next chunk and
     the next run of the same step while the leaves it updates in place stay
@@ -447,38 +495,57 @@ class ScanExecutor:
         dev_ctl = {k: v for k, v in ctl_stack.items()
                    if isinstance(v, torch.Tensor)}
         on_card = dev_ctl["c"].device.type == "cuda"
-        params, collected = _run_eager(self._step, params, ctl_stack,
-                                       batch_stack,
-                                       range(1 if on_card else rounds))
-        if not on_card or rounds == 1:
+        if not on_card:
+            params, collected = _run_eager(self._step, params, ctl_stack,
+                                           batch_stack, range(rounds))
+            return params, {k: torch.stack(v) for k, v in collected.items()}
+        row0 = (_row(dev_ctl, 0), _row(batch_stack, 0))
+        key = _graph_key(params, *row0)    # the eager round moves no leaf
+        if rounds > 1 and (self._graph is None or self._graph[0] != key):
+            # the round before a capture is its warm-up, on a side stream
+            # (PyTorch's whole-network capture recipe)
+            main = torch.cuda.current_stream()
+            side = _warmup_stream(main.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                params, collected = _run_eager(self._step, params, ctl_stack,
+                                               batch_stack, range(1))
+            main.wait_stream(side)
+            self._graph = None                 # free the old graph's pool
+            self._graph = (key, _Graph(self._step, params, *row0))
+        else:
+            params, collected = _run_eager(self._step, params, ctl_stack,
+                                           batch_stack, range(1))
+        if rounds == 1:
             return params, {k: torch.stack(v) for k, v in collected.items()}
         out = {k: torch.empty((rounds,) + v[0].shape, dtype=v[0].dtype,
                               device=v[0].device)
                for k, v in collected.items()}
         for k, v in collected.items():
             out[k][0].copy_(v[0])
-        graph = self._graph_for(params, _row(dev_ctl, 0),
-                                _row(batch_stack, 0))
+        graph = self._graph[1]
         for r in range(1, rounds):
             graph.replay(_row(dev_ctl, r), _row(batch_stack, r))
             for k, v in graph.metrics.items():
                 out[k][r].copy_(v)
         return params, out
 
-    def _graph_for(self, params: Params, ctl: Dict,
-                   batch: Dict[str, torch.Tensor]) -> _Graph:
-        key = _graph_key(params, ctl, batch)
-        if self._graph is None or self._graph[0] != key:
-            self._graph = None                 # free the old graph's pool
-            self._graph = (key, _Graph(self._step, params, ctl, batch))
-        return self._graph[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream every executor's warm-up round runs on: cuBLAS
+    keeps a 32 MiB workspace for each stream it runs on, for the life of
+    the process."""
+    return torch.cuda.Stream(device)
 
 
 @functools.lru_cache(maxsize=8)
 def get_executor(step: Callable) -> ScanExecutor:
-    """Executor cache keyed on the step (memoized by `pairzero.make_zo_step`),
-    so identical runs share one captured graph; `get_executor.cache_clear()`
-    releases the graphs and their memory pools."""
+    """Executor cache keyed on the step (memoized by `pairzero.make_zo_step`
+    and `make_fo_step`), so identical runs share one captured graph;
+    `get_executor.cache_clear()` releases the graphs and their memory
+    pools."""
     return ScanExecutor(step)
 
 

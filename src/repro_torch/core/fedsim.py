@@ -12,6 +12,8 @@ overspend, truncating the chunk before dispatch) and firing the round
 hooks. Both engines run this same loop; chunk boundaries are aligned to the
 hook cadences, chunk i+1 is prepared on a worker thread while chunk i runs
 (`overlap`), and under scan a chunk's metrics reach the host one chunk late.
+The `fo` transport swaps the round for the first-order baseline's (FO-Adam,
+its state carried beside the params); it charges no privacy.
 Options of the reference that this port does not carry yet raise
 NotImplementedError naming their ROADMAP item; none is ignored.
 """
@@ -24,7 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import channel, resolve_device
+from repro_torch import channel, prng, resolve_device
 from repro_torch.configs.base import ModelConfig, PairZeroConfig
 from repro_torch.core import engine as eng
 from repro_torch.core import pairzero
@@ -34,6 +36,7 @@ from repro_torch.data import tasks as T
 from repro_torch.data.pipeline import FederatedPipeline
 from repro_torch.models import layers as L
 from repro_torch.models import registry
+from repro_torch.optim import fo as fo_opt
 
 # reference options not ported yet → the ROADMAP item that ports them
 _UNPORTED = {
@@ -67,6 +70,7 @@ class RunResult:
     privacy_exhausted_at: int = -1   # round at which the guard tripped
     uplink_bits: int = 0             # total uplink spend (Transport-accounted)
     params: Optional[Any] = None     # final model parameters
+    opt_state: Optional[Any] = None  # FO: the optimizer's final state
     schedule: Optional[Any] = None   # the base station's offline solve
     transport: Optional[Any] = None
     # [steps] cumulative Eq.-16 ledger after each executed round
@@ -141,8 +145,11 @@ class Experiment:
     """One federated run: model + pAirZero config + data + a Transport.
 
     The tensors passed as `params` are updated in place (the run owns them;
-    pass a copy to keep the originals). Without `params`, the run
-    initializes random weights from `pz.seed`."""
+    pass a copy to keep the originals). Without `params`, the run draws the
+    reference's initial weights from `prng.key(pz.seed)`. Under the `fo`
+    transport the round is the first-order baseline's
+    (`pairzero.make_fo_step`, FO-Adam at `pz.zo.lr`, as the reference
+    runs it), its Adam state made at the start of `run`."""
 
     def __init__(self, model_cfg: ModelConfig, pz: PairZeroConfig,
                  pipeline: FederatedPipeline, rounds: int, *,
@@ -173,7 +180,13 @@ class Experiment:
         # an explicit ChannelModel overrides the pz.channel config stack
         self.channel_model = channel_model if channel_model is not None \
             else channel.from_config(pz.channel)
-        self.step = pairzero.make_zo_step(model_cfg, pz, self.transport)
+        if self.transport.kind == "fo":
+            # the reference's FO baseline: FO-Adam at the ZO learning rate
+            self.optimizer = fo_opt.make("adam", pz.zo.lr)
+            self.step = pairzero.make_fo_step(model_cfg, self.optimizer)
+        else:
+            self.optimizer = None
+            self.step = pairzero.make_zo_step(model_cfg, pz, self.transport)
         self.hooks = list(hooks)
         self.params = params
         self.result = RunResult()
@@ -191,10 +204,13 @@ class Experiment:
         schedule = self.transport.make_schedule(ctrace, pz)
         result.schedule, result.transport = schedule, self.transport
         if self.params is None:
-            gen = torch.Generator(device=dev).manual_seed(pz.seed)
-            self.params = registry.init_params(self.model_cfg, gen, dev)
+            self.params = registry.init_params(self.model_cfg,
+                                               prng.key(pz.seed), dev)
         for hook in self.hooks:
             hook.on_start(self)
+        # the step's carry: the params, or under FO (params, Adam's state)
+        carry = self.params if self.optimizer is None \
+            else (self.params, self.optimizer.init(self.params))
 
         executor = eng.LoopExecutor(self.step) if self.engine == "loop" \
             else eng.get_executor(self.step)
@@ -209,12 +225,17 @@ class Experiment:
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
             else None
 
+        # the transport's random rows for every round, in one draw
+        draws = eng.draw_rows(self.transport, pz, 0, self.rounds)
+
         def prepare(a: int, b: int):
             with torch.cuda.stream(stream):
                 trace = eng.build_trace(schedule, pz, a, b, device=dev,
                                         n_leaves=n_leaves,
                                         transport=self.transport,
-                                        channel=ctrace)
+                                        channel=ctrace,
+                                        draws={k: v[a:b] for k, v in
+                                               draws.items()})
                 return trace, stager.stage(a, b)
 
         prefetch = eng.ChunkPrefetcher(prepare, bounds, overlap=self.overlap)
@@ -231,7 +252,8 @@ class Experiment:
             pending = None
             host = {k: v.cpu().numpy() for k, v in metrics.items()}
             result.losses.extend(float(x) for x in host["loss"])
-            result.p_hats.extend(float(x) for x in host["p_hat"])
+            if "p_hat" in host:                 # FO has no scalar uplink
+                result.p_hats.extend(float(x) for x in host["p_hat"])
             for hook in self.hooks:
                 for r in range(n_rounds):
                     hook.on_round(a0 + r, {k: v[r] for k, v in host.items()})
@@ -247,8 +269,9 @@ class Experiment:
                 client_rounds += float(trace.host_masks[:n_ok].sum())
                 if n_ok < b - a:          # guard trips mid-chunk: truncate
                     batches = {k: v[:n_ok] for k, v in batches.items()}
-                self.params, metrics = executor.run(
-                    self.params, trace.rows(n_ok), batches)
+                carry, metrics = executor.run(carry, trace.rows(n_ok),
+                                              batches)
+                self.params = carry if self.optimizer is None else carry[0]
                 flush()                   # sync chunk i-1 while chunk i runs
                 pending = (a, n_ok, metrics)
                 if self.engine == "loop":
@@ -281,6 +304,8 @@ class Experiment:
         result.prep_stall_s = prefetch.stall_s
         result.wall_time_s = time.time() - t0
         result.params = self.params
+        if self.optimizer is not None:
+            result.opt_state = carry[1]
         return result
 
 

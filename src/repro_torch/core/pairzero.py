@@ -7,8 +7,9 @@ w ← w − η p̂ z is applied from the same seed. Round-varying control (c, σ
 N0, mask, CSI factors, the round's leaf seeds and noise normals) is data
 on the device: the round body reads no host value and makes no host
 tensor, so one captured CUDA graph replays any round
-(`engine.ScanExecutor`). Mesh, adversary, Byzantine behaviors/defenses and
-desync are not ported yet.
+(`engine.ScanExecutor`). `make_fo_step` is the first-order baseline's
+round. Mesh, adversary, Byzantine behaviors/defenses and desync are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -42,9 +43,11 @@ def make_control(t: int, schedule, base_seed: int, n_clients: int,
     """Round-t control block: the broadcast seed (a host int, for the
     record) plus device tensors c, sigma [K], n0, mask [K], g [K], noise
     [n_perturb, K+1] (one row of standard normals per perturbation
-    direction) and leaf_seeds [n_perturb, n_leaves] (int32 holding the
-    uint32 leaf seeds, the row the round body reads per direction). A
-    helper for single rounds, built on the host outside any round body."""
+    direction, drawn from the reference's round key, fold_in(key(base_seed
+    ^ 0x5EED), t): `engine.noise_rows`) and leaf_seeds [n_perturb,
+    n_leaves] (int32 holding the uint32 leaf seeds, the row the round body
+    reads per direction). A helper for single rounds, built on the host
+    outside any round body."""
     from repro_torch.core.engine import noise_rows
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -100,7 +103,8 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
             lp, lm, params_at = zo.dual_forward(
                 lambda p: loss_fn(p, batch), params, seeds, mu, mode=mode)
             p_k = zo.projection(lp, lm, mu, gamma)                 # [K]
-            p_hat = transport.aggregate(p_k, {**ctl, "noise": ctl["noise"][j]})
+            p_hat = transport.aggregate(
+                p_k, {**ctl, **{k: ctl[k][j] for k in transport.draws}})
             # restore + update fused into one axpy (chained mode)
             params = zo.apply_update(params_at, seeds, p_hat,
                                      lr / n_perturb, mu, mode=mode)
@@ -114,3 +118,40 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
         return params, metrics
 
     return round_body
+
+
+@functools.lru_cache(maxsize=128)
+def make_fo_step(model_cfg: ModelConfig, optimizer) -> Callable:
+    """The first-order FedSGD/Adam baseline's round: full backprop and
+    cross-client gradient averaging (the d-dimensional uplink the paper
+    eliminates). step((params, opt_state), batch, ctl) → ((params,
+    opt_state), metrics); both are updated in place and returned.
+
+    The loss is the mask-weighted mean of the per-client losses over
+    max(Σ mask, 1); its gradient comes from `torch.autograd.grad` over the
+    leaves in `zo.flatten` order (the reference's), then
+    `optimizer.update`. The kernels' forwards run as on the ZO paths; their
+    backward recomputes the plain versions (`kernels.ops`). Metrics: the
+    loss, and k_eff (Σ mask) as the ZO round reports it. Memoized on the
+    (frozen) config and optimizer, so identical runs share one step and
+    the scan engine's cached graph. The reference's adversary and desync
+    options wait for ROADMAP A9."""
+    loss_fn = make_loss_fn(model_cfg)
+
+    def step(state, batch: Dict, ctl: Dict):
+        params, opt_state = state
+        leaves = [t.detach().requires_grad_(True)
+                  for _, t in zo.flatten(params)]
+        tracked = zo.rebuild(params, leaves)
+        mask = ctl["mask"]
+        with torch.enable_grad():
+            per_client = loss_fn(tracked, batch)                  # [K]
+            loss = torch.sum(per_client * mask) / torch.clamp_min(
+                torch.sum(mask), 1.0)
+            grads = torch.autograd.grad(loss, leaves)
+        params, opt_state = optimizer.update(
+            params, zo.rebuild(params, grads), opt_state)
+        return (params, opt_state), {"loss": loss.detach(),
+                                     "k_eff": torch.sum(mask)}
+
+    return step

@@ -1,11 +1,16 @@
 """Uplink mechanisms: the Transport protocol, ported from
-`repro.core.transport` with the OTA mechanisms (analog, sign, perfect).
+`repro.core.transport` with every mechanism it registers: the OTA ones
+(analog, sign, perfect), the digital baselines (digital, smart_digital)
+and the first-order baseline (fo).
 
 A Transport owns (a) the device-side `aggregate(p_k, ctl) -> p̂`, (b) the
 host-side schedule solve, (c) the per-round DP cost charged to the
-accountant and (d) the uplink bits per round. The digital baselines
-(digital, smart_digital) and the first-order baseline (fo) are not ported
-yet; naming one raises NotImplementedError with its ROADMAP item.
+accountant and (d) the uplink bits per round. Where the reference's
+`aggregate` takes the round key, the port's reads the draws it needs from
+the control block: `draws` names the per-direction rows (`noise`, the OTA
+normals; `uniform`, the digital dither) that `engine.build_trace` makes
+for it from that key. The eavesdropper's `observe` and the defenses
+wait for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -22,19 +27,15 @@ from repro_torch.core.dp import round_privacy_cost
 # as the noise-free channel (no schedule solve, no DP spend).
 OTA_SCHEMES = ("solution", "static", "reversed", "perfect")
 
-# reference mechanisms not ported yet → the ROADMAP item that ports them
-_UNPORTED = {
-    "digital": "A4: digital transports, with A7",
-    "smart_digital": "A4: digital transports, with A7",
-    "fo": "A7: the fo baseline",
-}
-
 
 @dataclass(frozen=True)
 class Transport:
     """One uplink mechanism. Subclass + `@register(name)` to add one."""
 
     name = "?"
+    kind = "zo"          # "fo": the first-order baseline (no scalar uplink)
+    #: the per-direction rows of random draws `aggregate` reads from ctl
+    draws = ("noise",)
 
     @classmethod
     def from_config(cls, tc, pz) -> "Transport":
@@ -115,15 +116,7 @@ def available() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"transport {name!r} is not ported (ROADMAP {_UNPORTED[name]}); "
-        f"ported: {available()}")
-
-
 def get(name: str) -> Type[Transport]:
-    if name in _UNPORTED:
-        raise _unported(name)
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -146,8 +139,14 @@ def from_strings(variant: str, scheme: str, pz=None) -> Transport:
         return AnalogOTA(scheme=scheme)
     if variant == "sign":
         return SignOTA(scheme=scheme)
-    if variant in _UNPORTED:
-        raise _unported(variant)
+    if variant == "fo":
+        return FirstOrder()
+    if variant == "digital":
+        if pz is None:
+            raise ValueError("the digital transport needs run-config "
+                             "context (quantizer clip range) — build it "
+                             "via TransportConfig or DigitalTDMA directly")
+        return DigitalTDMA(clip=float(pz.zo.clip_gamma))
     raise ValueError(f"unknown variant: {variant!r}")
 
 
@@ -222,3 +221,91 @@ class PerfectUplink(AnalogOTA):
     @classmethod
     def from_config(cls, tc, pz) -> "PerfectUplink":
         return cls()
+
+
+# ---------------------------------------------------------------------------
+# Digital baseline (conventional orthogonal transmission)
+# ---------------------------------------------------------------------------
+
+def stochastic_quantize(p: torch.Tensor, u: torch.Tensor, *, bits: int,
+                        clip: float) -> torch.Tensor:
+    """Unbiased b-bit stochastic quantizer on [-clip, +clip]: the range in
+    2^b − 1 cells, a value rounded up to its cell's upper edge with
+    probability its fractional position, so E[Q(p)] = clamp(p). `u` holds
+    the uniforms the reference draws with `jax.random.uniform(key,
+    p.shape)`."""
+    levels = np.float32(2 ** bits - 1)
+    half = np.float32(clip)
+    v = (torch.clamp(p, -float(half), float(half)) + float(half)) \
+        * float(levels / (np.float32(2.0) * half))
+    lo = torch.floor(v)
+    up = (u < (v - lo)).to(p.dtype)
+    return (lo + up) * float(np.float32(2.0) * half / levels) - float(half)
+
+
+@register("digital")
+@dataclass(frozen=True)
+class DigitalTDMA(Transport):
+    """Conventional digital uplink: b-bit stochastic quantization, one
+    orthogonal TDMA slot per client, no superposition, no DP mechanism.
+    Without the shared-seed trick a client uploads its whole d-dimensional
+    update at `quant_bits` per coordinate; the trajectory applies the
+    statistically equivalent scalar form (each client's clipped projection
+    quantized, every scheduled slot decoded error-free and averaged).
+    Privacy: none, so the accountant is never charged."""
+    quant_bits: int = 8
+    clip: float = 1.0
+    draws = ("uniform",)
+
+    @classmethod
+    def from_config(cls, tc, pz) -> "DigitalTDMA":
+        return cls(quant_bits=tc.quant_bits, clip=float(pz.zo.clip_gamma))
+
+    def aggregate(self, p, ctl):
+        """The mean of the scheduled slots' quantized payloads (clients
+        masked out yield their slots); per-slot decode is coherent, so the
+        CSI factor g does not enter."""
+        mask = ctl["mask"].to(p.dtype)
+        q = stochastic_quantize(p, ctl["uniform"], bits=self.quant_bits,
+                                clip=self.clip)
+        return torch.sum(mask * q) / torch.clamp_min(torch.sum(mask), 1.0)
+
+    def make_schedule(self, trace, pz):
+        """No power control to solve: TDMA slots run at scheduled SNR."""
+        return _trivial_schedule(trace_magnitudes(trace), scheme="digital")
+
+    def payload_bits(self, pz, d):
+        return self.quant_bits * d
+
+
+@register("smart_digital")
+@dataclass(frozen=True)
+class SmartDigital(DigitalTDMA):
+    """FedZO-style seed-and-scalar digital uplink: z regenerated from the
+    broadcast seed, so a client sends one b-bit scalar per perturbation
+    direction over its TDMA slot. Decode and schedule as `DigitalTDMA`;
+    orthogonal decoding still exposes every client's scalar."""
+
+    def payload_bits(self, pz, d):
+        return self.quant_bits * pz.zo.n_perturb
+
+
+# ---------------------------------------------------------------------------
+# First-order baseline
+# ---------------------------------------------------------------------------
+
+@register("fo")
+@dataclass(frozen=True)
+class FirstOrder(Transport):
+    """FO FedSGD/Adam baseline: full backprop and a d-dimensional fp16
+    gradient upload, the cost pAirZero eliminates. The gradients average
+    inside the step (`pairzero.make_fo_step`)."""
+    kind = "fo"
+    draws = ()
+
+    def aggregate(self, p, ctl):
+        raise NotImplementedError("the FO baseline averages gradients in the "
+                                  "step itself; it has no scalar uplink")
+
+    def payload_bits(self, pz, d):
+        return 16 * d

@@ -110,6 +110,12 @@ def _map_leaves(fn, node, counter):
     return fn(next(counter), node)
 
 
+def rebuild(params, leaves):
+    """The tree of `params` with its leaves replaced by `leaves`, taken in
+    `flatten` order."""
+    return _map_leaves(lambda i, _: leaves[i], params, itertools.count())
+
+
 def perturb(params: Params, seeds: torch.Tensor, scale, *,
             inplace: bool = False) -> Params:
     """params + scale · z(seeds), z regenerated leaf by leaf: leaf i draws

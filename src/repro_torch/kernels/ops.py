@@ -4,6 +4,14 @@ A CUDA tensor goes to the hand-written kernel (which launches or raises —
 there is no fallback); a CPU tensor goes to the plain PyTorch version;
 any other device raises.
 
+`attention`, `ssd` and `linear_recurrence` are differentiable: when an
+input requires grad (the first-order baseline), the card's forward is the
+same hand-written kernel, run inside a `torch.autograd.Function` whose
+backward recomputes the plain version from the saved inputs and returns
+its vector-Jacobian product. `repro` has no backward kernel either: its FO
+baseline differentiates its XLA path, the plain version. Otherwise (every
+ZO path) the kernel launches as it is and nothing is saved.
+
 `PerturbedParam` is the fused dual forward's lazy leaf w + eps·z(seed):
 the consumers in `models/layers.py` fuse the perturbation into their
 matmul or gather (z drawn in the kernel, never stored) or `resolve` a
@@ -68,11 +76,53 @@ def seeded_axpy(w: torch.Tensor, seed: torch.Tensor, scale: torch.Tensor,
     return res if out is None else out.copy_(res)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _KernelWithPlainVjp(torch.autograd.Function):
+    """forward: `kernel(*tensors, *args)`; backward: the vjp of
+    `plain(*tensors, *args)`, recomputed under autograd from the saved
+    inputs. Both return a tensor or a tuple of tensors (None allowed);
+    `tensors` may hold None (an absent optional input)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, n_tensors, *inputs):
+        tensors, args = inputs[:n_tensors], inputs[n_tensors:]
+        ctx.plain, ctx.args = plain, args
+        ctx.present = [t is not None for t in tensors]
+        ctx.save_for_backward(*[t for t in tensors if t is not None])
+        return kernel(*tensors, *args)
+
+    @staticmethod
+    def backward(ctx, *grad_outputs):
+        saved = iter(ctx.saved_tensors)
+        tensors = [next(saved).detach().requires_grad_(True) if here
+                   else None for here in ctx.present]
+        with torch.enable_grad():
+            out = ctx.plain(*tensors, *ctx.args)
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+                 if o is not None and g is not None]
+        wrt = [t for t in tensors if t is not None]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True))
+        return (None, None, None) + tuple(
+            next(grads) if here else None for here in ctx.present) + (
+            None,) * len(ctx.args)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Hq,Sq,D]; k, v: [B,Hkv,Skv,D] → [B,Hq,Sq,D]."""
     if _on_cuda(q):
+        if _needs_grad(q, k, v):
+            return _KernelWithPlainVjp.apply(
+                fa.flash_attention_cuda, fa.attention_plain, 3, q, k, v,
+                causal, window, scale)
         return fa.flash_attention_cuda(q, k, v, causal, window, scale)
     return fa.attention_plain(q, k, v, causal, window, scale)
 
@@ -188,8 +238,16 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (y, None) when want_state is False: the kernel then neither updates
     nor writes the final state (the plain version computes and drops it)."""
     if _on_cuda(x):
+        if _needs_grad(x, dt, a, b, c, state0):
+            return _KernelWithPlainVjp.apply(
+                ssd_scan.ssd_scan_cuda, _ssd_plain, 6, x, dt, a, b, c,
+                state0, chunk, want_state)
         return ssd_scan.ssd_scan_cuda(x, dt, a, b, c, state0, chunk,
                                       want_state)
+    return _ssd_plain(x, dt, a, b, c, state0, chunk, want_state)
+
+
+def _ssd_plain(x, dt, a, b, c, state0, chunk, want_state):
     y, state = ssd_scan.ssd_plain(x, dt, a, b, c, state0, chunk)
     return y, (state if want_state else None)
 
@@ -204,5 +262,9 @@ def linear_recurrence(a: torch.Tensor, x: torch.Tensor,
     """h_t = a_t ⊙ h_{t−1} + x_t. a, x: [B,S,D]; h0: [B,D] (zeros if
     None) → (hs [B,S,D], h_last [B,D])."""
     if _on_cuda(x):
+        if _needs_grad(a, x, h0):
+            return _KernelWithPlainVjp.apply(
+                rglru_scan.rglru_scan_cuda,
+                rglru_scan.linear_recurrence_plain, 3, a, x, h0)
         return rglru_scan.rglru_scan_cuda(a, x, h0)
     return rglru_scan.linear_recurrence_plain(a, x, h0)

@@ -4,9 +4,10 @@
         --arch opt-125m --rounds 800 --clients 5 --engine scan
 
 The ported subset of `repro.launch.train`'s flags, with its defaults: the
-tasks (sst2, squad, lm), the OTA transports (analog, sign, perfect; the
-deprecated --variant alias), the power-control schemes, every channel model
-and its wrappers
+tasks (sst2, squad, lm), every transport (analog, sign, perfect, digital
+and smart_digital with --quant-bits, and fo, the first-order FO-Adam
+baseline; the deprecated --variant alias), the power-control schemes, every
+channel model and its wrappers
 
     --channel rician --rician-k 4 --csi-phase-err 0.1 --outage-db -10 \
         --cell-radius 150
@@ -23,7 +24,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import (ChannelConfig, DPConfig, PairZeroConfig,
                                       PowerControlConfig, TransportConfig,
                                       ZOConfig)
-from repro_torch.core import fedsim
+from repro_torch.core import fedsim, transport
 from repro_torch.data.pipeline import FederatedPipeline
 from repro_torch.data.tasks import TaskSpec
 
@@ -36,15 +37,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--task", default="sst2",
                     choices=["sst2", "squad", "lm"])
     ap.add_argument("--transport", default=None,
-                    help="uplink mechanism: analog, sign or perfect "
-                         "(digital, smart_digital and fo are not ported "
-                         "yet); default: --variant")
+                    choices=list(transport.available()),
+                    help="uplink mechanism from the transport registry; "
+                         "default: --variant")
     ap.add_argument("--variant", default="analog",
-                    choices=["analog", "sign"],
+                    choices=["analog", "sign", "fo"],
                     help="DEPRECATED alias for --transport")
     ap.add_argument("--scheme", default="solution",
                     choices=["solution", "static", "reversed", "perfect"],
                     help="power-control schedule for the OTA transports")
+    ap.add_argument("--quant-bits", type=int, default=8,
+                    help="bits/coordinate for --transport digital")
     ap.add_argument("--channel", default=None,
                     choices=["rayleigh", "rician", "static", "ar1"],
                     help="base fading model; default rayleigh. The "
@@ -128,7 +131,8 @@ def main(argv=None) -> dict:
                               shadow_corr=args.shadow_corr),
         dp=DPConfig(epsilon=args.epsilon, delta=args.delta),
         power=PowerControlConfig(scheme=args.scheme),
-        transport=TransportConfig(mechanism=mechanism, scheme=args.scheme),
+        transport=TransportConfig(mechanism=mechanism, scheme=args.scheme,
+                                  quant_bits=args.quant_bits),
         seed=args.seed)
     pipe = FederatedPipeline(
         task=args.task, spec=TaskSpec(args.task, cfg.vocab_size, args.seq_len),

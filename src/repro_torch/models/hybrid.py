@@ -41,77 +41,68 @@ def _group_counts(cfg: ModelConfig) -> Tuple[int, int]:
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _dense(lead: tuple, d_in: int, d_out: int) -> Dict:
-    return {"w": (lead + (d_in, d_out), 1.0 / math.sqrt(d_in))}
-
-
-def _norm(lead: tuple, d: int) -> Dict:
-    return {"g": (lead + (d,), None)}
-
-
-def _mlp(lead: tuple, d: int, f: int) -> Dict:
-    return {"wd": (lead + (f, d), 1.0 / math.sqrt(f)),
-            "wg": (lead + (d, f), 1.0 / math.sqrt(d)),
-            "wi": (lead + (d, f), 1.0 / math.sqrt(d))}
-
-
-def _rglru_specs(cfg: ModelConfig, lead: tuple) -> Dict:
+def _rglru_specs(cfg: ModelConfig, path: tuple, lead: tuple) -> Dict:
+    """`_rglru_block_init`: split(key, 7) → lin_x, lin_gate, conv_w
+    (divided by √conv1d_width), w_rec_gate, w_in_gate, out, mlp."""
     d, f = cfg.d_model, cfg.d_ff
     w = cfg.hybrid.lru_width or d
     cw = cfg.hybrid.conv1d_width
+    ks = lambda i: L.sub(path, 7, i)  # noqa: E731
     return {
-        "conv_w": (lead + (cw, w), 1.0 / math.sqrt(cw)),
+        "conv_w": (lead + (cw, w), L.Normal(ks(2), divisor=math.sqrt(cw))),
         "lambda_p": (lead + (w,), L.Fill(2.0)),       # softplus param
-        "lin_gate": _dense(lead, d, w),
-        "lin_x": _dense(lead, d, w),
-        "mlp": _mlp(lead, d, f),
-        "mlp_norm": _norm(lead, d),
-        "norm": _norm(lead, d),
-        "out": _dense(lead, w, d),
-        "w_in_gate": _dense(lead, w, w),
-        "w_rec_gate": _dense(lead, w, w),
+        "lin_gate": L.dense_specs(ks(1), lead, d, w),
+        "lin_x": L.dense_specs(ks(0), lead, d, w),
+        "mlp": L.mlp_specs(ks(6), lead, d, f),
+        "mlp_norm": L.norm_specs(lead, d),
+        "norm": L.norm_specs(lead, d),
+        "out": L.dense_specs(ks(5), lead, w, d),
+        "w_in_gate": L.dense_specs(ks(4), lead, w, w),
+        "w_rec_gate": L.dense_specs(ks(3), lead, w, w),
     }
 
 
-def _attn_specs(cfg: ModelConfig, lead: tuple) -> Dict:
+def _attn_specs(cfg: ModelConfig, path: tuple, lead: tuple) -> Dict:
+    """`_attn_block_init`: split(key, 2) → attn, mlp."""
     d = cfg.d_model
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     return {
-        "attn": {"wk": (lead + (d, hkv * hd), 1.0 / math.sqrt(d)),
-                 "wo": (lead + (hq * hd, d), 1.0 / math.sqrt(hq * hd)),
-                 "wq": (lead + (d, hq * hd), 1.0 / math.sqrt(d)),
-                 "wv": (lead + (d, hkv * hd), 1.0 / math.sqrt(d))},
-        "mlp": _mlp(lead, d, cfg.d_ff),
-        "mlp_norm": _norm(lead, d),
-        "norm": _norm(lead, d),
+        "attn": L.gqa_specs(L.sub(path, 2, 0), lead, cfg),
+        "mlp": L.mlp_specs(L.sub(path, 2, 1), lead, d, cfg.d_ff),
+        "mlp_norm": L.norm_specs(lead, d),
+        "norm": L.norm_specs(lead, d),
     }
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """Nested dicts and lists of (shape, init) per leaf: init is the
-    normal std of the reference's initializer, None for ones, or a
-    `layers.Fill` (`init` builds the tensors)."""
+    """Nested dicts and lists of (shape, init) per leaf, init a
+    `layers.Normal` on the reference's key path (`repro.models.hybrid.init`:
+    split(key, 5) → embed ks[0], groups vmapped over split(ks[1], groups)
+    with split(k, 3) → r1, r2, a; lm_head ks[2]; tail layer i
+    split(ks[3], max(tail, 1))[i]), None for ones, or a `layers.Fill`."""
     if cfg.hybrid.pattern != "rra":
         raise ValueError("the hybrid family uses the 1:2 rra pattern")
     n_groups, tail = _group_counts(cfg)
     lead = (n_groups,)
     v, d = cfg.vocab_size, cfg.d_model
+    groups = L.sub(L.sub((), 5, 1), n_groups, None)
+    tails = L.sub((), 5, 3)
     specs = {
-        "embed": {"w": ((v, d), 0.02)},
-        "final_norm": _norm((), d),
-        "groups": {"a": _attn_specs(cfg, lead),
-                   "r1": _rglru_specs(cfg, lead),
-                   "r2": _rglru_specs(cfg, lead)},
-        "tail": [_rglru_specs(cfg, ()) for _ in range(tail)],
+        "embed": L.embed_specs(L.sub((), 5, 0), v, d),
+        "final_norm": L.norm_specs((), d),
+        "groups": {"a": _attn_specs(cfg, L.sub(groups, 3, 2), lead),
+                   "r1": _rglru_specs(cfg, L.sub(groups, 3, 0), lead),
+                   "r2": _rglru_specs(cfg, L.sub(groups, 3, 1), lead)},
+        "tail": [_rglru_specs(cfg, L.sub(tails, max(tail, 1), i), ())
+                 for i in range(tail)],
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = {"w": ((v, d), 0.02)}
+        specs["lm_head"] = L.embed_specs(L.sub((), 5, 2), v, d)
     return specs
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    """Random f32 params at the reference's scales."""
-    return L.init_from_specs(param_specs(cfg), generator, device)
+def init(cfg: ModelConfig, key, device) -> Dict:
+    """f32 params drawn from `key` (a `prng` key) as the reference's."""
+    return L.init_from_specs(param_specs(cfg), key, device)
 
 
 # ---------------------------------------------------------------------------

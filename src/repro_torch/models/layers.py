@@ -14,10 +14,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 
@@ -31,26 +32,91 @@ class Fill:
 ZEROS = Fill(0.0)
 
 
-def init_from_specs(specs: dict, generator: torch.Generator, device) -> dict:
-    """Random f32 params from a family's `param_specs` — nested dicts and
-    lists of (shape, init) per leaf, init a normal std, None for ones or a
-    `Fill` — with the reference's scales (not its values: torch's
-    generator is not threefry). Normal leaves draw in flattening order."""
+@dataclass(frozen=True)
+class Normal:
+    """init tag of a normal leaf in a family's `param_specs`: drawn with
+    `prng.normal` from the key at `path` below the family's root key, then
+    times `scale`, or divided by `divisor` where the reference divides (the
+    two can differ by an ulp). Each step (n, i) of the path is
+    split(key, n)[i]; (n, None) keeps all n keys of the split, a leading
+    dim of the leaf (the reference's vmap over layer keys)."""
+    path: Tuple[Tuple[int, Optional[int]], ...]
+    scale: float = 1.0
+    divisor: Optional[float] = None
+
+
+def init_from_specs(specs: dict, key: torch.Tensor, device) -> dict:
+    """f32 params from a family's `param_specs` — nested dicts and lists of
+    (shape, init) per leaf, init a `Normal`, None for ones or a `Fill` —
+    drawn from the root `key` (a `prng` key) as the reference's init draws
+    them, on `device` (on the meta device, shapes only: nothing is
+    drawn)."""
+    device = torch.device(device)
+    key = key.to(device)
+
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, list):
             return [build(v) for v in node]
-        shape, std = node
-        if std is None:
+        shape, init = node
+        if device.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=device)
+        if init is None:
             return torch.ones(shape, dtype=torch.float32, device=device)
-        if isinstance(std, Fill):
-            return torch.full(shape, std.value, dtype=torch.float32,
+        if isinstance(init, Fill):
+            return torch.full(shape, init.value, dtype=torch.float32,
                               device=device)
-        w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return w.mul_(std)
+        k = key
+        for n, i in init.path:
+            k = prng.split(k, n)
+            if i is not None:
+                k = k[..., i, :]
+        w = prng.normal(k, shape[k.dim() - 1:])
+        return w / init.divisor if init.divisor is not None \
+            else w * init.scale
     return build(specs)
+
+
+def sub(path: tuple, n: int, i: Optional[int]) -> tuple:
+    """`path` extended by one split step (n, i)."""
+    return path + ((n, i),)
+
+
+# the reference's init helpers as specs: `path` is the key the helper gets,
+# `lead` the stacked dims of a vmapped init
+
+def dense_specs(path: tuple, lead: tuple, d_in: int, d_out: int) -> dict:
+    """`dense_init`: one draw of [d_in, d_out] at 1/√d_in."""
+    return {"w": (lead + (d_in, d_out), Normal(path, 1.0 / math.sqrt(d_in)))}
+
+
+def embed_specs(path: tuple, vocab: int, d: int) -> dict:
+    """`embed_init`: one draw of [vocab, d] at 0.02."""
+    return {"w": ((vocab, d), Normal(path, 0.02))}
+
+
+def norm_specs(lead: tuple, d: int) -> dict:
+    """`rmsnorm_init`: ones."""
+    return {"g": (lead + (d,), None)}
+
+
+def gqa_specs(path: tuple, lead: tuple, cfg: ModelConfig) -> dict:
+    """`gqa_init`: split(key, 4) → wq, wk, wv, wo."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim()
+    w = lambda i, shape: (lead + shape, Normal(  # noqa: E731
+        sub(path, 4, i), 1.0 / math.sqrt(shape[0])))
+    return {"wq": w(0, (d, hq * hd)), "wk": w(1, (d, hkv * hd)),
+            "wv": w(2, (d, hkv * hd)), "wo": w(3, (hq * hd, d))}
+
+
+def mlp_specs(path: tuple, lead: tuple, d: int, d_ff: int) -> dict:
+    """`mlp_init`: split(key, 3) → wi, wg, wd."""
+    w = lambda i, shape: (lead + shape, Normal(  # noqa: E731
+        sub(path, 3, i), 1.0 / math.sqrt(shape[0])))
+    return {"wi": w(0, (d, d_ff)), "wg": w(1, (d, d_ff)),
+            "wd": w(2, (d_ff, d))}
 
 
 def layer_slice(blocks: dict, i: int) -> dict:
@@ -80,7 +146,10 @@ def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     if isinstance(p["w"], kops.PerturbedParam):
         # fused ZO: z drawn only for the gathered rows, never for the table
         return kops.perturbed_gather(p["w"], tokens)
-    return p["w"][tokens]
+    # the rows p["w"][tokens]; `embedding`'s backward sums a row's grads in
+    # one deterministic order on both devices (indexing's `index_put_` with
+    # accumulate does not on the CPU), so FO runs repeat bitwise
+    return torch.nn.functional.embedding(tokens, p["w"])
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,11 @@ def get_module(cfg: ModelConfig):
             f"other families); ported: {sorted(_FAMILIES)}") from None
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    return get_module(cfg).init(cfg, generator, device)
+def init_params(cfg: ModelConfig, key: torch.Tensor, device) -> Dict:
+    """`repro.models.registry.init_params(key, cfg)`'s weights: every leaf
+    drawn from `key` (a `repro_torch.prng` key, e.g. `prng.key(seed)`)
+    along the reference's key tree, on `device`."""
+    return get_module(cfg).init(cfg, key, device)
 
 
 def shapes(cfg: ModelConfig) -> Tuple:

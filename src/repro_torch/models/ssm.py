@@ -29,35 +29,40 @@ def _dims(cfg: ModelConfig):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf: init is the normal std of the
-    reference's initializer, None for ones, or `layers.ZEROS`
-    (`init` builds the tensors)."""
+    """Nested dict of (shape, init) per leaf, init a `layers.Normal` on the
+    reference's key path (`repro.models.ssm.init`: split(key, 3) → blocks
+    vmapped over split(ks[0], L), embed ks[1], lm_head ks[2]; a block's
+    split(k, 5) → in_proj ks[0], conv_w ks[1] divided by √d_conv,
+    out_proj ks[2]), None for ones, or `layers.ZEROS`."""
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
     d_inner, h, d_state, d_conv, _ = _dims(cfg)
     conv_ch = d_inner + 2 * d_state          # x, B, C share the conv
+    blocks = L.sub(L.sub((), 3, 0), n, None)
     specs = {
         "blocks": {
             "a_log": ((n, h), L.ZEROS),
-            "conv_w": ((n, d_conv, conv_ch), 1.0 / math.sqrt(d_conv)),
+            "conv_w": ((n, d_conv, conv_ch), L.Normal(
+                L.sub(blocks, 5, 1), divisor=math.sqrt(d_conv))),
             "dt_bias": ((n, h), L.ZEROS),
-            "gate_norm": {"g": ((n, d_inner), None)},
-            "in_proj": {"w": ((n, d, 2 * d_inner + 2 * d_state + h),
-                              1.0 / math.sqrt(d))},
-            "norm": {"g": ((n, d), None)},
-            "out_proj": {"w": ((n, d_inner, d), 1.0 / math.sqrt(d_inner))},
+            "gate_norm": L.norm_specs((n,), d_inner),
+            "in_proj": L.dense_specs(L.sub(blocks, 5, 0), (n,), d,
+                                     2 * d_inner + 2 * d_state + h),
+            "norm": L.norm_specs((n,), d),
+            "out_proj": L.dense_specs(L.sub(blocks, 5, 2), (n,), d_inner,
+                                      d),
         },
-        "embed": {"w": ((v, d), 0.02)},
-        "final_norm": {"g": ((d,), None)},
+        "embed": L.embed_specs(L.sub((), 3, 1), v, d),
+        "final_norm": L.norm_specs((), d),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = {"w": ((v, d), 0.02)}
+        specs["lm_head"] = L.embed_specs(L.sub((), 3, 2), v, d)
     return specs
 
 
+def init(cfg: ModelConfig, key, device) -> Dict:
+    """f32 params drawn from `key` (a `prng` key) as the reference's."""
+    return L.init_from_specs(param_specs(cfg), key, device)
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    """Random f32 params at the reference's scales."""
-    return L.init_from_specs(param_specs(cfg), generator, device)
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv + SiLU. x: [B, S, C]; w: [W, C] → [B, S, C]."""

@@ -6,7 +6,6 @@ block leaf) so that leaf enumeration and per-leaf counter streams match;
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
@@ -16,9 +15,11 @@ from repro_torch.models import layers as L
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """Nested dict of (shape, init) per leaf: init is the normal std of
-    `repro.models.layers._init`, or None for the ones-initialized norms
-    (`init` builds the tensors)."""
+    """Nested dict of (shape, init) per leaf, init a `layers.Normal` on the
+    reference's key path (`repro.models.transformer.init`: split(key, 4)
+    → blocks vmapped over split(ks[0], L), embed ks[1], lm_head ks[2]; a
+    block's split(k, 4) → attn `gqa_init` ks[0], mlp `mlp_init` ks[1]) and
+    scale (`layers._init`), or None for the ones-initialized norms."""
     if cfg.moe.enabled or cfg.mla.enabled:
         raise NotImplementedError(
             f"{cfg.name}: MoE / MLA layers are not ported (ROADMAP A8: "
@@ -26,30 +27,27 @@ def param_specs(cfg: ModelConfig) -> Dict:
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
     hq, hkv, hd, f = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(),
                       cfg.d_ff)
+    blocks = L.sub(L.sub((), 4, 0), n, None)
+    attn, mlp = L.sub(blocks, 4, 0), L.sub(blocks, 4, 1)
     specs = {
         "blocks": {
-            "attn": {"wq": ((n, d, hq * hd), 1.0 / math.sqrt(d)),
-                     "wk": ((n, d, hkv * hd), 1.0 / math.sqrt(d)),
-                     "wv": ((n, d, hkv * hd), 1.0 / math.sqrt(d)),
-                     "wo": ((n, hq * hd, d), 1.0 / math.sqrt(hq * hd))},
+            "attn": L.gqa_specs(attn, (n,), cfg),
             "ln1": {"g": ((n, d), None)},
             "ln2": {"g": ((n, d), None)},
-            "mlp": {"wi": ((n, d, f), 1.0 / math.sqrt(d)),
-                    "wg": ((n, d, f), 1.0 / math.sqrt(d)),
-                    "wd": ((n, f, d), 1.0 / math.sqrt(f))},
+            "mlp": L.mlp_specs(mlp, (n,), d, f),
         },
-        "embed": {"w": ((v, d), 0.02)},
+        "embed": L.embed_specs(L.sub((), 4, 1), v, d),
         "final_norm": {"g": ((d,), None)},
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = {"w": ((v, d), 0.02)}
+        specs["lm_head"] = L.embed_specs(L.sub((), 4, 2), v, d)
     return specs
 
 
+def init(cfg: ModelConfig, key, device) -> Dict:
+    """f32 params drawn from `key` (a `prng` key) as the reference's."""
+    return L.init_from_specs(param_specs(cfg), key, device)
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
-    """Random f32 params at the reference's scales."""
-    return L.init_from_specs(param_specs(cfg), generator, device)
 
 def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:

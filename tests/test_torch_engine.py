@@ -33,7 +33,7 @@ from repro.data.pipeline import FederatedPipeline as JPipe  # noqa: E402
 from repro.data.tasks import TaskSpec as JSpec  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
-from repro_torch import channel  # noqa: E402
+from repro_torch import channel, prng  # noqa: E402
 from repro_torch.configs import base, get_arch  # noqa: E402
 from repro_torch.core import engine, fedsim, transport, zo  # noqa: E402
 from repro_torch.data import tasks  # noqa: E402
@@ -55,7 +55,7 @@ def _pipe(vocab=64, seq=24, k=5, b=4):
 
 
 def _weights(cfg, seed=3):
-    return registry.init_params(cfg, torch.Generator().manual_seed(seed), CPU)
+    return registry.init_params(cfg, prng.key(seed), CPU)
 
 
 def _same_run(a, b):

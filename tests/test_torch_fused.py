@@ -32,6 +32,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.perturbed_matmul import perturbed_matmul_pallas  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import base, get_arch  # noqa: E402
 from repro_torch.core import engine, fedsim, pairzero, zo  # noqa: E402
 from repro_torch.data.pipeline import FederatedPipeline  # noqa: E402
@@ -225,8 +226,7 @@ def test_fused_dual_forward_matches_fresh_and_reference(which):
 
 def test_fused_update_equals_fresh_update_bitwise():
     cfg = _models()["tiny"]
-    gen = torch.Generator().manual_seed(5)
-    params = registry.init_params(cfg, gen, "cpu")
+    params = registry.init_params(cfg, prng.key(5), "cpu")
     twin = jax.tree_util.tree_map(torch.clone, params)
     p_hat = torch.tensor(0.37)
     seeds = zo.seed_row(9, len(zo.flatten(params)))

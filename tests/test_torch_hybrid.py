@@ -35,6 +35,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import hybrid as jhybrid  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import base, get_arch, list_archs  # noqa: E402
 from repro_torch.core import engine, fedsim, pairzero, zo  # noqa: E402
 from repro_torch.data.pipeline import FederatedPipeline  # noqa: E402
@@ -104,7 +105,7 @@ def test_leaf_order_and_shapes_match_reference(n_layers):
     cfg, jcfg = _pair(n_layers)
     jtree = jreg.abstract_params(jcfg, jnp.float32)
     want = [(p, tuple(leaf.shape)) for p, leaf in _jleaves(jtree)]
-    params = registry.init_params(cfg, None, torch.device("meta"))
+    params = registry.init_params(cfg, prng.key(0), torch.device("meta"))
     assert [(p, tuple(t.shape)) for p, t in zo.flatten(params)] == want
     assert list(registry.shapes(cfg)) == [s for _, s in want]
     assert cfg.param_count() == jreg.count_params(jcfg)
@@ -119,8 +120,7 @@ def test_leaf_order_and_shapes_match_reference(n_layers):
 
 def test_init_scales_and_constant_fill():
     cfg, _ = _pair(5)
-    params = registry.init_params(cfg, torch.Generator().manual_seed(0),
-                                  "cpu")
+    params = registry.init_params(cfg, prng.key(0), "cpu")
     assert torch.equal(params["groups"]["r1"]["lambda_p"],
                        torch.full((1, 64), 2.0))
     assert torch.equal(params["tail"][1]["norm"]["g"], torch.ones(64))
@@ -133,8 +133,7 @@ def test_map_leaves_and_perturb_walk_lists():
     """`perturb` draws leaf i of the flattening order with leaf_seed(seed,
     i), tail entries included, and keeps the list structure."""
     cfg, _ = _pair(5)
-    params = registry.init_params(cfg, torch.Generator().manual_seed(1),
-                                  "cpu")
+    params = registry.init_params(cfg, prng.key(1), "cpu")
     seeds = zo.seed_row(77, len(zo.flatten(params)))
     new = zo.perturb(params, seeds, 0.5)
     assert isinstance(new["tail"], list) and len(new["tail"]) == 2

@@ -14,6 +14,7 @@ from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import zo  # noqa: E402
@@ -93,12 +94,11 @@ def test_loss_per_client_matches_reference(which):
 
 
 def test_init_scales_match_reference():
-    """The port's own init draws different values (torch's generator is not
-    threefry) with the reference's per-leaf scales: ones for the norms,
-    std 0.02 for the tables, 1/sqrt(fan_in) for the projections."""
+    """The port's init has the reference's per-leaf scales: ones for the
+    norms, std 0.02 for the tables, 1/sqrt(fan_in) for the projections
+    (its values are the reference's too: `test_torch_prng.py`)."""
     cfg = get_arch("opt-125m").reduced()
-    gen = torch.Generator().manual_seed(0)
-    params = transformer.init(cfg, gen, torch.device("cpu"))
+    params = transformer.init(cfg, prng.key(0), torch.device("cpu"))
     jparams = jreg.init_params(jax.random.key(0), _jcfg(cfg))
     ours = dict(zo.flatten(params))
     for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:

@@ -112,9 +112,9 @@ def test_chained_walk_is_in_place_and_restores():
     memory): w → w+μz → w−μz, and a final (μ − 0)·z axpy restores w to
     within the f32 rounding of the three axpys."""
     cfg, pz = configs(base)
-    gen = torch.Generator().manual_seed(0)
+    from repro_torch import prng
     from repro_torch.models import registry
-    params = registry.init_params(cfg, gen, torch.device("cpu"))
+    params = registry.init_params(cfg, prng.key(0), torch.device("cpu"))
     before = {p: t.clone() for p, t in zo.flatten(params)}
     ptrs = {p: t.data_ptr() for p, t in zo.flatten(params)}
     calls = []

@@ -112,17 +112,18 @@ def test_unported_options_raise(kwargs):
         fedsim.run(cfg, pz, pipe, rounds=1, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("pz_kw", [
-    dict(desync=object()), dict(byzantine=object()),
-    dict(transport=None, variant="digital"),
-    dict(transport=None, variant="smart_digital"),
-    dict(transport=None, variant="fo")])
-def test_unported_config_fields_raise(pz_kw):
+@pytest.mark.parametrize("pz_kw,run_kw", [
+    (dict(desync=object()), {}), (dict(byzantine=object()), {}),
+    ({}, dict(elastic=object())), ({}, dict(behavior=object())),
+    ({}, dict(injector=object()))])
+def test_unported_config_fields_raise(pz_kw, run_kw):
+    """The config's scenario fields, and the run options beside them that
+    no other test names, raise naming their ROADMAP item."""
     cfg, pz = configs(base, n_perturb=1)
     pz = base.PairZeroConfig(**{**pz.__dict__, **pz_kw})
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu")
+        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu", **run_kw)
 
 
 def test_cli_summary_on_cpu(capsys):

@@ -28,6 +28,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import base, get_arch, list_archs  # noqa: E402
 from repro_torch.core import engine, fedsim, pairzero, zo  # noqa: E402
 from repro_torch.data.pipeline import FederatedPipeline  # noqa: E402
@@ -212,7 +213,7 @@ def test_leaf_order_and_count_match_reference(which):
     jtree = jreg.abstract_params(jcfg, jnp.float32)
     jpaths = [(".".join(str(k.key) for k in path), tuple(leaf.shape))
               for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]]
-    params = registry.init_params(cfg, None, torch.device("meta"))
+    params = registry.init_params(cfg, prng.key(0), torch.device("meta"))
     assert [(p, tuple(t.shape)) for p, t in zo.flatten(params)] == jpaths
     assert [p for p, _ in jpaths] == [
         "blocks.a_log", "blocks.conv_w", "blocks.dt_bias",

@@ -17,6 +17,7 @@ from repro.core import zo as jzo  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import seeded_axpy as jsa  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import zo  # noqa: E402
@@ -171,7 +172,7 @@ def test_flatten_order_and_shapes_match_jax(which):
     jpaths = [(".".join(str(k.key) for k in path), tuple(leaf.shape))
               for path, leaf in jax.tree_util.tree_flatten_with_path(jtree)[0]]
     meta = torch.device("meta")
-    params = registry.init_params(cfg, None, meta)
+    params = registry.init_params(cfg, prng.key(0), meta)
     ours = [(path, tuple(leaf.shape)) for path, leaf in zo.flatten(params)]
     assert ours == jpaths
     assert cfg.param_count() == jreg.count_params(jcfg)

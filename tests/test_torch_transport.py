@@ -1,4 +1,5 @@
-"""The port's OTA transports (analog, sign, perfect) against `repro`.
+"""The port's transports (analog, sign, perfect, digital, smart_digital;
+fo in `test_torch_fo.py`) against `repro`.
 
 Tolerances:
 - the aggregates (`analog_ota`, `sign_ota`, `perfect_analog`,
@@ -18,7 +19,15 @@ Tolerances:
   mean shows it); privacy spent, uplink bits and each round's
   mask sum exactly; the port's scan run bitwise its loop run;
 - the CLI with the new flags: equal JSON under `--engine loop` and
-  `--engine scan`; its flags' defaults equal to `repro.launch.train`'s.
+  `--engine scan`; its flags' defaults equal to `repro.launch.train`'s;
+- `stochastic_quantize` with `repro`'s uniforms for the same key: bitwise;
+  the digital aggregates within 4 ulps of the sum of |mask·q|;
+- a 4-round digital and smart_digital run from the same seed (nothing
+  injected) against `repro`'s: losses rtol 1e-4 and p̂ within 1e-5 up to
+  the first round whose p̂ differs by a whole quantizer cell over
+  K·n_perturb, if any (a projection within f32 rounding of a cell's
+  threshold rounds into the neighbouring cell in one package; the runs
+  then part, and only that round's loss is still compared).
 """
 import dataclasses
 
@@ -37,6 +46,7 @@ from repro.core import transport as jtp  # noqa: E402
 from repro.data.pipeline import FederatedPipeline as JPipe  # noqa: E402
 from repro.data.tasks import TaskSpec as JSpec  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.core import engine, fedsim, ota  # noqa: E402
 from repro_torch.core import transport as tp  # noqa: E402
@@ -272,7 +282,7 @@ def test_explicit_channel_model_overrides_config(monkeypatch):
     assert cfg_rows.k_eff == rows.k_eff
     # the rayleigh config alone has no outage: every client transmits
     alone_rows = _Rows()
-    plain = registry.init_params(cfg, torch.Generator().manual_seed(3),
+    plain = registry.init_params(cfg, prng.key(3),
                                  torch.device("cpu"))
     fedsim.run(cfg, pz, pipe(), 4, params=plain, device="cpu",
                on_round=alone_rows)
@@ -289,7 +299,7 @@ def test_silent_rounds_update_nothing_and_spend_nothing():
     from repro_torch.models import registry
     out = []
     for kw in (dict(), dict(engine="scan", chunk_rounds=2)):
-        params = registry.init_params(cfg, torch.Generator().manual_seed(3),
+        params = registry.init_params(cfg, prng.key(3),
                                       torch.device("cpu"))
         out.append(fedsim.run(cfg, pz, pipe(), 3, params=params,
                               device="cpu", **kw))
@@ -337,23 +347,18 @@ def test_cli_defaults_match_reference():
 
 
 @pytest.mark.parametrize("mechanism,item", [
-    ("digital", "A4"), ("smart_digital", "A4"), ("fo", "A7")])
+    ("digital", "A9"), ("smart_digital", "A9"), ("fo", "A9")])
 def test_unported_transports_raise_naming_their_item(mechanism, item):
+    """Every mechanism runs now; what each still lacks, a defense's bill in
+    `uplink_bits_total`, raises naming its ROADMAP item (A9), and an
+    unknown name is a ValueError."""
     cfg, pz = configs(base, n_perturb=1)
     pz = dataclasses.replace(pz, transport=base.TransportConfig(
         mechanism=mechanism))
-    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    mech = tp.resolve(pz)
+    assert mech.name == mechanism and mechanism in tp.available()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tp.get(mechanism)
-    if mechanism != "smart_digital":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            tp.from_strings(mechanism, "solution")
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train.main(["--reduced", "--rounds", "1", "--device", "cpu",
-                    "--transport", mechanism])
+        tp.uplink_bits_total(mech, object(), pz, 10, 5.0, 1)
     with pytest.raises(ValueError):
         tp.get("carrier_pigeon")
 
@@ -366,3 +371,122 @@ def test_unported_options_raise_naming_their_item(option, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         fedsim.run(cfg, pz, pipe, rounds=1, device="cpu",
                    **{option: object()})
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("clip", [1.0, 5.0])
+def test_stochastic_quantize_matches_reference_bitwise(bits, clip):
+    rng = np.random.default_rng(bits * 10 + int(clip))
+    levels = 2 ** bits - 1
+    p = (rng.normal(size=64) * clip).astype(np.float32)
+    # cell edges, the clip bounds and beyond, exact zeros
+    p[:8] = (np.arange(8) * 2 * clip / levels - clip).astype(np.float32)
+    p[8:12] = np.float32([clip, -clip, 3 * clip, -3 * clip])
+    p[12] = 0.0
+    key = jax.random.key(bits + 17)
+    u = jax.random.uniform(key, p.shape, jnp.float32)
+    ref = np.asarray(jtp.stochastic_quantize(jnp.asarray(p), key, bits=bits,
+                                             clip=clip))
+    ours = tp.stochastic_quantize(
+        torch.from_numpy(p), prng.uniform(prng.wrap_key_data(
+            jax.random.key_data(key)), p.shape), bits=bits, clip=clip)
+    np.testing.assert_array_equal(np.asarray(u), prng.uniform(
+        prng.wrap_key_data(jax.random.key_data(key)), p.shape).numpy())
+    np.testing.assert_array_equal(ours.numpy().view(np.int32),
+                                  ref.view(np.int32))
+
+
+@pytest.mark.parametrize("mechanism", ["digital", "smart_digital"])
+def test_digital_transports_match_reference(mechanism):
+    pz, jpz = _pz(base, mechanism, "solution", n_perturb=4), \
+        _pz(jbase, mechanism, "solution", n_perturb=4)
+    pz = dataclasses.replace(pz, transport=dataclasses.replace(
+        pz.transport, quant_bits=6))
+    jpz = dataclasses.replace(jpz, transport=dataclasses.replace(
+        jpz.transport, quant_bits=6))
+    mech, jmech = tp.resolve(pz), jtp.resolve(jpz)
+    assert (mech.quant_bits, mech.clip) == (jmech.quant_bits, jmech.clip) \
+        == (6, 5.0)
+    assert mech.draws == ("uniform",) and not mech.charges_privacy(None, pz)
+    trace = jrealize(jpz.channel, 7, 32, 5)
+    sched, jsched = mech.make_schedule(trace, pz), \
+        jmech.make_schedule(trace, jpz)
+    assert sched.scheme == jsched.scheme == "digital"
+    np.testing.assert_array_equal(sched.c, jsched.c)
+    assert mech.charges_privacy(sched, pz) == \
+        jmech.charges_privacy(jsched, jpz) is False
+    for d in (1, 125_239_296):
+        assert mech.payload_bits(pz, d) == jmech.payload_bits(jpz, d)
+        assert mech.bits_per_round(pz, d) == jmech.bits_per_round(jpz, d)
+        for client_rounds, rounds in ((0.0, 0), (39.0, 8), (3997.0, 800)):
+            assert tp.uplink_bits_total(mech, None, pz, d, client_rounds,
+                                        rounds) == \
+                jtp.uplink_bits_total(jmech, None, jpz, d, client_rounds,
+                                      rounds)
+    assert mech.payload_bits(pz, 1000) == (
+        6 * 1000 if mechanism == "digital" else 6 * 4)
+    for i in range(6):
+        cs = _case(i)
+        key = jax.random.fold_in(cs["key"], 3)
+        u = prng.uniform(prng.wrap_key_data(jax.random.key_data(key)),
+                         cs["p"].shape)
+        ours = mech.aggregate(torch.from_numpy(cs["p"]), {
+            "mask": torch.from_numpy(cs["mask"]), "uniform": u,
+            "g": torch.from_numpy(cs["g"])})
+        ref = jmech.aggregate(jnp.asarray(cs["p"]), {
+            "mask": jnp.asarray(cs["mask"]), "g": jnp.asarray(cs["g"])}, key)
+        _close(ours, ref, 5.0 * float(np.sum(cs["mask"])) / max(
+            float(np.sum(cs["mask"])), 1.0))
+    assert tp.from_strings("digital", "solution", pz) == tp.DigitalTDMA(
+        clip=5.0)
+    with pytest.raises(ValueError, match="digital"):
+        tp.from_strings("digital", "solution")
+
+
+def parted_at_flip(pz, ours, ref):
+    """The round at which two digital runs part at a whole-cell flip (None
+    if they never do); raises on any other difference."""
+    mech = tp.resolve(pz)
+    cell = 2 * mech.clip / (2 ** mech.quant_bits - 1) / (
+        pz.n_clients * pz.zo.n_perturb)
+    for r, (a, b, pa, pb) in enumerate(zip(ours.losses, ref.losses,
+                                           ours.p_hats, ref.p_hats)):
+        np.testing.assert_allclose(a, b, rtol=1e-4)
+        if abs(pa - pb) <= 1e-5:
+            continue
+        cells = round((pa - pb) / cell)
+        assert cells != 0 and abs(pa - pb - cells * cell) <= 1e-5, \
+            (r, pa, pb, cell)
+        return r
+    return None
+
+
+@pytest.mark.parametrize("mechanism", ["digital", "smart_digital"])
+def test_digital_runs_match_reference(mechanism):
+    """Same seed, nothing injected: the dither is the reference's own
+    draws. The losses agree up to the first whole-cell flip, if any (at
+    these settings round 1's second direction has a payload 0.006 of a
+    cell from its threshold, and the two packages round it apart)."""
+    cfg, _ = configs(base)
+    jcfg, _ = configs(jbase)
+    pz, jpz = _pz(base, mechanism, "solution", rounds=8), \
+        _pz(jbase, mechanism, "solution", rounds=8)
+    spec = ("sst2", 64, 24)
+    ref = jfedsim.run(jcfg, jpz, JPipe(spec[0], JSpec(*spec), 5, 4, seed=0),
+                      rounds=4, engine="loop", dtype=jnp.float32)
+    pipe = lambda: FederatedPipeline(spec[0], TaskSpec(*spec), 5, 4,  # noqa
+                                     seed=0)
+    res = fedsim.run(cfg, pz, pipe(), 4, device="cpu")
+    assert res.steps == ref.steps == 4
+    parted = parted_at_flip(pz, res, ref)
+    assert parted is None or parted >= 1        # round 0 starts equal
+    assert res.privacy_spent == ref.privacy_spent == 0.0
+    assert res.uplink_bits == ref.uplink_bits == \
+        tp.resolve(pz).payload_bits(pz, cfg.param_count()) * 20
+    scan = fedsim.run(cfg, pz, pipe(), 4, device="cpu", engine="scan",
+                      chunk_rounds=3)
+    assert scan.losses == res.losses and scan.p_hats == res.p_hats
+    from repro_torch.core import zo
+    for (path, x), (_, y) in zip(zo.flatten(scan.params),
+                                 zo.flatten(res.params)):
+        assert torch.equal(x, y), path
