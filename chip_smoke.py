@@ -63,10 +63,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   a round, captured whole under scan; scan ≡ loop also in
                   both Adam moments, no privacy spent, 16·d uplink bits a
                   client; fails at 12 θ;
-  5. one `table2` JSON line (peak / θ of the chained, sign and fo paths,
+  5. the `resume` path (OPT-125M chained, the CLI's defaults, checkpoints
+     every RESUME_EVERY = 4 rounds into temporary directories removed
+     after use): 8 rounds on the loop with an elastic event at round 4
+     (K 5 → 3); then 4 rounds on scan and a second scan run to 8 that
+     resumes at 4 and equals rounds 4-7 of the loop run bitwise (losses,
+     p̂, accuracies, final weights; the DP ledger within 1e-12 relative);
+     then 8 loop rounds with dropout 0.1 and stragglers 0.05 whose second
+     checkpoint write is torn (`latest_valid` must return step 4, `latest`
+     step 8) and a resumed run whose mask rows are a fresh FaultModel's
+     from round 4; every run with exact launches, mask rows that bill the
+     uplink, and the 2.9 θ peak gate on both engines with the checkpointer
+     on; then 12 scan rounds for the ms/round with checkpoints, the stall
+     of each boundary in both snapshot modes, the writer's seconds for one
+     save from the host and `restore`'s seconds onto the card;
+  6. one `table2` JSON line (peak / θ of the chained, sign and fo paths,
      the ZO / FO-Adam peak ratio, and OPT-125M's uplink bits a round under
      every transport), one `kernels` JSON line (launches from the loop
-     runs), then the result line.
+     runs, by path), then the result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
 from src/); exits non-zero without either. `--profile` adds one more loop
@@ -79,6 +93,7 @@ from __future__ import annotations
 import heapq
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -99,6 +114,8 @@ WRAPPED_RICIAN = dict(model="rician", rician_k=3.0, cell_radius=100.0,
 # leaves rounds 0-726 silent (c = 0), so a few rounds would check nothing;
 # at 32 no round is silent
 SIGN_HORIZON = 32
+# the resume path's checkpoint, eval and scan-chunk cadence
+RESUME_EVERY = 4
 N_PERTURB = 4                  # the training CLI's default
 M_ROWS = 5 * 8 * 64            # clients × batch × seq: rows of every matmul
 PMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))
@@ -1269,7 +1286,8 @@ def check_peak(name: str, peak_theta: float) -> None:
         # θ-sized copy would show as about 2.5 θ
         raise AssertionError(f"hybrid path peak {peak_theta:.2f} x theta, "
                              "want <= 2.0")
-    if name in ("chained", "fused", "sign") and not peak_theta < 2.9:
+    if name in ("chained", "fused", "sign", "resume") \
+            and not peak_theta < 2.9:
         # OPT-125M: θ + activations + the [2560, V] f32 logits ≈ 2.46 θ; a
         # θ-sized copy would show as about 3.4 θ
         raise AssertionError(f"{name} path peak {peak_theta:.2f} x theta, "
@@ -1471,6 +1489,304 @@ def profile_run(torch, path: dict, dev, what: str, skip: int = 0,
                   f"x{count:<5d} {key[:90]}", flush=True)
 
 
+class StallProbe:
+    """A round hook placed after a `CheckpointHook`: the training thread's
+    seconds in each boundary's `save` (the checkpointer's `stall_s` step)."""
+    cadence = 0
+
+    def __init__(self, ckpt_hook):
+        self.ckpt_hook = ckpt_hook
+        self.stalls = []
+        self._last = 0.0
+
+    def on_start(self, exp) -> None:
+        pass
+
+    def on_round(self, t, metrics) -> None:
+        pass
+
+    def on_boundary(self, t_done: int, exp) -> None:
+        saver = self.ckpt_hook._saver
+        if saver is not None and saver.stall_s != self._last:
+            self.stalls.append(saver.stall_s - self._last)
+            self._last = saver.stall_s
+
+    def close(self, exp) -> None:
+        pass
+
+
+class MaskRows:
+    """Within the block, keep the host mask rows of every control trace a
+    run builds (`engine.build_trace` wrapped)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self._real = real = engine.build_trace
+
+        def build_trace(*args, **kwargs):
+            trace = real(*args, **kwargs)
+            self.rows.append(trace.host_masks.copy())
+            return trace
+        engine.build_trace = build_trace
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        engine.build_trace = self._real
+        return False
+
+
+def resume_run(torch, dev, cfg, pz, pipe, rounds: int, directory: str,
+               what: str, engine: str = "loop", double_buffer: bool = True,
+               **run_kw) -> dict:
+    """One run of the resume path: `fedsim.run` with an eval hook and a
+    `CheckpointHook` every RESUME_EVERY rounds in `directory`, the launch
+    counters set to 0 just before and read just after; gates its losses,
+    privacy, launches, replays, uplink bits and peak."""
+    import numpy as np
+
+    from repro_torch.core import engine as eng, fedsim
+
+    every = RESUME_EVERY
+    theta_bytes = 4 * cfg.param_count()
+    pre, post, seen = Stamp(torch), Stamp(torch), Payloads()
+    ck = fedsim.CheckpointHook(directory, every, double_buffer=double_buffer)
+    probe = StallProbe(ck)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with MaskRows() as masks:
+        t0 = time.perf_counter()
+        res = fedsim.run(cfg, pz, pipe, rounds, engine=engine,
+                         chunk_rounds=every, device=dev,
+                         hooks=[pre, fedsim.EvalHook(every), post, ck, probe,
+                                seen], **run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, replays = read_launches(), eng.replays
+    peak = torch.cuda.max_memory_allocated()
+
+    name = f"resume {what}"
+    steps = rounds - res.resumed_from
+    if res.steps != steps or len(res.losses) != steps \
+            or not all(map(math.isfinite, res.losses + res.p_hats)):
+        raise AssertionError(f"{name}: {res.steps} rounds, losses "
+                             f"{res.losses}, p_hat {res.p_hats}")
+    if not res.privacy_spent > 0:
+        raise AssertionError(f"{name}: privacy spent {res.privacy_spent}")
+    evals = rounds // every - res.resumed_from // every
+    expected = expected_launches(cfg, steps, False, evals)
+    if launches != expected:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expected}")
+    bounds = eng.chunk_boundaries(res.resumed_from, rounds,
+                                  1 if engine == "loop" else every, (every,))
+    if engine == "scan" and replays != steps - len(bounds):
+        raise AssertionError(f"{name}: {replays} replays, want "
+                             f"{steps - len(bounds)}")
+    rows = np.concatenate(masks.rows)
+    if [float(r.sum()) for r in rows] != seen.k_eff:
+        raise AssertionError(f"{name}: mask row sums {rows.sum(axis=1)} vs "
+                             f"the rounds' k_eff {seen.k_eff}")
+    check_uplink("resume", res, pz, seen.k_eff, cfg.param_count())
+    check_peak("resume", peak / theta_bytes)
+    print(f"path {name}: {cfg.name}, {engine} engine, rounds "
+          f"{res.resumed_from}-{rounds} (resumed_from {res.resumed_from}), "
+          f"checkpoint every {every} (double_buffer {double_buffer}); run "
+          f"{wall:.3f} s; losses {res.losses}; p_hat {res.p_hats}; "
+          f"accuracies {res.accuracies}; privacy spent "
+          f"{res.privacy_spent:.6g}; mask sums {seen.k_eff}; ckpt stall "
+          f"{res.ckpt_stall_s:.4f} s (per boundary "
+          f"{[round(x, 4) for x in probe.stalls]}); retry "
+          f"{res.retry_attempts}; peak {peak / theta_bytes:.2f} x theta; "
+          f"launches {launches}", flush=True)
+    return {"res": res, "launches": launches, "rows": rows,
+            "peak_theta": peak / theta_bytes, "stalls": probe.stalls,
+            "pre": pre.times, "post": post.times}
+
+
+def host_tree(tree):
+    """A copy of a parameter tree with every leaf on the host."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_tree(v) for v in tree]
+    return tree.cpu()
+
+
+def run_resume_path(torch, dev, cfg, chained: dict) -> dict:
+    """The `resume` path: OPT-125M at full width, chained, the CLI's
+    defaults, checkpoints every RESUME_EVERY rounds into temporary
+    directories (removed after each part):
+      1. faults off, an elastic event at round 4 (K 5 → 3): 8 rounds on the
+         loop; then in a fresh directory 4 rounds on scan and a second scan
+         run to 8 that resumes at 4 and equals rounds 4-7 of the loop run
+         bitwise (losses, p̂, accuracies, final weights), its DP ledger
+         within 1e-12 relative, its mask rows 3 clients;
+      2. dropout 0.1 and stragglers 0.05, and the second write of
+         `ckpt_write` torn: 8 rounds on the loop; `latest_valid` returns
+         step 4 and `latest` step 8; a resumed run starts at 4, and its
+         mask rows are those of a fresh FaultModel drawn from round 4 (the
+         reference's behaviour);
+    then 12 rounds on scan with checkpoints every 4 for the scan ms/round
+    and the stall, the writer's seconds for one save from the host, and
+    `restore`'s seconds onto the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import fedsim
+    from repro_torch.runtime import (ElasticSchedule, FaultInjector,
+                                     FaultModel, combined_mask)
+
+    pz, pipe = path_setup("chained", cfg, False)
+    theta_mb = 4 * cfg.param_count() / 1e6
+    elastic = ElasticSchedule(5, events=((4, 3),))
+    out = {"name": "resume"}
+
+    def fresh_dir():
+        return tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+    # 1. resume ≡ uninterrupted
+    d = fresh_dir()
+    try:
+        loop = resume_run(torch, dev, cfg, pz, pipe, 8, d, "loop",
+                          elastic=elastic)
+        ref = loop["res"]
+        final = final_state(torch, ref, "resume")
+        host = host_tree(ref.params)
+        t0 = time.perf_counter()
+        ckpt.save(d, 100, host, keep=10)
+        writer_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, _ = ckpt.restore(os.path.join(d, "step_00000100"), ref.params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d)
+    out.update(launches=loop["launches"], peak_theta=loop["peak_theta"])
+    steps = [loop["pre"][r] - loop["post"][r - 1] for r in range(1, 8)]
+    out["ms_per_round"] = statistics.median(steps) * 1e3
+    out["ms_per_round_mean"] = statistics.mean(steps) * 1e3
+    ref.params = None
+    release_device_memory(torch)
+
+    d = fresh_dir()
+    try:
+        first = resume_run(torch, dev, cfg, pz, pipe, 4, d, "scan, first",
+                           engine="scan", double_buffer=False,
+                           elastic=elastic)
+        first["res"].params = None
+        resumed = resume_run(torch, dev, cfg, pz, pipe, 8, d,
+                             "scan, resumed", engine="scan",
+                             elastic=elastic)
+    finally:
+        shutil.rmtree(d)
+    res = resumed["res"]
+    if res.resumed_from != 4 or res.losses != ref.losses[4:] \
+            or res.p_hats != ref.p_hats[4:] \
+            or res.accuracies != ref.accuracies[1:]:
+        raise AssertionError(f"resume: the resumed scan run (from "
+                             f"{res.resumed_from}) {res.losses} "
+                             f"{res.p_hats} {res.accuracies} differs from "
+                             f"rounds 4-7 of the loop run {ref.losses} "
+                             f"{ref.p_hats} {ref.accuracies}")
+    if not math.isclose(res.privacy_spent, ref.privacy_spent,
+                        rel_tol=1e-12, abs_tol=0.0):
+        raise AssertionError(f"resume: privacy spent {res.privacy_spent} vs "
+                             f"{ref.privacy_spent}")
+    if set(resumed["rows"].sum(axis=1).tolist()) != {3.0}:
+        raise AssertionError(f"resume: mask rows {resumed['rows']}, want 3 "
+                             "clients from round 4")
+    mine = final_state(torch, res, "resume")
+    if mine.keys() != final.keys() or not all(
+            torch.equal(a, final[k]) for k, a in mine.items()):
+        raise AssertionError("resume: the resumed run's final weights "
+                             "differ from the loop run's")
+    print("path resume: the resumed scan run equals rounds 4-7 of the "
+          "uninterrupted loop run bitwise (losses, p_hat, accuracies, final "
+          "weights); privacy spent within 1e-12", flush=True)
+    out["scan_peak_theta"] = max(first["peak_theta"],
+                                 resumed["peak_theta"])
+    out["stalls"] = {"loop, double_buffer": loop["stalls"],
+                     "scan, sync": first["stalls"],
+                     "scan, double_buffer": resumed["stalls"]}
+    res.params = None
+    del final, mine
+    release_device_memory(torch)
+
+    # 2. faults and a torn write
+    fkw = dict(dropout_p=0.1, straggler_p=0.05, seed=pz.seed)
+    d = fresh_dir()
+    try:
+        faulted = resume_run(
+            torch, dev, cfg, pz, pipe, 8, d, "faulted", double_buffer=False,
+            fault=FaultModel(5, **fkw),
+            injector=FaultInjector.from_specs(["ckpt_write:torn_write:@1"]))
+        faulted["res"].params = None
+        valid, newest = ckpt.latest_valid(d), ckpt.latest(d)
+        if not (valid.endswith("step_00000004")
+                and newest.endswith("step_00000008")):
+            raise AssertionError(f"resume: latest_valid {valid}, latest "
+                                 f"{newest}")
+        again = resume_run(torch, dev, cfg, pz, pipe, 8, d,
+                           "faulted, resumed", fault=FaultModel(5, **fkw))
+    finally:
+        shutil.rmtree(d)
+    fm = FaultModel(5, **fkw)
+    want = np.stack([combined_mask(t, fm, None, 5) for t in range(8)])
+    if not np.array_equal(faulted["rows"], want):
+        raise AssertionError(f"resume: faulted rows {faulted['rows']} vs a "
+                             f"host FaultModel's {want}")
+    fm = FaultModel(5, **fkw)
+    want = np.stack([combined_mask(t, fm, None, 5) for t in range(4, 8)])
+    if again["res"].resumed_from != 4 \
+            or not np.array_equal(again["rows"], want):
+        raise AssertionError(f"resume: the faulted resume (from "
+                             f"{again['res'].resumed_from}) rows "
+                             f"{again['rows']} vs a fresh FaultModel's from "
+                             f"round 4 {want}")
+    print(f"path resume: torn step_00000008 skipped (latest_valid "
+          f"{os.path.basename(valid)}); the faulted resume starts at 4 and "
+          f"its mask rows {again['rows'].sum(axis=1).tolist()} are a fresh "
+          "FaultModel's from round 4", flush=True)
+    out["stalls"]["loop, sync"] = faulted["stalls"]
+    again["res"].params = None
+    release_device_memory(torch)
+
+    # scan ms/round with checkpoints every 4: chunks 2 and 3 of 12 rounds
+    stamp = Stamp(torch)
+    ck = fedsim.CheckpointHook(fresh_dir(), RESUME_EVERY)
+    try:
+        torch.cuda.synchronize()
+        res = fedsim.run(cfg, pz, pipe, 12, engine="scan",
+                         chunk_rounds=RESUME_EVERY, hooks=[stamp, ck],
+                         device=dev)
+    finally:
+        shutil.rmtree(ck.directory)
+    out["scan_ms_per_round"] = (stamp.times[2] - stamp.times[0]) / 8 * 1e3
+    res.params = None
+    print(f"path resume: steady ms/round with checkpoints every "
+          f"{RESUME_EVERY}: loop median {out['ms_per_round']:.1f} (mean "
+          f"{out['ms_per_round_mean']:.1f}), scan "
+          f"{out['scan_ms_per_round']:.1f} (chained, no checkpoints: loop "
+          f"{chained['ms_per_round']:.1f}, scan "
+          f"{chained['scan_ms_per_round']:.1f}); ckpt stall per boundary "
+          f"(s) {json.dumps(out['stalls'])}, scan 12 rounds "
+          f"{res.ckpt_stall_s:.4f} s; writer {writer_s:.3f} s a save of "
+          f"{theta_mb:.1f} MB from the host; restore {restore_s:.3f} s onto "
+          f"the card; peak {out['peak_theta']:.2f} x theta loop, "
+          f"{out['scan_peak_theta']:.2f} scan", flush=True)
+    release_device_memory(torch)
+    return out
+
+
 def release_device_memory(torch) -> None:
     """Free what earlier runs keep on the card, so the next path's peak is
     its own: the cached executors' graphs and their memory pools, and
@@ -1583,6 +1899,9 @@ def main() -> int:
                          scan_reserved_theta=scanned["reserved_theta"])
         del path, scanned, final
         release_device_memory(torch)
+
+    chained = next(p for p in paths if p["name"] == "chained")
+    paths.append(run_resume_path(torch, dev, opt, chained))
 
     print(json.dumps({"table2": table2(paths, opt), "prng": prng_row}),
           flush=True)

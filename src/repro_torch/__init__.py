@@ -2,7 +2,7 @@
 stays the reference it is held against).
 
 Subpackages mirror `repro`'s (configs, data, channel, core, models,
-kernels, launch). This package imports torch and numpy only — never jax and
+optim, kernels, checkpoint, runtime, launch, examples). This package imports torch and numpy only — never jax and
 nothing of `repro`. Entry points (`core.fedsim.run`, `launch.train`) run on
 the GPU unless the caller passes `device="cpu"`.
 

@@ -33,3 +33,30 @@ class ChannelTrace:
                 f"trace field shapes disagree: h{h.shape} "
                 f"phase{self.phase.shape} "
                 f"participation{self.participation.shape}")
+
+    @property
+    def rounds(self) -> int:
+        return int(self.h.shape[0])
+
+    @property
+    def n_clients(self) -> int:
+        return int(self.h.shape[1])
+
+    @property
+    def gain(self) -> np.ndarray:
+        """[T, K] complex effective gains h·e^{jθ} after pre-compensation."""
+        return self.h * np.exp(1j * self.phase)
+
+    @property
+    def csi(self) -> np.ndarray:
+        """[T, K] per-client effective-gain factor cos θ (1.0 under perfect
+        CSI)."""
+        return np.cos(self.phase)
+
+    def mean_power(self) -> np.ndarray:
+        """[K] per-client mean channel power E_t[|h_k|²]."""
+        return np.mean(self.h ** 2, axis=0)
+
+    def outage_rate(self) -> float:
+        """Fraction of (t, k) slots lost to deep fade."""
+        return float(1.0 - np.mean(self.participation))

@@ -93,3 +93,13 @@ class PrivacyAccountant:
         self.spent = float(np.cumsum(np.concatenate(([before], costs)))[-1])
         self.history.extend(float(c) for c in costs)
         return self.spent - before
+
+    # -- checkpoint (de)serialization: the reference's keys ----------------
+    def state_dict(self) -> dict:
+        return {"epsilon": self.epsilon, "delta": self.delta,
+                "spent": self.spent}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "PrivacyAccountant":
+        return cls(epsilon=float(d["epsilon"]), delta=float(d["delta"]),
+                   spent=float(d["spent"]))

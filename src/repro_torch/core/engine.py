@@ -41,6 +41,7 @@ from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.fault import combined_mask
 
 Params = Dict
 
@@ -172,18 +173,22 @@ def draw_rows(transport: tp.Transport, pz, t0: int,
 
 def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
                 transport: Optional[tp.Transport] = None,
-                channel=None,
+                fault=None, elastic=None, channel=None,
                 draws: Optional[Dict[str, np.ndarray]] = None
                 ) -> ControlTrace:
     """Precompute the control trace for rounds [t0, t1), shipped to
     `device` in one non-blocking copy.
 
-    `channel` is the horizon's realized ChannelTrace: its cos θ CSI factors
-    (the cosine taken in float64) become ctl["g"] and its deep-fade
-    participation ctl["mask"]; a round whose mask is empty re-admits its
-    strongest client, as the reference does. The port has no fault models
-    yet, so nothing else masks a client. None (or a perfect-CSI, no-outage
-    trace) gives all-ones rows. The leaf seeds of every round and direction
+    The mask rows compose as the reference's do: `combined_mask` of the
+    `fault` (a `runtime.FaultModel`) and `elastic` (a
+    `runtime.ElasticSchedule`) models per round, which draws the stateful
+    FaultModel RNG in round order, so consecutive chunks replay the
+    per-round draw; then the channel's deep-fade participation; then a
+    round that this leaves empty re-admits its strongest client among
+    those the faults left up. `channel` is the horizon's realized
+    ChannelTrace: its cos θ CSI factors (the cosine taken in float64)
+    become ctl["g"]. No models and no channel (or a perfect-CSI, no-outage
+    trace) give all-ones rows. The leaf seeds of every round and direction
     (`zo.seed_table`) come from numpy on the host. `draws` are the
     transport's random rows for [t0, t1) when the caller drew them ahead
     (`draw_rows`; a run draws its whole horizon in one go, since a draw
@@ -194,15 +199,23 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
     device = torch.device(device)
     k = pz.n_clients
     rounds = int(t1 - t0)
-    masks = np.ones((rounds, k), dtype=np.float32)
+    if fault is None and elastic is None:
+        masks = np.ones((rounds, k), dtype=np.float32)
+    else:
+        masks = np.stack([combined_mask(t, fault, elastic, n_clients=k)
+                          for t in range(t0, t1)])
     if channel is None:
         g = np.ones((rounds, k), dtype=np.float32)
     else:
         g = np.asarray(np.cos(channel.phase[t0:t1]), dtype=np.float32)
+        survival = masks                # the fault/elastic view
         masks = masks * np.asarray(channel.participation[t0:t1], np.float32)
+        # outage × faults can empty a round that neither empties alone:
+        # re-admit the strongest client the faults left up (never one
+        # that crashed)
         empty = np.flatnonzero(masks.sum(axis=1) == 0)
         if empty.size:
-            h_rows = np.asarray(channel.h[t0:t1])[empty]
+            h_rows = np.asarray(channel.h[t0:t1])[empty] * survival[empty]
             masks[empty, np.argmax(h_rows, axis=1)] = 1.0
     host_ctl = {
         "c": np.asarray(schedule.c[t0:t1], dtype=np.float32),
@@ -322,10 +335,14 @@ class ChunkPrefetcher:
     `get(i)` waits for the kicked preparation (or runs it inline when
     nothing was kicked: chunk 0, or `overlap=False`); the wait accumulates
     in `stall_s`. A kicked preparation that failed on the worker is re-run
-    inline once (counted in `degraded`); a second failure propagates."""
+    inline once (counted in `degraded`); a second failure propagates. The
+    re-run is deterministic: chunks are prepared in round order, and an
+    injected fault (`injector`, site "chunk_prep") fires at the
+    preparation's entry, before the stateful FaultModel RNG is drawn."""
 
     def __init__(self, prepare: Callable[[int, int], Any],
-                 bounds: Sequence[Tuple[int, int]], overlap: bool = True):
+                 bounds: Sequence[Tuple[int, int]], overlap: bool = True,
+                 injector=None):
         self._prepare = prepare
         self._bounds = list(bounds)
         self._overlap = overlap and len(self._bounds) > 0
@@ -337,9 +354,12 @@ class ChunkPrefetcher:
         self._next = 0            # next chunk index the driver may get()
         self.stall_s = 0.0
         self.degraded = 0         # kicked preparations re-run inline
+        self._injector = injector
 
     def _run_prepare(self, i: int) -> Any:
         a, b = self._bounds[i]
+        if self._injector is not None:
+            self._injector.fire("chunk_prep")
         return self._prepare(a, b)
 
     def kick(self, i: int) -> None:

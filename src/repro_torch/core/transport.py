@@ -14,6 +14,7 @@ wait for ROADMAP A9.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Dict, Type
 
@@ -226,6 +227,16 @@ class PerfectUplink(AnalogOTA):
 # ---------------------------------------------------------------------------
 # Digital baseline (conventional orthogonal transmission)
 # ---------------------------------------------------------------------------
+
+def deprecated_strings(variant: str, scheme: str, where: str) -> None:
+    """The reference's one-release DeprecationWarning for string dispatch."""
+    warnings.warn(
+        f"{where}: string-dispatched variant={variant!r}/scheme={scheme!r} "
+        "is deprecated; pass a TransportConfig (configs.base) or a Transport "
+        "from repro_torch.core.transport instead. The shim routes through "
+        "the transport registry and will be removed next release.",
+        DeprecationWarning, stacklevel=3)
+
 
 def stochastic_quantize(p: torch.Tensor, u: torch.Tensor, *, bits: int,
                         clip: float) -> torch.Tensor:

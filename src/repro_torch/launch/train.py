@@ -12,8 +12,15 @@ channel model and its wrappers
     --channel rician --rician-k 4 --csi-phase-err 0.1 --outage-db -10 \
         --cell-radius 150
 
-the loop and scan engines and the eval hook, plus --device. Prints the
-reference's JSON summary keys that the port fills.
+the loop and scan engines and the eval hook, checkpoints and resume
+
+    --checkpoint-dir ckpt/ --checkpoint-every 100
+
+(re-running the same command resumes from the newest valid checkpoint;
+resuming a completed run executes no round), client faults and elastic
+membership (--dropout-p, --straggler-p, --elastic 'round:K,...'), host
+fault injection (--inject site:mode[:selector], --inject-seed), plus
+--device. Prints the reference's JSON summary keys that the port fills.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from repro_torch.configs.base import (ChannelConfig, DPConfig, PairZeroConfig,
 from repro_torch.core import fedsim, transport
 from repro_torch.data.pipeline import FederatedPipeline
 from repro_torch.data.tasks import TaskSpec
+from repro_torch.runtime.fault import ElasticSchedule, FaultModel
+from repro_torch.runtime.inject import FaultInjector
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -103,6 +112,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=100,
                     help="greedy eval every N rounds (0 = off)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save checkpoints here and resume from the newest "
+                         "valid one")
+    ap.add_argument("--checkpoint-every", type=int, default=100)
+    ap.add_argument("--dropout-p", type=float, default=0.0,
+                    help="per-round client dropout probability")
+    ap.add_argument("--straggler-p", type=float, default=0.0)
+    ap.add_argument("--elastic", default=None,
+                    help="membership events: 'round:K,round:K' e.g. "
+                         "'200:3,400:5'")
+    ap.add_argument("--inject", action="append", default=[],
+                    metavar="SITE:MODE[:SEL]",
+                    help="arm a deterministic host fault (repeatable): "
+                         "site in {chunk_prep, dispatch, ckpt_snapshot, "
+                         "ckpt_write}, mode in {exception, delay, "
+                         "torn_write}, selector '@2,5' (exact invocation "
+                         "indices) or a probability like '0.1' (default: "
+                         "every invocation); the recoveries are reported "
+                         "under retry_attempts")
+    ap.add_argument("--inject-seed", type=int, default=0,
+                    help="seed for probabilistic --inject selectors")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--out", default=None, help="write result JSON here")
@@ -138,18 +168,36 @@ def main(argv=None) -> dict:
         task=args.task, spec=TaskSpec(args.task, cfg.vocab_size, args.seq_len),
         n_clients=args.clients, per_client_batch=args.batch, seed=args.seed)
 
+    fault = None
+    if args.dropout_p or args.straggler_p:
+        fault = FaultModel(args.clients, dropout_p=args.dropout_p,
+                           straggler_p=args.straggler_p, seed=args.seed)
+    elastic = None
+    if args.elastic:
+        events = tuple(tuple(int(v) for v in e.split(":"))
+                       for e in args.elastic.split(","))
+        elastic = ElasticSchedule(args.clients, events=events)
+    injector = FaultInjector.from_specs(args.inject, seed=args.inject_seed) \
+        if args.inject else None
+
     def log(t, metrics):
         if t % 50 == 0:
             print(f"round {t:5d} loss {metrics['loss']:.4f}", flush=True)
 
     res = fedsim.run(cfg, pz, pipe, rounds=args.rounds, engine=args.engine,
                      chunk_rounds=args.chunk_rounds,
-                     eval_every=args.eval_every, on_round=log,
-                     overlap=not args.no_overlap, device=args.device)
+                     eval_every=args.eval_every,
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every,
+                     fault=fault, elastic=elastic, injector=injector,
+                     on_round=log, overlap=not args.no_overlap,
+                     device=args.device)
     summary = {
         "arch": cfg.name, "transport": mechanism, "scheme": args.scheme,
         "channel": args.channel or "rayleigh", "engine": args.engine,
         "device": args.device,
+        "retry_attempts": res.retry_attempts,
+        "injected": injector.fired if injector is not None else {},
         "rounds": res.steps,
         "uplink_bits": res.uplink_bits,
         "final_loss": res.losses[-1] if res.losses else None,
@@ -157,7 +205,9 @@ def main(argv=None) -> dict:
         "privacy_budget": res.privacy_budget,
         "accuracies": res.accuracies,
         "prep_stall_s": round(res.prep_stall_s, 3),
+        "ckpt_stall_s": round(res.ckpt_stall_s, 3),
         "wall_time_s": round(res.wall_time_s, 1),
+        "resumed_from": res.resumed_from,
     }
     print(json.dumps(summary, indent=2))
     if args.out:

@@ -37,6 +37,13 @@ def _same_trace(ours, ref):
         assert a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b, err_msg=f)
     assert sorted(ours.meta) == sorted(ref.meta)
+    assert (ours.rounds, ours.n_clients) == (ref.rounds, ref.n_clients)
+    for view in ("gain", "csi"):
+        a, b = getattr(ours, view), getattr(ref, view)
+        assert a.dtype == b.dtype, view
+        np.testing.assert_array_equal(a, b, err_msg=view)
+    np.testing.assert_array_equal(ours.mean_power(), ref.mean_power())
+    assert ours.outage_rate() == ref.outage_rate()
     if "client_gains" in ref.meta:
         np.testing.assert_array_equal(ours.meta["client_gains"],
                                       ref.meta["client_gains"])
@@ -52,6 +59,19 @@ def _same_trace(ours, ref):
 def test_base_models_bitwise(name, kw, seed, rounds, k):
     _same_trace(ch.get(name)(**kw).realize(seed, rounds, k),
                 jch.get(name)(**kw).realize(seed, rounds, k))
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_trace_views_bitwise(i):
+    """The six views of the trace (`rounds`, `n_clients`, `gain`, `csi`,
+    `mean_power()`, `outage_rate()`) on wrapped traces: CSI error gives
+    cos θ < 1, outage an outage rate > 0, path loss uneven mean powers."""
+    ours = _wrappers(ch)[i].realize(0xC4A7, 64, 6)
+    ref = _wrappers(jch)[i].realize(0xC4A7, 64, 6)
+    _same_trace(ours, ref)
+    assert ours.rounds == 64 and ours.n_clients == 6
+    assert ours.gain.dtype == np.complex128
+    np.testing.assert_array_equal(np.abs(ours.gain), np.abs(ref.gain))
 
 
 @pytest.mark.parametrize("seed", [0, 0xC4A7, 99])

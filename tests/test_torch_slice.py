@@ -102,9 +102,9 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_every=5), dict(adversary=object()),
-    dict(checkpoint_dir="ckpt"),
-    dict(mesh="8"), dict(fault=object()), dict(telemetry=object())])
+    dict(impl="pallas"), dict(adversary=object()),
+    dict(dtype=torch.bfloat16),
+    dict(mesh="8"), dict(defense=object()), dict(telemetry=object())])
 def test_unported_options_raise(kwargs):
     cfg, pz = configs(base, n_perturb=1)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
@@ -114,8 +114,8 @@ def test_unported_options_raise(kwargs):
 
 @pytest.mark.parametrize("pz_kw,run_kw", [
     (dict(desync=object()), {}), (dict(byzantine=object()), {}),
-    ({}, dict(elastic=object())), ({}, dict(behavior=object())),
-    ({}, dict(injector=object()))])
+    ({}, dict(desync=object())), ({}, dict(behavior=object())),
+    ({}, dict(dtype="bfloat16"))])
 def test_unported_config_fields_raise(pz_kw, run_kw):
     """The config's scenario fields, and the run options beside them that
     no other test names, raise naming their ROADMAP item."""
@@ -135,3 +135,67 @@ def test_cli_summary_on_cpu(capsys):
     assert 0 < summary["privacy_spent"] <= summary["privacy_budget"]
     assert summary["uplink_bits"] == 2 * 3 * 16
     assert '"final_loss"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(impl="xla"), "A12"), (dict(impl="pallas_interpret"), "A12"),
+    (dict(dtype=torch.float16), "A12"), (dict(dtype=jnp.bfloat16), "A12")])
+def test_impl_and_dtype_raise_naming_their_item(kwargs, item):
+    """The reference's `impl=` and a `dtype` other than float32 raise
+    NotImplementedError naming their ROADMAP item, not TypeError."""
+    cfg, pz = configs(base, n_perturb=1)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, np.float32, jnp.float32,
+                                   "float32"])
+def test_float32_dtype_is_accepted(dtype):
+    cfg, pz = configs(base, n_perturb=1)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    res = fedsim.run(cfg, pz, pipe, rounds=1, device="cpu", dtype=dtype,
+                     impl=None)
+    assert res.steps == 1 and np.isfinite(res.losses).all()
+
+
+@pytest.mark.parametrize("variant,scheme", [("sign", None),
+                                            (None, "static"),
+                                            ("analog", "perfect")])
+def test_deprecated_variant_and_scheme_route_as_the_reference(
+        variant, scheme, monkeypatch):
+    """`variant=`/`scheme=` warn as the reference does and run the
+    transport its `dataclasses.replace` selects; the port's run equals a
+    run of the replaced config."""
+    import dataclasses
+    from repro_torch.core import transport as tp
+    cfg, pz = configs(base, n_perturb=1)
+    _, jpz = configs(jbase, n_perturb=1)
+    seen = {}
+
+    class Recorder:
+        """Stands in for the reference's Experiment: keeps the config."""
+
+        def __init__(self, model_cfg, pz, *args, **kwargs):
+            seen["pz"] = pz
+
+        def run(self):
+            return None
+    monkeypatch.setattr(jfedsim, "Experiment", Recorder)
+    with pytest.warns(DeprecationWarning, match="fedsim.run"):
+        jfedsim.run(configs(jbase, n_perturb=1)[0], jpz, None, rounds=1,
+                    variant=variant, scheme=scheme)
+    pipe = lambda: FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
+    with pytest.warns(DeprecationWarning, match="fedsim.run"):
+        res = fedsim.run(cfg, pz, pipe(), rounds=2, device="cpu",
+                         variant=variant, scheme=scheme)
+    want = dataclasses.replace(
+        pz, variant=variant or pz.variant,
+        power=dataclasses.replace(pz.power, scheme=scheme or
+                                  pz.power.scheme), transport=None)
+    ref = seen["pz"]
+    assert (want.variant, want.power.scheme, want.transport) == \
+        (ref.variant, ref.power.scheme, ref.transport)
+    assert res.transport == tp.resolve(want)
+    again = fedsim.run(cfg, want, pipe(), rounds=2, device="cpu")
+    assert res.losses == again.losses and res.p_hats == again.p_hats

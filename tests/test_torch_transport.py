@@ -341,7 +341,9 @@ def test_cli_defaults_match_reference():
     for dest in ("task", "transport", "variant", "scheme", "channel",
                  "rician_k", "ar1_rho", "doppler_hz", "round_s",
                  "csi_phase_err", "outage_db", "cell_radius",
-                 "shadow_std_db", "shadow_corr"):
+                 "shadow_std_db", "shadow_corr", "checkpoint_dir",
+                 "checkpoint_every", "dropout_p", "straggler_p", "elastic",
+                 "inject", "inject_seed"):
         assert ours[dest] == ref[dest], dest
     assert set(ours) - {"device", "help"} <= set(ref)
 
@@ -363,7 +365,7 @@ def test_unported_transports_raise_naming_their_item(mechanism, item):
         tp.get("carrier_pigeon")
 
 
-@pytest.mark.parametrize("option,item", [("fault", "A7"),
+@pytest.mark.parametrize("option,item", [("mesh", "A11"),
                                          ("adversary", "A9")])
 def test_unported_options_raise_naming_their_item(option, item):
     cfg, pz = configs(base, n_perturb=1)
