@@ -17,13 +17,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      computes the same function, and the card's bound for the same work,
      and where the host's launch overhead would hide the kernel, by device
      time under torch.profiler too; flash_attention at head_dim 256 also
-     with its registers, local and shared memory and blocks an SM;
+     with its registers, local and shared memory and blocks an SM, and at
+     head_dim 128 (yi-6b) at the serve shapes (its prefill and a 2048-token
+     prompt, beside SDPA with enable_gqa), failing on any local memory;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
      drawn once per weight), and with its registers, shared memory and
      cluster size; ssd_scan's two entries (y only, as training calls it,
      and with the final state) checked in five cases and timed warm and
      with the L2 flushed, with its three kernels' registers, local memory
-     and shared memory;
+     and shared memory, and its stateful entry at mamba2-370m's serve
+     shapes (chunk 32 and chunk 48); rglru_scan also at S = 1 from h0 (a
+     decode step of recurrentgemma-2b);
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the chained dense
      round, the fused dense round, the ssm round and the hybrid round, then
@@ -34,7 +38,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      tiny dense round under digital and smart_digital (the card's uniform
      rows bitwise the host's) and FO-Adam on the tiny dense, ssm and hybrid
      models — and the GPU scan engine (a captured CUDA graph replayed)
-     equals the GPU loop engine bitwise;
+     equals the GPU loop engine bitwise; then the tiny dense, ssm and
+     hybrid serve paths (24 + 16 tokens): prefill logits and state, the
+     teacher-forced logits and serve_loop's tokens, GPU against CPU;
   4. six paths, each through `repro_torch.core.fedsim.run` at full width
      with an eval hook, first on the loop engine, then from the same seed
      init on the scan engine (SCAN: rounds, chunk, eval cadence), the
@@ -77,10 +83,22 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      on; then 12 scan rounds for the ms/round with checkpoints, the stall
      of each boundary in both snapshot modes, the writer's seconds for one
      save from the host and `restore`'s seconds onto the card;
-  6. one `table2` JSON line (peak / θ of the chained, sign and fo paths,
+  6. the serve paths at full width, one after the other, each freed
+     before the next: opt-125m, mamba2-370m, recurrentgemma-2b and yi-6b
+     through `repro_torch.launch.serve.serve_loop` at the serve CLI's
+     defaults (batch 4, prompt 32, gen 16; yi-6b also once through
+     `serve.main`): prefill ms, decode ms a step (CUDA events, the median
+     of 15), tokens/s, the decode bound (θ bytes at 3.35 TB/s), peak / θ;
+     each fails on launches other than serve_expected_launches, a peak
+     above 1.25 θ, a prefill with the kernels that differs from the plain
+     versions on the card, or (but for the hybrid) teacher-forced decode
+     logits that differ from the full forward's; `--profile` adds one
+     decode step's idle share;
+  7. one `serve` JSON line, one `table2` JSON line (peak / θ of the
+     chained, sign and fo paths,
      the ZO / FO-Adam peak ratio, and OPT-125M's uplink bits a round under
      every transport), one `kernels` JSON line (launches from the loop
-     runs, by path), then the result line.
+     runs and the serve runs, by path), then the result line.
 
 Needs one CUDA device and the repository checkout (it imports the port
 from src/); exits non-zero without either. `--profile` adds one more loop
@@ -90,6 +108,7 @@ device's busy share).
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import json
 import math
@@ -123,6 +142,20 @@ PMM_SHAPES = ((768, 768), (768, 3072), (3072, 768))
 PMM_LAYER = (((768, 768),) * 4 + ((768, 3072),) * 2 + ((3072, 768),))
 # the CPU tests' tolerance for normals (tests/test_torch_prng.py)
 NORMAL_ULPS = 4
+# the serve CLI's defaults (`python -m repro.launch.serve`)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+SERVE_ARCHS = ("opt-125m", "mamba2-370m", "recurrentgemma-2b", "yi-6b")
+# decode ≡ forward, teacher-forced: tests/test_torch_serve.py's DECODE
+# (the reference's own, tests/test_models.py)
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+# a full-width prefill with the kernels against the plain versions on the
+# card: max|Δ| ≤ SERVE_PLAIN_TOL · max|plain|, for the logits and for each
+# cache or state leaf (f32 sums in another order, through every layer)
+SERVE_PLAIN_TOL = 1e-4
+# the tiny serve paths on the card (kernels) against the CPU (plain)
+TINY_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
+# a serve path's peak device memory: θ, the decode state and transients
+SERVE_PEAK_THETA = 1.25
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
@@ -508,6 +541,14 @@ def check_flash_attention(torch, dev) -> dict:
         ((2, 12, 200, 64), (2, 12, 200, 64), True, None),
         ((2, 12, 37, 64), (2, 4, 300, 64), True, 64),
         ((3, 4, 150, 32), (3, 4, 150, 32), False, None),
+        # head_dim 128 (yi-6b): its prefill (group 8 on four kv heads), a
+        # long prompt, group 1, a window that binds with Sq < Skv, and
+        # non-causal
+        ((4, 32, 32, 128), (4, 4, 32, 128), True, None),
+        ((1, 32, 2048, 128), (1, 4, 2048, 128), True, None),
+        ((2, 4, 70, 128), (2, 4, 70, 128), True, None),
+        ((2, 16, 45, 128), (2, 2, 130, 128), True, 40),
+        ((3, 8, 33, 128), (3, 4, 33, 128), False, None),
     ]
     max_err = 0.0
     for qs, ks, causal, window in cases:
@@ -566,6 +607,7 @@ def check_flash_attention(torch, dev) -> dict:
           f"{b2_ms:.4f} by {b2_by}; device time {dev2:.4f}, SDPA "
           f"{lib_dev2:.4f})", flush=True)
     print(f"flash_attention head_dim {d2} kernel: {attrs2}", flush=True)
+    hd128 = flash_attention_128(torch, dev, gen, cases)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:104",
@@ -578,7 +620,49 @@ def check_flash_attention(torch, dev) -> dict:
                 "bound_by": b2_by, "library_ms": lib2, "device_ms": dev2,
                 "library_device_ms": lib_dev2, "kernel_attributes": attrs2,
                 "shape": f"q [{b2},{h2},{s2},{d2}] k/v "
-                         f"[{','.join(map(str, kv_shape))}] causal"}}
+                         f"[{','.join(map(str, kv_shape))}] causal"},
+            "head_dim_128": hd128}
+
+
+def flash_attention_128(torch, dev, gen, cases) -> dict:
+    """The head_dim-128 kernel at the serve shapes (yi-6b's prefill and a
+    2048-token prompt, both causal on four kv heads), each timed beside
+    the plain version, SDPA with `enable_gqa` and the bound; its registers,
+    local and shared memory, with no local memory allowed (a spill)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attrs = fa.kernel_attributes(128)
+    print(f"flash_attention head_dim 128 kernel: {attrs}", flush=True)
+    if attrs["local_bytes"] != 0:
+        raise AssertionError(f"flash_attention head_dim 128: {attrs['local_bytes']}"
+                             " bytes of local memory a thread (a spill)")
+    out = {"kernel_attributes": attrs}
+    for label, (qs, ks, _, _) in (("yi-6b prefill", cases[-5]),
+                                  ("long prompt", cases[-4])):
+        b, h, s, d = qs
+        q = torch.randn(qs, generator=gen, device=dev)
+        k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
+        row = {"shape": f"q [{b},{h},{s},{d}] k/v [{','.join(map(str, ks))}]"
+                        " causal"}
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v))
+        row["plain_ms"] = time_ms(torch, lambda: fa.attention_plain(q, k, v))
+        row["library_ms"] = time_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=True, enable_gqa=True))
+        row["device_ms"] = device_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v))
+        row["library_device_ms"] = device_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=True, enable_gqa=True))
+        flops = b * h * (s * (s + 1) // 2) * (4 * d + 3)
+        n_bytes = 4.0 * (2 * q.numel() + 2 * k.numel())
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops)
+        print(f"flash_attention head_dim 128, {label} {row['shape']}: "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
+              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']}; device time {row['device_ms']:.4f}, SDPA "
+              f"{row['library_device_ms']:.4f})", flush=True)
+        out[label] = row
+    return out
 
 
 def check_perturbed_matmul(torch, dev) -> dict:
@@ -800,6 +884,8 @@ def check_ssd_scan(torch, dev) -> dict:
     print(f"ssd_scan plain {plain_ms:.4f} ms", flush=True)
     for name, a in attrs.items():
         print(f"ssd_scan kernel {name} at chunk {chunk}: {a}", flush=True)
+    serve, serve_err = ssd_scan_serve_shapes(torch, dev, gen)
+    max_err = max(max_err, serve_err)
     y_only = out["y_only"]
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -809,9 +895,47 @@ def check_ssd_scan(torch, dev) -> dict:
             "bound_ms": y_only["bound_ms"], "bound_by": y_only["bound_by"],
             "library_ms": None, "device_span_ms": y_only["device_span_ms"],
             "cold_ms": y_only["cold_ms"], "stateful": out["stateful"],
-            "kernel_attributes": attrs,
+            "kernel_attributes": attrs, "serve": serve,
             "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {chunk}, y only "
                      "(the training call); `stateful` returns the state"}
+
+
+def ssd_scan_serve_shapes(torch, dev, gen) -> tuple:
+    """The stateful entry at the mamba2-370m serve shapes: the prefill of
+    a 32-token prompt (chunk 32) and the 48-token teacher-forced forward's
+    length (chunk 48), batch 4, no state0; y and the final state against
+    `ssd_plain` to 2e-5·max|ref|, then timed beside the plain version and
+    the bound. Returns (rows, max abs err)."""
+    from repro_torch.kernels import ssd_scan
+
+    bsz, h, p, n = 4, 32, 64, 128
+    out, max_err = {}, 0.0
+    for s in (32, 48):
+        args = ssd_inputs(torch, dev, gen, bsz, s, h, p, n, False)
+        y, state = ssd_scan.ssd_scan_cuda(*args, s)
+        y_ref, state_ref = ssd_scan.ssd_plain(*args, s)
+        torch.cuda.synchronize()
+        for name, got, want in (("y", y, y_ref), ("state", state, state_ref)):
+            err = float((got - want).abs().max())
+            ref = float(want.abs().max())
+            if not err <= 2e-5 * ref:
+                raise AssertionError(f"ssd_scan stateful {name} B{bsz} S{s} "
+                                     f"chunk {s}: max err {err} > 2e-5 x "
+                                     f"{ref}")
+            max_err = max(max_err, err)
+        fn = lambda: ssd_scan.ssd_scan_cuda(*args, s)  # noqa: E731
+        b_ms, b_by = bound_ms(*ssd_work(bsz, s, h, p, n, s, False, True))
+        row = {"ms": time_ms(torch, fn), "device_span_ms": device_span_ms(
+            torch, fn), "plain_ms": time_ms(
+            torch, lambda: ssd_scan.ssd_plain(*args, s)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"B{bsz} S{s} H{h} P{p} N{n} chunk {s}, stateful"}
+        print(f"ssd_scan stateful {row['shape']}: ok vs plain; {row['ms']:.4f}"
+              f" ms warm, device span {row['device_span_ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by})",
+              flush=True)
+        out[f"chunk_{s}"] = row
+    return out, max_err
 
 
 def check_rglru_scan(torch, dev) -> dict:
@@ -823,7 +947,7 @@ def check_rglru_scan(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4)
     main = (40, 64, 2560)                       # full recurrentgemma-2b
     cases = [(main, False), (main, True), ((3, 37, 200), True),
-             ((5, 1, 96), True)]
+             ((5, 1, 96), True), ((4, 1, 2560), True)]
     for (bsz, s, d), with_h0 in cases:
         # the hybrid's gate: a = exp(-8·softplus(2)·σ(r)) in (0, 1)
         a = torch.exp(-8.0 * 2.127 * torch.sigmoid(
@@ -852,12 +976,31 @@ def check_rglru_scan(torch, dev) -> dict:
     print(f"rglru_scan: [{bsz},{s},{d}] {ms:.4f} ms (plain {plain_ms:.4f}, "
           f"bound {b_ms:.4f} by {b_by}; device time {dev_ms:.4f})",
           flush=True)
+    # one decode step of recurrentgemma-2b's serve path: S = 1 from h0
+    a1 = torch.rand((4, 1, d), generator=gen, device=dev)
+    x1 = torch.randn((4, 1, d), generator=gen, device=dev)
+    h1 = torch.randn((4, d), generator=gen, device=dev)
+    step = {"ms": time_ms(torch, lambda: rglru_scan.rglru_scan_cuda(
+                a1, x1, h1)),
+            "device_ms": device_ms(torch, lambda: rglru_scan.rglru_scan_cuda(
+                a1, x1, h1)),
+            "plain_ms": time_ms(torch, lambda: rglru_scan
+                                .linear_recurrence_plain(a1, x1, h1)),
+            "library_ms": None, "shape": f"a, x [4,1,{d}], h0 [4,{d}]"}
+    # a, x, h0 read, hs and h_last written
+    step["bound_ms"], step["bound_by"] = bound_ms(4.0 * 5 * 4 * d,
+                                                  2.0 * 4 * d)
+    print(f"rglru_scan decode step {step['shape']}: {step['ms']:.4f} ms "
+          f"(plain {step['plain_ms']:.4f}, bound {step['bound_ms']:.6f} by "
+          f"{step['bound_by']}; device time {step['device_ms']:.4f})",
+          flush=True)
     return {"name": "rglru_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:52",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "device_ms": dev_ms, "shape": f"a, x [{bsz},{s},{d}], h0 zero"}
+            "device_ms": dev_ms, "shape": f"a, x [{bsz},{s},{d}], h0 zero",
+            "decode_step": step}
 
 
 def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
@@ -987,13 +1130,6 @@ def check_small_reference(torch, dev) -> None:
         runs.append((name, cfg, "sst2", pz_defaults(
             cfg, rounds=8, n_perturb=2, mechanism="fo")))
 
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
     for name, cfg, task, pz in runs:
         pipe = FederatedPipeline(task, TaskSpec(task, cfg.vocab_size, 24),
                                  5, 4, seed=0)
@@ -1002,7 +1138,8 @@ def check_small_reference(torch, dev) -> None:
         digital = mechanism in ("digital", "smart_digital")
 
         def weights(device):
-            return to(registry.init_params(cfg, prng.key(3), "cpu"), device)
+            return tree_to(registry.init_params(cfg, prng.key(3), "cpu"),
+                           device)
 
         seen = {"gpu": Payloads(), "cpu": Payloads(), "scan": Payloads()}
         want = expected_launches(cfg, 3, pz.fused_perturbation,
@@ -1074,6 +1211,326 @@ def check_small_reference(torch, dev) -> None:
               f"{gpu.p_hats}; mask sums {seen['gpu'].k_eff}; privacy spent "
               f"{gpu.privacy_spent:.6g}; the scan engine's match the loop's "
               "bitwise" + (" (Adam moments too)" if fo else ""), flush=True)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The models' kernel entry points (`ops.attention`, `ops.ssd`,
+    `ops.linear_recurrence`) swapped for their plain versions, on any
+    device: the comparison side of a serve check. Nothing counts a
+    launch inside."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, rglru_scan
+    saved = ops.attention, ops.ssd, ops.linear_recurrence
+
+    def attention(q, k, v, *, causal=True, window=None, scale=None):
+        return fa.attention_plain(q, k, v, causal, window, scale)
+
+    def ssd(x, dt, a, b, c, state0=None, chunk=128, want_state=True):
+        return ops._ssd_plain(x, dt, a, b, c, state0, chunk, want_state)
+
+    ops.attention, ops.ssd = attention, ssd
+    ops.linear_recurrence = rglru_scan.linear_recurrence_plain
+    try:
+        yield
+    finally:
+        ops.attention, ops.ssd, ops.linear_recurrence = saved
+
+
+def tokens_on(torch, tokens, dev):
+    return torch.as_tensor(tokens, device=dev).long()
+
+
+def teacher_forced(torch, cfg, params, seq, s: int):
+    """Prefill of seq[:, :s], then decode steps fed seq[:, s:-1] one token
+    at a time: the logits [B, n − s, V] that predict positions s .. n − 1."""
+    from repro_torch.models import registry
+    mod = registry.get_module(cfg)
+    b, n = seq.shape
+    logits, cache = mod.prefill(params, cfg, seq[:, :s])
+    if cfg.family == "dense":
+        big = mod.init_cache(cfg, b, n, device=seq.device)
+        for name, c in cache.items():
+            big[name][:, :, :s] = c
+        cache = big
+    rows = [logits[:, -1]]
+    for i in range(n - s - 1):
+        logits, cache = mod.decode_step(params, cfg, cache,
+                                        seq[:, s + i:s + i + 1], s + i)
+        rows.append(logits[:, -1])
+    return torch.stack(rows, dim=1)
+
+
+def forward_logits(cfg, params, seq):
+    from repro_torch.models import layers, registry
+    return layers.logits(params, registry.get_module(cfg).forward(
+        params, cfg, seq))
+
+
+def leaves_rel_err(torch, got, want, what: str, tol: float) -> float:
+    """max|Δ| / max|want| of each leaf of two trees (or two tensors),
+    raising above tol; the largest."""
+    from repro_torch.core import zo
+    pairs = (zip(zo.flatten(got), zo.flatten(want)) if isinstance(got, dict)
+             else [(("", got), ("", want))])
+    worst = 0.0
+    for (path, g), (_, w) in pairs:
+        err = float((g.float() - w.float()).abs().max())
+        ref = float(w.float().abs().max())
+        if not err <= tol * ref:
+            raise AssertionError(f"{what} {path}: max err {err} > {tol} x "
+                                 f"{ref}")
+        worst = max(worst, err / ref if ref else 0.0)
+    return worst
+
+
+def check_small_serve(torch, dev) -> None:
+    """The serve paths of the tiny dense, ssm and hybrid models (24 + 16
+    tokens, so the hybrid's decode wraps its 32-slot window) on the card
+    (kernels) against the CPU (plain versions) from the same weights: the
+    prefill logits and every state leaf, the teacher-forced logits along
+    the CPU's greedy output (TINY_SERVE_TOL), and serve_loop's tokens
+    equal."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import zo
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
+                       head_dim=16)
+    for cfg in (tiny, get_arch("mamba2-370m").reduced(),
+                get_arch("recurrentgemma-2b").reduced(n_layers=5)):
+        mod = registry.get_module(cfg)
+        cpu = registry.init_params(cfg, prng.key(3), "cpu")
+        gpu = tree_to(cpu, dev)
+        tokens = np.random.default_rng(0).integers(
+            8, cfg.vocab_size, size=(2, 24)).astype(np.int32)
+        got = mod.prefill(gpu, cfg, tokens_on(torch, tokens, dev))
+        want = mod.prefill(cpu, cfg, tokens_on(torch, tokens, "cpu"))
+        for what, g, w in (("logits", got[0], want[0]),
+                           ("state", got[1], want[1])):
+            for (path, a), (_, b) in zip(zo.flatten({"x": g}),
+                                         zo.flatten({"x": w})):
+                if not torch.allclose(a.cpu(), b, **TINY_SERVE_TOL):
+                    raise AssertionError(
+                        f"tiny serve {cfg.name} prefill {what} {path}: max "
+                        f"err {float((a.cpu() - b).abs().max())}")
+        out_cpu = serve.serve_loop(cfg, cpu, tokens, 16)
+        seq = tokens_on(torch, out_cpu, "cpu")
+        tf_cpu = teacher_forced(torch, cfg, cpu, seq, 24)
+        tf_gpu = teacher_forced(torch, cfg, gpu, seq.to(dev), 24).cpu()
+        if not torch.allclose(tf_gpu, tf_cpu, **TINY_SERVE_TOL):
+            raise AssertionError(f"tiny serve {cfg.name}: teacher-forced "
+                                 "logits, max err "
+                                 f"{float((tf_gpu - tf_cpu).abs().max())}")
+        out_gpu = serve.serve_loop(cfg, gpu, tokens, 16)
+        if not np.array_equal(out_gpu, out_cpu):
+            top2 = torch.topk(tf_cpu, 2, dim=-1).values
+            raise AssertionError(
+                f"tiny serve {cfg.name}: GPU tokens {out_gpu[:, 24:]} vs CPU "
+                f"{out_cpu[:, 24:]}; smallest top-2 gap "
+                f"{float((top2[..., 0] - top2[..., 1]).min())}")
+        print(f"small-input serve ({cfg.name}): prefill logits and state, "
+              "and the teacher-forced logits of 16 greedy steps, on the card "
+              "match the CPU (rtol 1e-4, atol 1e-5); tokens equal "
+              f"{out_gpu[0, 24:].tolist()}", flush=True)
+
+
+def tree_to(tree, device):
+    """A nested dict / list of tensors moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def serve_expected_launches(cfg, gen: int) -> dict:
+    """What serve_loop's prefill and gen − 1 decode steps launch: the
+    prefill's attention (dense and hybrid) and stateful SSD (ssm) in every
+    such layer, the recurrence in every recurrent block of the prefill and
+    of each decode step. Dense and hybrid decode attention is plain, as in
+    the reference (no Pallas kernel there)."""
+    from repro_torch.models import hybrid
+    out = dict.fromkeys(counters(), 0)
+    if cfg.family == "ssm":
+        out["ssd_scan"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        kinds = hybrid.layer_kinds(cfg)
+        out["flash_attention"] = kinds.count("a")
+        out["rglru_scan"] = kinds.count("r") * gen
+    else:
+        out["flash_attention"] = cfg.n_layers
+    return out
+
+
+def profile_decode_step(torch, cfg, params, tokens, dev) -> float:
+    """One decode step (batch SERVE_BATCH, at the prompt's end + 1) under
+    torch.profiler, after one unprofiled step: the share of its wall time
+    the device was idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import registry
+    mod = registry.get_module(cfg)
+    s = tokens.shape[1]
+    seq = tokens_on(torch, tokens, dev)
+    _, cache = mod.prefill(params, cfg, seq)
+    if cfg.family == "dense":
+        big = mod.init_cache(cfg, tokens.shape[0], s + 2, device=dev)
+        for name, c in cache.items():
+            big[name][:, :, :s] = c
+        cache = big
+    tok = seq[:, -1:]
+    mod.decode_step(params, cfg, cache, tok, s)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    mod.decode_step(params, cfg, cache, tok, s + 1)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in rows)
+    launches = sum(e.count for e in rows)
+    print(f"profile serve {cfg.name}: one decode step, wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"({busy / wall_us:.3f} of wall, idle {1 - busy / wall_us:.3f}), "
+          f"{launches} kernels", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / busy:6.3f} x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    return 1 - busy / wall_us
+
+
+def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
+    """One architecture served at full width through `serve.serve_loop` at
+    the CLI's defaults from seed-0 weights, after a warm-up call (a prefill
+    and one step): prefill ms, decode ms a step (the median of the
+    SERVE_GEN − 1 steps, CUDA events), tokens/s, the decode bound (θ bytes
+    at the card's rate), peak / θ; exact launches of the timed run
+    (counters set to 0 just before it, read just after), peak at most
+    SERVE_PEAK_THETA θ, the prefill with the kernels against the plain
+    versions on the card, and (but for the hybrid, whose prefill returns a
+    zero state) decode ≡ forward, teacher-forced along its own output.
+    yi-6b also runs once through `serve.main`."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = get_arch(arch)
+    mod = registry.get_module(cfg)
+    theta = 4 * cfg.param_count()
+    row = {"name": f"serve {arch}"}
+    if arch == "yi-6b":
+        t0 = time.perf_counter()
+        cli = serve.main(["--arch", arch, "--device", "cuda"])
+        row["cli_s"] = time.perf_counter() - t0
+        if cli.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN):
+            raise AssertionError(f"serve.main {arch}: output {cli.shape}")
+        print(f"serve {arch}: `python -m repro_torch.launch.serve --arch "
+              f"{arch}` ran in {row['cli_s']:.1f} s with its weight init",
+              flush=True)
+        release_device_memory(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, prng.key(0), dev)
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    tokens = np.random.default_rng(0).integers(
+        8, cfg.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    serve.serve_loop(cfg, params, tokens, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+
+    def hook(stage):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = serve.serve_loop(cfg, params, tokens, SERVE_GEN, hook=hook)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    steps = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
+    row.update(
+        launches=launches, prefill_ms=events[0].elapsed_time(events[1]),
+        decode_ms=statistics.median(steps), decode_ms_min=min(steps),
+        decode_ms_max=max(steps), tokens_per_s=SERVE_BATCH * SERVE_GEN / wall,
+        wall_s=wall, decode_bound_ms=theta / HBM_BYTES_PER_S * 1e3,
+        peak_theta=peak / theta, theta_mb=theta / 1e6)
+    expected = serve_expected_launches(cfg, SERVE_GEN)
+    if launches != expected:
+        raise AssertionError(f"serve {arch}: launches {launches}, expected "
+                             f"{expected}")
+    if not row["peak_theta"] <= SERVE_PEAK_THETA:
+        raise AssertionError(f"serve {arch}: peak {row['peak_theta']:.3f} x "
+                             f"theta, want <= {SERVE_PEAK_THETA}")
+    if out.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) \
+            or not (out[:, :SERVE_PROMPT] == tokens).all() \
+            or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError(f"serve {arch}: output {out}")
+
+    prompt = tokens_on(torch, tokens, dev)
+    kernels = mod.prefill(params, cfg, prompt)
+    before = read_launches()
+    with plain_versions():
+        plain = mod.prefill(params, cfg, prompt)
+    if read_launches() != before:
+        raise AssertionError(f"serve {arch}: the plain prefill launched "
+                             "kernels")
+    row["plain_rel_err"] = max(
+        leaves_rel_err(torch, kernels[0], plain[0], f"serve {arch} prefill "
+                       "logits, kernels vs plain", SERVE_PLAIN_TOL),
+        leaves_rel_err(torch, kernels[1], plain[1], f"serve {arch} prefill "
+                       "state, kernels vs plain", SERVE_PLAIN_TOL))
+    del kernels, plain
+    if cfg.family != "hybrid":
+        seq = tokens_on(torch, out, dev)
+        tf = teacher_forced(torch, cfg, params, seq, SERVE_PROMPT)
+        fw = forward_logits(cfg, params, seq)[:, SERVE_PROMPT - 1:-1]
+        row["decode_vs_forward_err"] = float((tf - fw).abs().max())
+        if not torch.allclose(tf, fw, **DECODE_TOL):
+            raise AssertionError(f"serve {arch}: teacher-forced decode vs "
+                                 "forward logits, max err "
+                                 f"{row['decode_vs_forward_err']} (rtol/atol "
+                                 f"{DECODE_TOL['rtol']})")
+        del seq, tf, fw
+    if profiling:
+        row["decode_idle"] = profile_decode_step(torch, cfg, params, tokens,
+                                                 dev)
+    print(f"serve {arch}: weight init on the card {row['init_s']:.3f} s; "
+          f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: "
+          f"prefill {row['prefill_ms']:.3f} ms, decode {row['decode_ms']:.3f}"
+          f" ms/step (median of {len(steps)}; {row['decode_ms_min']:.3f}-"
+          f"{row['decode_ms_max']:.3f}), {row['tokens_per_s']:.1f} tokens/s "
+          f"({wall:.3f} s); decode bound {row['decode_bound_ms']:.3f} ms "
+          f"(theta {row['theta_mb']:.1f} MB at 3.35 TB/s), "
+          f"{row['decode_bound_ms'] / row['decode_ms']:.3f} of it; peak "
+          f"{row['peak_theta']:.3f} x theta; kernels vs plain prefill max "
+          f"rel err {row['plain_rel_err']:.3e}"
+          + (f"; decode vs forward max err {row['decode_vs_forward_err']:.3e}"
+             if "decode_vs_forward_err" in row else "")
+          + f"; sample row {out[0, SERVE_PROMPT:].tolist()}", flush=True)
+    print(f"serve {arch}: launches {launches}", flush=True)
+    del params
+    release_device_memory(torch)
+    return row
 
 
 def counters():
@@ -1851,6 +2308,7 @@ def main() -> int:
              check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev),
              check_rglru_scan(torch, dev)]
     check_small_reference(torch, dev)
+    check_small_serve(torch, dev)
     release_device_memory(torch)
 
     opt, mamba = get_arch("opt-125m"), get_arch("mamba2-370m")
@@ -1903,6 +2361,11 @@ def main() -> int:
     chained = next(p for p in paths if p["name"] == "chained")
     paths.append(run_resume_path(torch, dev, opt, chained))
 
+    served = [run_serve_path(torch, dev, arch, profiling)
+              for arch in SERVE_ARCHS]
+    paths += served
+
+    print(json.dumps({"serve": served}), flush=True)
     print(json.dumps({"table2": table2(paths, opt), "prng": prng_row}),
           flush=True)
     for row in rows:

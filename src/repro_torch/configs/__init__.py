@@ -1,10 +1,11 @@
 """Configs and the architecture registry (the dense, ssm and hybrid
 families in this port)."""
-from repro_torch.configs import mamba2_370m, opt_125m, recurrentgemma_2b
+from repro_torch.configs import (mamba2_370m, opt_125m,
+                                 recurrentgemma_2b, yi_6b)
 from repro_torch.configs.base import ModelConfig
 
 _ARCHS = {"opt-125m": opt_125m.build, "mamba2-370m": mamba2_370m.build,
-          "recurrentgemma-2b": recurrentgemma_2b.build}
+          "recurrentgemma-2b": recurrentgemma_2b.build, "yi-6b": yi_6b.build}
 
 
 def list_archs() -> list:

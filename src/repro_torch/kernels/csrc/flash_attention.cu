@@ -28,12 +28,16 @@
 // shuffles instead of D FMAs. Plain f32 FMA and the precise expf, no TF32
 // and no tensor cores (wgmma tiles are later work).
 //
-// Head dim 256 (recurrentgemma-2b: q [40,10,64,256] against one kv head
-// [40,1,64,256], causal, window 2048) has its own kernel,
-// flash_fwd_group_kernel, a template on D (128 would be one more
-// instantiation). Bound at that shape: bytes, 57.7 MB of q/k/v/out, at least
-// 17.2 us at 3.35 TB/s; the 0.85 GFLOP of the visible pairs need 12.7 us of
-// f32 FMA at 67 TFLOP/s. The two bounds are close, so the copies have to
+// Head dims 128 and 256 have their own kernel, flash_fwd_group_kernel, a
+// template on D: 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
+// head [40,1,64,256], causal, window 2048), 128 for yi-6b's prefill (q
+// [4,32,32,128] on four kv heads [4,4,32,128], causal: a group of 8 is one
+// chunk of 8 heads x 10 positions). At 128 the same block layout holds
+// (five rows x one float4 column of O a thread, 138,144 B of shared
+// memory); nothing else in the kernel depends on D. Bound at the
+// recurrentgemma shape: bytes, 57.7 MB of q/k/v/out, at least 17.2 us at
+// 3.35 TB/s; the 0.85 GFLOP of the visible pairs need 12.7 us of f32 FMA
+// at 67 TFLOP/s. The two bounds are close, so the copies have to
 // overlap dense FMA work. The design, against what held the first version
 // (one block per q head and 16 rows, each query row split over 8 lanes)
 // back:
@@ -797,6 +801,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 16: return launch_small<16>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 32: return launch_small<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 64: return launch_small<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 128: return launch_group<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 256: return launch_group<256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
@@ -806,18 +811,18 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
 // into info[8] -- registers and local memory bytes per thread, static and
 // dynamic shared memory bytes per block, resident blocks per SM, threads a
 // block, (head, position) rows a block, keys a K/V tile.
-extern "C" int flash_attention_attributes(int d, int* info) {
-  if (d != 256) return cudaErrorInvalidValue;
-  const int smem = group_smem_bytes<256>();
-  cudaError_t err = allow_smem(flash_fwd_group_kernel<256>, smem,
-                               &allowed_group_smem<256>);
+template <int D>
+int group_attributes(int* info) {
+  const int smem = group_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_group_kernel<D>, smem,
+                               &allowed_group_smem<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, flash_fwd_group_kernel<256>);
+  err = cudaFuncGetAttributes(&fa, flash_fwd_group_kernel<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_group_kernel<256>, kGThreads, smem);
+      &blocks, flash_fwd_group_kernel<D>, kGThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = fa.numRegs;
   info[1] = static_cast<int>(fa.localSizeBytes);
@@ -828,4 +833,12 @@ extern "C" int flash_attention_attributes(int d, int* info) {
   info[6] = kGRows;
   info[7] = kGBK;
   return 0;
+}
+
+extern "C" int flash_attention_attributes(int d, int* info) {
+  switch (d) {
+    case 128: return group_attributes<128>(info);
+    case 256: return group_attributes<256>(info);
+    default: return cudaErrorInvalidValue;
+  }
 }

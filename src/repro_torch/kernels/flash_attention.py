@@ -3,21 +3,23 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py:
 flash_attention_pallas` (body `_flash_kernel`) with the hand-written CUDA
-kernel in `csrc/flash_attention.cu` (f32, head_dim 16, 32, 64 or 256 as
-is — no padding to 128 as the TPU path needs).
+kernel in `csrc/flash_attention.cu` (f32, head_dim 16, 32, 64, 128 or 256
+as is — no padding to a multiple of 128 as the TPU path needs).
 
 Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
 31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. At recurrentgemma-2b's
 (q [40,10,64,256] against one kv head [40,1,64,256], causal, window
 2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
-67 TFLOP/s. At head_dim ≤ 64 each query row's accumulator stays in
-registers, split over 4 lanes, with key/value tiles of 32 rows copied by
-`cp.async` into two buffers. At head_dim 256 one persistent block an SM
-walks work items of 80 (q head, position) rows of one kv head's query
-group, so each K/V tile is copied once for the whole group; every copy is
-a TMA bulk copy, and both products are register-blocked f32 FMA from
-shared memory. Scores and probabilities never reach device memory, and
-key tiles no row of the block can see are skipped.
+67 TFLOP/s. At yi-6b's prefill (q [4,32,32,128] on four kv heads
+[4,4,32,128], causal): bytes, 4.7 MB, ≥ 1.4 µs. At head_dim ≤ 64 each
+query row's accumulator stays in registers, split over 4 lanes, with
+key/value tiles of 32 rows copied by `cp.async` into two buffers. At
+head_dim 128 and 256 one persistent block an SM walks work items of 80
+(q head, position) rows of one kv head's query group, so each K/V tile is
+copied once for the whole group; every copy is a TMA bulk copy, and both
+products are register-blocked f32 FMA from shared memory. Scores and
+probabilities never reach device memory, and key tiles no row of the
+block can see are skipped.
 
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
 `repro.kernels.ref.attention_ref`); `launches` counts kernel launches.
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -70,8 +72,8 @@ def _lib():
 
 
 def kernel_attributes(d: int = 256) -> dict:
-    """The head_dim-d kernel (`flash_fwd_group_kernel<d>`) as built on the
-    current CUDA device: registers and local memory per thread, static and
+    """The head_dim-d kernel (`flash_fwd_group_kernel<d>`, d 128 or 256)
+    as built on the current CUDA device: registers and local memory per thread, static and
     dynamic shared memory per block, resident blocks per SM, threads, rows
     and keys of a K/V tile per block."""
     from repro_torch.kernels import build
@@ -110,9 +112,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     from repro_torch.kernels import build
+    fn = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, hq, hkv, sq, skv, d, float(scale), int(bool(causal)),
                     0 if window is None else int(window), stream)
     build.check(status, "flash_attention_f32")

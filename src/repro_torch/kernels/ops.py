@@ -252,6 +252,22 @@ def _ssd_plain(x, dt, a, b, c, state0, chunk, want_state):
     return y, (state if want_state else None)
 
 
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
+                    dt_t: torch.Tensor, a: torch.Tensor, b_t: torch.Tensor,
+                    c_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token SSD update (decode), plain on every device as in `repro`
+    (`repro.kernels.ops.ssd_decode_step` has no Pallas kernel). state
+    [B,H,P,N] f32; x_t [B,H,P]; dt_t [B,H]; a [H]; b_t/c_t [B,N] →
+    (y_t [B,H,P], state' [B,H,P,N])."""
+    f32 = torch.float32
+    decay = torch.exp(a[None] * dt_t)                          # [B,H]
+    upd = (x_t.to(f32)[..., None] * b_t.to(f32)[:, None, None, :]
+           * dt_t[..., None, None])
+    state = decay[..., None, None] * state + upd
+    y = torch.einsum("bhpn,bn->bhp", state, c_t.to(f32))
+    return y.to(x_t.dtype), state
+
+
 # ---------------------------------------------------------------------------
 # linear recurrence (RG-LRU)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """RecurrentGemma-style hybrid: RG-LRU recurrent blocks and local
-attention, ported from `repro.models.hybrid` (training forward; the serve
-path waits for ROADMAP A8).
+attention, ported from `repro.models.hybrid`: the training forward and
+the serve path (an O(1) decode state: the RG-LRU hidden and conv tail of
+each recurrent block, a rolling `local_window`-deep KV buffer of each
+attention block).
 
 Pattern "rra" (2 recurrent : 1 local-attention) cycled over n_layers
 (arXiv:2402.19427): 26 layers = 8 × (r, r, a) + (r, r). The full groups
@@ -14,7 +16,7 @@ plain version on the CPU), the attention blocks through
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,23 +111,35 @@ def init(cfg: ModelConfig, key, device) -> Dict:
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _hybrid_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, no activation. x: [B, S, C]; w: [W, C]."""
+def _hybrid_conv(x: torch.Tensor, w: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv, no activation. x: [B, S, C]; w: [W, C];
+    tail: [B, W−1, C] carried state (zeros if None) → (y, new tail)."""
     b, s, c = x.shape
     wlen = w.shape[0]
-    xp = torch.cat([x.new_zeros((b, wlen - 1, c)), x], dim=1)
+    if tail is None:
+        tail = x.new_zeros((b, wlen - 1, c))
+    xp = torch.cat([tail, x], dim=1)
     # the reference's Python sum: 0 + term 0 + term 1 + ...
-    return sum(xp[:, i:i + s] * w[i][None, None].to(x.dtype)
-               for i in range(wlen))
+    y = sum(xp[:, i:i + s] * w[i][None, None].to(x.dtype)
+            for i in range(wlen))
+    new_tail = xp[:, -(wlen - 1):] if wlen > 1 else tail
+    return y, new_tail
 
 
-def _rglru_mix(bp: Dict, xn: torch.Tensor) -> torch.Tensor:
-    """RG-LRU temporal mixing. xn: [B, S, D_model] (already normed)."""
+def _rglru_mix(bp: Dict, xn: torch.Tensor, *, state: Optional[Dict] = None
+               ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """RG-LRU temporal mixing. xn: [B, S, D_model] (already normed); with
+    `state` ({"lru": [B, W], "conv": [B, cw−1, W]}) the recurrence starts
+    from its hidden and the conv from its tail, and the new state is
+    returned (None without)."""
     xw = L.dense(bp["lin_x"], xn)
     # jax.nn.gelu defaults to the tanh approximation
     gate = F.gelu(L.dense(bp["lin_gate"], xn).to(torch.float32),
                   approximate="tanh").to(xw.dtype)
-    xw = _hybrid_conv(xw, bp["conv_w"])
+    xw, new_tail = _hybrid_conv(xw, bp["conv_w"],
+                                None if state is None else state["conv"])
 
     r = torch.sigmoid(L.dense(bp["w_rec_gate"], xw).to(torch.float32))
     i = torch.sigmoid(L.dense(bp["w_in_gate"], xw).to(torch.float32))
@@ -136,15 +150,21 @@ def _rglru_mix(bp: Dict, xn: torch.Tensor) -> torch.Tensor:
     beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
     drive = (beta * i * xw.to(torch.float32)).to(xw.dtype)
 
-    hs, _ = kops.linear_recurrence(a.to(xw.dtype), drive)
+    h0 = None if state is None else state["lru"]
+    hs, h_last = kops.linear_recurrence(a.to(xw.dtype), drive, h0)
+    new_state = None if state is None else {"lru": h_last, "conv": new_tail}
     # the reference's row-parallel `dense_rp` is `dense` on one device
-    return L.dense(bp["out"], gate * hs)
+    return L.dense(bp["out"], gate * hs), new_state
 
 
-def _rglru_block_apply(bp: Dict, x: torch.Tensor, cfg: ModelConfig
-                       ) -> torch.Tensor:
-    x = x + _rglru_mix(bp, L.rmsnorm(bp["norm"], x, cfg.norm_eps))
-    return x + L.mlp(bp["mlp"], L.rmsnorm(bp["mlp_norm"], x, cfg.norm_eps))
+def _rglru_block_apply(bp: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                       state: Optional[Dict] = None
+                       ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    mix, new_state = _rglru_mix(bp, L.rmsnorm(bp["norm"], x, cfg.norm_eps),
+                                state=state)
+    x = x + mix
+    x = x + L.mlp(bp["mlp"], L.rmsnorm(bp["mlp_norm"], x, cfg.norm_eps))
+    return x, new_state
 
 
 def _attn_block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -167,23 +187,134 @@ def forward(params: Dict, cfg: ModelConfig,
     n_groups, _ = _group_counts(cfg)
     for g in range(n_groups):
         gp = L.layer_slice(params["groups"], g)
-        x = _rglru_block_apply(gp["r1"], x, cfg)
-        x = _rglru_block_apply(gp["r2"], x, cfg)
+        x, _ = _rglru_block_apply(gp["r1"], x, cfg)
+        x, _ = _rglru_block_apply(gp["r2"], x, cfg)
         x = _attn_block_apply(gp["a"], x, positions, cfg)
     for bp in params["tail"]:
-        x = _rglru_block_apply(bp, x, cfg)
+        x, _ = _rglru_block_apply(bp, x, cfg)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def token_nll(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-row mean NLL [B] of tokens/targets/mask [B, S]."""
-    x = forward(params, cfg, tokens)
-    logits = L.unembed(params.get("lm_head", params["embed"]), x)
-    return L.cross_entropy(logits, targets, mask)
+    return L.cross_entropy(L.logits(params, forward(params, cfg, tokens)),
+                           targets, mask)
 
 
 def loss_per_client(params: Dict, cfg: ModelConfig,
                     batch: Dict) -> torch.Tensor:
     """batch tokens/targets/mask: [K, b, S] → per-client losses [K]."""
     return L.loss_per_client(forward, params, cfg, batch)
+
+
+# ---------------------------------------------------------------------------
+# Serving — O(1) state (rolling window for attention blocks)
+# ---------------------------------------------------------------------------
+
+def init_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+               device="cuda") -> Dict:
+    """Zero decode state on `device`: {"r1", "r2": {"lru": [G, B, W],
+    "conv": [G, B, cw−1, W]}, "attn": {"k", "v": [G, B, window, Hkv, hd]},
+    "tail": {"lru", "conv"} with max(tail, 1) rows} for G rra groups."""
+    w = cfg.hybrid.lru_width or cfg.d_model
+    cw = cfg.hybrid.conv1d_width
+    win = cfg.hybrid.local_window
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    n_groups, tail = _group_counts(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def rec_state(n):
+        return {"lru": zeros(n, batch, w), "conv": zeros(n, batch, cw - 1, w)}
+
+    return {"r1": rec_state(n_groups), "r2": rec_state(n_groups),
+            "attn": {"k": zeros(n_groups, batch, win, hkv, hd),
+                     "v": zeros(n_groups, batch, win, hkv, hd)},
+            "tail": rec_state(max(tail, 1))}
+
+
+def _rec_step(bp: Dict, x: torch.Tensor, cfg: ModelConfig, rec: Dict,
+              i: int) -> torch.Tensor:
+    """A recurrent block on row i of a stacked {"lru", "conv"} state,
+    whose new values are written back in place."""
+    x, new = _rglru_block_apply(bp, x, cfg, state={k: t[i] for k, t in
+                                                   rec.items()})
+    for name, t in new.items():
+        rec[name][i].copy_(t)
+    return x
+
+
+def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
+                tokens: torch.Tensor, cache_pos: int
+                ) -> Tuple[torch.Tensor, Dict]:
+    """tokens [B, 1] at `cache_pos` (a host int) → (logits [B, 1, V],
+    state); the rolling attention cache writes slot cache_pos mod window.
+    The state is updated in place and returned."""
+    x = L.embed(params["embed"], tokens)
+    positions = cache_pos + torch.arange(tokens.shape[1], device=x.device)
+    n_groups, _ = _group_counts(cfg)
+    for g in range(n_groups):
+        gp = L.layer_slice(params["groups"], g)
+        x = _rec_step(gp["r1"], x, cfg, state["r1"], g)
+        x = _rec_step(gp["r2"], x, cfg, state["r2"], g)
+        x = _attn_rolling(gp["a"], x, positions, cfg,
+                          {k: t[g] for k, t in state["attn"].items()},
+                          cache_pos)
+    for i, bp in enumerate(params["tail"]):
+        x = _rec_step(bp, x, cfg, state["tail"], i)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.logits(params, x), state
+
+
+def _attn_rolling(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, kv: Dict, cache_pos: int
+                  ) -> torch.Tensor:
+    """Local attention of one new token against a rolling [B, W, Hkv, hd]
+    buffer (one group's views, written in place at slot cache_pos mod W).
+    Slot i holds position cache_pos − ((slot − i) mod W); it counts if that
+    position is in [0, cache_pos] and inside the window. Plain f32 as in
+    the reference, with its −1e30 score for the rest."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    win = cfg.hybrid.local_window
+    h = L.rmsnorm(bp["norm"], x, cfg.norm_eps)
+    q = L.dense({"w": bp["attn"]["wq"]}, h).reshape(b, s, hq, hd)
+    k = L.dense({"w": bp["attn"]["wk"]}, h).reshape(b, s, hkv, hd)
+    v = L.dense({"w": bp["attn"]["wv"]}, h).reshape(b, s, hkv, hd)
+    q = L.rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    k = L.rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+
+    slot = cache_pos % win
+    kv["k"][:, slot:slot + s] = k
+    kv["v"][:, slot:slot + s] = v
+    slot_pos = cache_pos - torch.remainder(
+        slot - torch.arange(win, device=x.device), win)
+    valid = (slot_pos >= 0) & (slot_pos <= cache_pos) \
+        & (slot_pos > cache_pos - win)
+
+    group = hq // hkv
+    qg = q.reshape(b, s, hkv, group, hd).to(torch.float32) / (hd ** 0.5)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, kv["k"].to(torch.float32))
+    scores = torch.where(valid, scores, torch.full((), -1e30,
+                                                   device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, kv["v"].to(torch.float32))
+    out = out.reshape(b, s, hq * hd).to(x.dtype)
+    x = x + L.dense({"w": bp["attn"]["wo"]}, out)
+    return x + L.mlp(bp["mlp"], L.rmsnorm(bp["mlp_norm"], x, cfg.norm_eps))
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict]:
+    """The full forward's last logits [B, 1, V] and a zero state, as the
+    reference's prefill returns (`repro.models.hybrid.prefill`: its
+    docstring leaves priming the recurrent and window state to
+    production). Decoding after it does not see the prompt in the
+    recurrent or rolling-attention state; the port follows the reference
+    (ROADMAP, findings of the reference)."""
+    x = forward(params, cfg, tokens)
+    state = init_state(cfg, tokens.shape[0], dtype=params["embed"]["w"].dtype,
+                       device=x.device)
+    return L.logits(params, x[:, -1:]), state

@@ -159,16 +159,21 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), p["w"].to(torch.float32).t())
 
 
+def logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [.., V] of final hidden states [.., D]: the lm head, or
+    the tied embedding."""
+    return unembed(params.get("lm_head", params["embed"]), x)
+
+
 def loss_per_client(forward, params: dict, cfg: ModelConfig,
                     batch: dict) -> torch.Tensor:
     """Per-client mean NLL of a language model: batch tokens/targets/mask
     [K, b, S] → [K]; `forward(params, cfg, tokens)` gives the final hidden
-    states and the lm head (or the tied embedding) makes the logits."""
+    states and `logits` makes the logits."""
     k, b, _ = batch["tokens"].shape
     flat = lambda a: a.reshape((k * b,) + tuple(a.shape[2:]))  # noqa: E731
     x = forward(params, cfg, flat(batch["tokens"]))
-    head = params.get("lm_head", params["embed"])
-    nll = cross_entropy(unembed(head, x), flat(batch["targets"]),
+    nll = cross_entropy(logits(params, x), flat(batch["targets"]),
                         flat(batch["mask"]))
     return torch.mean(nll.reshape(k, b), dim=-1)
 
@@ -199,19 +204,64 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def gqa_attend(p: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, *, causal: bool = True,
-               window: Optional[int] = None) -> torch.Tensor:
-    """Self-attention without a KV cache: x [B, S, D] → [B, S, D]."""
+               window: Optional[int] = None,
+               kv_cache: Optional[dict] = None,
+               cache_pos: Optional[int] = None) -> torch.Tensor:
+    """Self-attention: x [B, S, D] → [B, S, D].
+
+    Without a cache the whole sequence attends through `kops.attention`
+    (the kernel on the card). With `kv_cache` ({"k","v": [B, S_max, Hkv,
+    hd]}, one layer's views of the stacked cache) the S new tokens enter
+    at `cache_pos` (a host int): k is roped at cache_pos + arange(S), k and
+    v are written into the cache in place (the reference donates its
+    cache; no copy of the whole buffer is made here either), and the
+    output is `decode_attend` over the whole buffer."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
-    q = dense({"w": p["wq"]}, x).reshape(b, s, hq, hd).transpose(1, 2)
-    k = dense({"w": p["wk"]}, x).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = dense({"w": p["wv"]}, x).reshape(b, s, hkv, hd).transpose(1, 2)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = kops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal=causal, window=window)
+    q = dense({"w": p["wq"]}, x).reshape(b, s, hq, hd)
+    k = dense({"w": p["wk"]}, x).reshape(b, s, hkv, hd)
+    v = dense({"w": p["wv"]}, x).reshape(b, s, hkv, hd)
+    q = rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    if kv_cache is not None:
+        kpos = cache_pos + torch.arange(s, device=x.device)
+        k = rope(k.transpose(1, 2), kpos, cfg.rope_theta).transpose(1, 2)
+        kv_cache["k"][:, cache_pos:cache_pos + s] = k
+        kv_cache["v"][:, cache_pos:cache_pos + s] = v
+        out = decode_attend(q.transpose(1, 2), kv_cache["k"], kv_cache["v"],
+                            kpos, window=window)
+        return dense({"w": p["wo"]}, out.reshape(b, s, hq * hd))
+    k = rope(k.transpose(1, 2), positions, cfg.rope_theta)
+    out = kops.attention(q.contiguous(), k.contiguous(),
+                         v.transpose(1, 2).contiguous(), causal=causal,
+                         window=window)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return dense({"w": p["wo"]}, out)
+
+
+def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  q_abs: torch.Tensor,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over a KV-cache buffer with absolute positions,
+    plain f32 as in the reference (no Pallas kernel there either).
+
+    q: [B, S, Hq, hd]; ck/cv: [B, S_max, Hkv, hd]; q_abs: [S] absolute
+    positions of the query tokens. Slots past q_abs (stale or unwritten)
+    and, with a window, those at or before q_abs − window get the
+    reference's −1e30 score. Linear in S_max (no S² transient)."""
+    b, s, hq, hd = q.shape
+    hkv = ck.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, s, hkv, group, hd).to(torch.float32) / math.sqrt(hd)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg, ck.to(torch.float32))
+    t_pos = torch.arange(ck.shape[1], device=q.device)
+    mask = t_pos[None, :] <= q_abs[:, None]
+    if window is not None:
+        mask &= t_pos[None, :] > q_abs[:, None] - window
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs, cv.to(torch.float32))
+    return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,10 @@
 this port).
 
 Each family module gives `param_specs(cfg)` (nested dicts and lists of
-(shape, init) per leaf), `init` and `loss_per_client`. Leaves enumerate
-as JAX flattens the reference's params: dicts by sorted key, lists by
-index.
+(shape, init) per leaf), `init` and `loss_per_client`, and for serving
+`prefill`, `decode_step` and its decode state (`init_cache` of the dense
+family, `init_state` of the ssm and hybrid ones). Leaves enumerate as JAX
+flattens the reference's params: dicts by sorted key, lists by index.
 """
 from __future__ import annotations
 
@@ -44,3 +45,16 @@ def shapes(cfg: ModelConfig) -> Tuple:
 
 def count_params(cfg: ModelConfig) -> int:
     return int(sum(math.prod(s) for s in shapes(cfg)))
+
+
+def serve_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16) -> Dict:
+    """The family's decode state as meta-device tensors (shapes and dtypes,
+    nothing allocated): the port's counterpart of the reference's
+    `jax.eval_shape` of `init_state` / `init_cache`, with its default
+    dtype. `max_len` sizes the dense KV cache; the ssm and hybrid states
+    do not depend on it."""
+    mod = get_module(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return mod.init_state(cfg, batch, dtype=dtype, device="meta")
+    return mod.init_cache(cfg, batch, max_len, dtype=dtype, device="meta")

@@ -3,10 +3,15 @@
 Layers keep the reference's scan-stacked layout (leading L dim on every
 block leaf) so that leaf enumeration and per-leaf counter streams match;
 `forward` is a Python loop over the layer dim taking views.
+
+Entry points, as the reference's shape cells:
+  * loss_per_client — train shapes (the ZO/FO objective);
+  * prefill         — build the KV cache of a prompt, last logits;
+  * decode_step     — one token against the cache, written in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,9 +55,11 @@ def init(cfg: ModelConfig, key, device) -> Dict:
 
 
 def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, *, cache: Optional[Dict] = None,
+                 cache_pos: Optional[int] = None) -> torch.Tensor:
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    x = x + L.gqa_attend(bp["attn"], h, positions, cfg, causal=True)
+    x = x + L.gqa_attend(bp["attn"], h, positions, cfg, causal=True,
+                         kv_cache=cache, cache_pos=cache_pos)
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     return x + L.mlp(bp["mlp"], h)
 
@@ -68,8 +75,104 @@ def forward(params: Dict, cfg: ModelConfig,
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
+def logits_from_hidden(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits [.., V] of hidden states [.., D] (the reference's name
+    for `layers.logits`)."""
+    return L.logits(params, x)
+
+
+def _no_embeds(prefix_embeds, inputs_embeds=None) -> None:
+    if prefix_embeds is not None or inputs_embeds is not None:
+        raise NotImplementedError(
+            "prefix_embeds= / inputs_embeds= (the vlm frontend, soft "
+            "tokens) are not ported (ROADMAP A8: vlm)")
+
+
+def token_nll(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+              targets: torch.Tensor, mask: torch.Tensor, *,
+              prefix_embeds=None, inputs_embeds=None) -> torch.Tensor:
+    """Per-row mean NLL [B] of tokens/targets/mask [B, S]."""
+    _no_embeds(prefix_embeds, inputs_embeds)
+    x = forward(params, cfg, tokens)
+    return L.cross_entropy(logits_from_hidden(params, x), targets, mask)
+
+
 def loss_per_client(params: Dict, cfg: ModelConfig,
                     batch: Dict) -> torch.Tensor:
     """batch tokens/targets/mask: [K, b, S] → per-client losses [K]."""
     return L.loss_per_client(forward, params, cfg, batch)
 
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cuda") -> Dict:
+    """Zero KV cache {"k", "v": [L, B, max_len, Hkv, hd]} on `device`."""
+    if cfg.mla.enabled:
+        raise NotImplementedError(
+            f"{cfg.name}: the MLA latent cache is not ported (ROADMAP A8: "
+            "MLA)")
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim())
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _layer_cache(cache: Dict, i: int) -> Dict:
+    """Views of layer i of the stacked cache (writes land in the stack)."""
+    return {name: c[i] for name, c in cache.items()}
+
+
+def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
+                tokens: torch.Tensor, cache_pos: int
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: tokens [B, S_new(=1)] at `cache_pos` (a host int)
+    → (logits [B, S_new, V], cache). Each layer attends over its view of
+    the stacked cache and writes its new k/v there in place, so the
+    returned cache is the same buffer (the reference's donated carry)."""
+    x = L.embed(params["embed"], tokens)
+    positions = cache_pos + torch.arange(tokens.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x = _block_apply(L.layer_slice(params["blocks"], i), x, positions,
+                         cfg, cache=_layer_cache(cache, i),
+                         cache_pos=cache_pos)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_from_hidden(params, x), cache
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds=None) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence prefill: (last-position logits [B, 1, V], cache [L, B,
+    S, Hkv, hd]). Each block runs its training form (attention through the
+    kernel), and its k/v are recomputed from the block input into the
+    cache (one extra k/v projection a layer, as the reference does)."""
+    _no_embeds(prefix_embeds)
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(s, device=x.device)
+    cache = init_cache(cfg, b, s, dtype=x.dtype, device=x.device)
+    for i in range(cfg.n_layers):
+        bp = L.layer_slice(params["blocks"], i)
+        h_in = x
+        x = _block_apply(bp, x, positions, cfg)
+        _fill_cache(bp, L.rmsnorm(bp["ln1"], h_in, cfg.norm_eps),
+                    _layer_cache(cache, i), positions, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_from_hidden(params, x[:, -1:]), cache
+
+
+def _fill_cache(bp: Dict, h_norm: torch.Tensor, layer_cache: Dict,
+                positions: torch.Tensor, cfg: ModelConfig) -> None:
+    """Write this layer's roped k and its v into its cache views. (The
+    reference's `sharding.hint` on these writes lays the cache out over a
+    mesh: ROADMAP A11.)"""
+    b, s, _ = h_norm.shape
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    k = L.dense({"w": bp["attn"]["wk"]}, h_norm).reshape(b, s, hkv, hd)
+    k = L.rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    v = L.dense({"w": bp["attn"]["wv"]}, h_norm).reshape(b, s, hkv, hd)
+    layer_cache["k"][:, :s] = k
+    layer_cache["v"][:, :s] = v
