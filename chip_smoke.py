@@ -19,7 +19,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      time under torch.profiler too; flash_attention at head_dim 256 also
      with its registers, local and shared memory and blocks an SM, and at
      head_dim 128 (yi-6b) at the serve shapes (its prefill and a 2048-token
-     prompt, beside SDPA with enable_gqa), failing on any local memory;
+     prompt, beside SDPA with enable_gqa), and at MLA's q·k heads 96
+     (minicpm3-4b) and 192 (deepseek-v2) at their training and serve
+     shapes, each failing on any local memory;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
      drawn once per weight), and with its registers, shared memory and
      cluster size; ssd_scan's two entries (y only, as training calls it,
@@ -37,11 +39,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      sign/solution at horizon 800, whose first rounds are silent, then the
      tiny dense round under digital and smart_digital (the card's uniform
      rows bitwise the host's) and FO-Adam on the tiny dense, ssm and hybrid
-     models — and the GPU scan engine (a captured CUDA graph replayed)
-     equals the GPU loop engine bitwise; then the tiny dense, ssm and
-     hybrid serve paths (24 + 16 tokens): prefill logits and state, the
+     models, and the reduced deepseek-v2 (MLA, MoE with a shared expert)
+     and moonshot (MoE) rounds, chained and fused, whose GPU loop run a
+     second run repeats bitwise — and the GPU scan engine (a captured CUDA
+     graph replayed) equals the GPU loop engine bitwise; then the tiny
+     dense, ssm and hybrid serve paths and the reduced deepseek-v2 and
+     moonshot ones (24 + 16 tokens): prefill logits and state, the
      teacher-forced logits and serve_loop's tokens, GPU against CPU;
-  4. six paths, each through `repro_torch.core.fedsim.run` at full width
+  4. nine paths, each through `repro_torch.core.fedsim.run` at full width
      with an eval hook, first on the loop engine, then from the same seed
      init on the scan engine (SCAN: rounds, chunk, eval cadence), the
      launch counters set to 0 just before each run and read just after;
@@ -69,6 +74,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   a round, captured whole under scan; scan ≡ loop also in
                   both Adam moments, no privacy spent, 16·d uplink bits a
                   client; fails at 12 θ;
+       mla      — minicpm3-4b whole (MLA, flash_attention at head_dim 96),
+                  chained; fails at 2.0 θ;
+       moe      — deepseek-v2-236b at full width, depth cut to 2 of its 60
+                  layers (DEPTH; MLA at head_dim 192, 2 shared and 160
+                  routed experts top-6), chained; fails at 2.0 θ;
+       moe-fused — moonshot-v1-16b-a3b at full width, depth cut to 4 of
+                  its 48 layers (64 experts top-6, GQA at head_dim 128),
+                  with `fused_perturbation=True` (the router and attention
+                  projections by perturbed_matmul, the expert banks
+                  resolved a layer at a time), plus one full-width fused
+                  dual forward held against a fresh one; fails at 2.0 θ;
   5. the `resume` path (OPT-125M chained, the CLI's defaults, checkpoints
      every RESUME_EVERY = 4 rounds into temporary directories removed
      after use): 8 rounds on the loop with an elastic event at round 4
@@ -84,15 +100,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      of each boundary in both snapshot modes, the writer's seconds for one
      save from the host and `restore`'s seconds onto the card;
   6. the serve paths at full width, one after the other, each freed
-     before the next: opt-125m, mamba2-370m, recurrentgemma-2b and yi-6b
-     through `repro_torch.launch.serve.serve_loop` at the serve CLI's
+     before the next: opt-125m, mamba2-370m, recurrentgemma-2b, yi-6b,
+     minicpm3-4b, and deepseek-v2 and moonshot with their depth cut as in
+     phase 4, through `repro_torch.launch.serve.serve_loop` at the serve CLI's
      defaults (batch 4, prompt 32, gen 16; yi-6b also once through
      `serve.main`): prefill ms, decode ms a step (CUDA events, the median
      of 15), tokens/s, the decode bound (θ bytes at 3.35 TB/s), peak / θ;
      each fails on launches other than serve_expected_launches, a peak
      above 1.25 θ, a prefill with the kernels that differs from the plain
      versions on the card, or (but for the hybrid) teacher-forced decode
-     logits that differ from the full forward's; `--profile` adds one
+     logits that differ from the full forward's (the moe family's at a
+     capacity factor that drops no token, `no_drop`); `--profile` adds one
      decode step's idle share;
   7. one `serve` JSON line, one `table2` JSON line (peak / θ of the
      chained, sign and fo paths,
@@ -109,6 +127,7 @@ device's busy share).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import heapq
 import json
 import math
@@ -124,7 +143,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # per path: rounds (both engines), rounds a scan chunk, eval cadence
 SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "mamba2": (4, 2, 2),
-        "hybrid": (3, 3, 3), "sign": (8, 4, 4), "fo": (8, 4, 4)}
+        "hybrid": (3, 3, 3), "sign": (8, 4, 4), "fo": (8, 4, 4),
+        "mla": (4, 2, 2), "moe": (4, 2, 2), "moe-fused": (4, 2, 2)}
+# full width, depth cut so that θ fits one 80 GB card in f32: the layers
+# kept (deepseek-v2: 2 × 15.89 + 4.19 = 35.97 GB of θ; moonshot: 4 × 2.28
+# + 2.68 = 11.81 GB); every other config runs whole
+DEPTH = {"deepseek-v2-236b": 2, "moonshot-v1-16b-a3b": 4}
+# paths whose final weights are compared as per-leaf checksums
+# (`fingerprint`), not copied to the host
+LARGE = ("hybrid", "mla", "moe", "moe-fused")
 # the sign path's channel: rician under path loss, CSI phase error and
 # deep-fade outage, so clients drop out of some rounds (mask rows < K)
 WRAPPED_RICIAN = dict(model="rician", rician_k=3.0, cell_radius=100.0,
@@ -144,7 +171,8 @@ PMM_LAYER = (((768, 768),) * 4 + ((768, 3072),) * 2 + ((3072, 768),))
 NORMAL_ULPS = 4
 # the serve CLI's defaults (`python -m repro.launch.serve`)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
-SERVE_ARCHS = ("opt-125m", "mamba2-370m", "recurrentgemma-2b", "yi-6b")
+SERVE_ARCHS = ("opt-125m", "mamba2-370m", "recurrentgemma-2b", "yi-6b",
+               "minicpm3-4b", "deepseek-v2-236b", "moonshot-v1-16b-a3b")
 # decode ≡ forward, teacher-forced: tests/test_torch_serve.py's DECODE
 # (the reference's own, tests/test_models.py)
 DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -156,6 +184,34 @@ SERVE_PLAIN_TOL = 1e-4
 TINY_SERVE_TOL = dict(rtol=1e-4, atol=1e-5)
 # a serve path's peak device memory: θ, the decode state and transients
 SERVE_PEAK_THETA = 1.25
+
+
+def full_width(arch: str):
+    """The config at full width: whole, or its depth cut to DEPTH."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
+    return cfg
+
+
+def depth_note(cfg) -> str:
+    """", depth cut to n of N layers" for a config DEPTH cuts, else """""
+    from repro_torch.configs import get_arch
+    full = get_arch(cfg.name).n_layers
+    return "" if cfg.n_layers == full else \
+        f", depth cut to {cfg.n_layers} of {full} layers"
+
+
+def no_drop(cfg):
+    """A moe config at capacity factor E/k: every expert can take every
+    token of a dispatch group, so no token is dropped, as in a one-token
+    decode step (identity on other configs)."""
+    if not cfg.moe.enabled:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts
+        / cfg.moe.n_experts_per_tok))
 
 
 def time_ms(torch, fn, warmup: int = 3, reps: int = 15) -> float:
@@ -186,14 +242,19 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / reps / 1e3
+    # a capture that lost every kernel event (see device_span_ms) is taken
+    # again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    raise AssertionError(f"no kernel time recorded in {reps} calls")
 
 
 def device_span_ms(torch, fn, reps: int = 20) -> float:
@@ -206,16 +267,22 @@ def device_span_ms(torch, fn, reps: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e.time_range.start, e.time_range.end)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA)
-    per = len(kernels) // reps
-    if per * reps != len(kernels):
+    # the profiler now and then returns fewer kernel events than were
+    # launched (seen on the H100: none at all for a whole capture); such a
+    # capture measures nothing, so it is taken again, at most twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA)
+        per = len(kernels) // reps
+        if per > 0 and per * reps == len(kernels):
+            break
+    else:
         raise AssertionError(f"{len(kernels)} kernels in {reps} calls")
     return statistics.median(
         max(end for _, end in kernels[i:i + per]) - kernels[i][0]
@@ -549,6 +616,22 @@ def check_flash_attention(torch, dev) -> dict:
         ((2, 4, 70, 128), (2, 4, 70, 128), True, None),
         ((2, 16, 45, 128), (2, 2, 130, 128), True, 40),
         ((3, 8, 33, 128), (3, 4, 33, 128), False, None),
+        # MLA's q·k heads. 96 (minicpm3-4b, the head_dim <= 96 kernel): its
+        # training and serve shapes, GQA with a window over several key
+        # tiles, non-causal. 192 (deepseek-v2, the group kernel's 48-column
+        # P V tiling): its training and serve shapes, group 8 with a
+        # window, group 2 non-causal, one query row. 24 (the reduced MLA
+        # configs): zero-padded to the 32 instance by the wrapper
+        ((40, 40, 64, 96), (40, 40, 64, 96), True, None),
+        ((4, 40, 32, 96), (4, 40, 32, 96), True, None),
+        ((2, 6, 70, 96), (2, 2, 130, 96), True, 40),
+        ((3, 4, 33, 96), (3, 4, 33, 96), False, None),
+        ((40, 128, 64, 192), (40, 128, 64, 192), True, None),
+        ((4, 128, 32, 192), (4, 128, 32, 192), True, None),
+        ((2, 16, 45, 192), (2, 2, 130, 192), True, 40),
+        ((3, 6, 33, 192), (3, 3, 33, 192), False, None),
+        ((2, 10, 1, 192), (2, 1, 70, 192), True, None),
+        ((2, 4, 24, 24), (2, 4, 24, 24), True, None),
     ]
     max_err = 0.0
     for qs, ks, causal, window in cases:
@@ -608,6 +691,7 @@ def check_flash_attention(torch, dev) -> dict:
           f"{lib_dev2:.4f})", flush=True)
     print(f"flash_attention head_dim {d2} kernel: {attrs2}", flush=True)
     hd128 = flash_attention_128(torch, dev, gen, cases)
+    mla = flash_attention_mla(torch, dev, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:104",
@@ -621,7 +705,7 @@ def check_flash_attention(torch, dev) -> dict:
                 "library_device_ms": lib_dev2, "kernel_attributes": attrs2,
                 "shape": f"q [{b2},{h2},{s2},{d2}] k/v "
                          f"[{','.join(map(str, kv_shape))}] causal"},
-            "head_dim_128": hd128}
+            "head_dim_128": hd128, **mla}
 
 
 def flash_attention_128(torch, dev, gen, cases) -> dict:
@@ -638,8 +722,8 @@ def flash_attention_128(torch, dev, gen, cases) -> dict:
         raise AssertionError(f"flash_attention head_dim 128: {attrs['local_bytes']}"
                              " bytes of local memory a thread (a spill)")
     out = {"kernel_attributes": attrs}
-    for label, (qs, ks, _, _) in (("yi-6b prefill", cases[-5]),
-                                  ("long prompt", cases[-4])):
+    for label, (qs, ks, _, _) in (("yi-6b prefill", cases[16]),
+                                  ("long prompt", cases[17])):
         b, h, s, d = qs
         q = torch.randn(qs, generator=gen, device=dev)
         k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
@@ -662,6 +746,60 @@ def flash_attention_128(torch, dev, gen, cases) -> dict:
               f"{row['bound_by']}; device time {row['device_ms']:.4f}, SDPA "
               f"{row['library_device_ms']:.4f})", flush=True)
         out[label] = row
+    return out
+
+
+# MLA's instances at the shapes of this slice's paths: the training forward
+# (5 clients × batch 8 × seq 64) and the serve prefill (batch 4, prompt
+# 32); q, k and v of one shape, causal
+MLA_FLASH = {96: {"minicpm3-4b train": (40, 40, 64, 96),
+                  "minicpm3-4b prefill": (4, 40, 32, 96)},
+             192: {"deepseek-v2 train": (40, 128, 64, 192),
+                   "deepseek-v2 prefill": (4, 128, 32, 192)}}
+
+
+def flash_attention_mla(torch, dev, gen) -> dict:
+    """The head_dim-96 and 192 instances at MLA_FLASH's shapes, each timed
+    beside the plain version, SDPA and the bound, with the instance's
+    registers, local and shared memory; no local memory allowed (a
+    spill). The scale is MLA's, 1/√D."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for d, shapes in MLA_FLASH.items():
+        attrs = fa.kernel_attributes(d)
+        print(f"flash_attention head_dim {d} kernel: {attrs}", flush=True)
+        if attrs["local_bytes"] != 0:
+            raise AssertionError(f"flash_attention head_dim {d}: "
+                                 f"{attrs['local_bytes']} bytes of local "
+                                 "memory a thread (a spill)")
+        rows = {"kernel_attributes": attrs}
+        for label, shape in shapes.items():
+            b, h, s, _ = shape
+            q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(3))
+            row = {"shape": f"q/k/v [{b},{h},{s},{d}] causal"}
+            row["ms"] = time_ms(torch, lambda: fa.flash_attention_cuda(
+                q, k, v))
+            row["plain_ms"] = time_ms(torch, lambda: fa.attention_plain(
+                q, k, v))
+            row["library_ms"] = time_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=True))
+            row["device_ms"] = device_ms(torch, lambda: fa.flash_attention_cuda(
+                q, k, v))
+            row["library_device_ms"] = device_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=True))
+            flops = b * h * (s * (s + 1) // 2) * (4 * d + 3)
+            row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 4 * q.numel(),
+                                                        flops)
+            print(f"flash_attention head_dim {d}, {label} {row['shape']}: "
+                  f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
+                  f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+                  f"{row['bound_by']}; device time {row['device_ms']:.4f}, "
+                  f"SDPA {row['library_device_ms']:.4f})", flush=True)
+            rows[label] = row
+        out[f"head_dim_{d}"] = rows
     return out
 
 
@@ -1108,12 +1246,18 @@ def check_small_reference(torch, dev) -> None:
                        head_dim=16)
     ssm = get_arch("mamba2-370m").reduced()
     hyb = get_arch("recurrentgemma-2b").reduced(n_layers=5)
+    deepseek = get_arch("deepseek-v2-236b").reduced()
+    moonshot = get_arch("moonshot-v1-16b-a3b").reduced()
     runs = [(name, cfg, "sst2", pz_defaults(cfg, rounds=8, n_perturb=2,
                                             fused=fused))
             for name, cfg, fused in (("chained", tiny, False),
                                      ("fused", tiny, True),
                                      ("ssm", ssm, False),
-                                     ("hybrid", hyb, False))]
+                                     ("hybrid", hyb, False),
+                                     ("mla+moe chained", deepseek, False),
+                                     ("mla+moe fused", deepseek, True),
+                                     ("moe chained", moonshot, False),
+                                     ("moe fused", moonshot, True))]
     for mechanism, scheme in (("analog", "static"), ("analog", "reversed"),
                               ("perfect", "perfect"), ("sign", "solution"),
                               ("sign", "static"), ("sign", "reversed")):
@@ -1174,9 +1318,22 @@ def check_small_reference(torch, dev) -> None:
         scan = fedsim.run(cfg, pz, pipe, 3, params=weights(dev), device=dev,
                           engine="scan", chunk_rounds=3, hooks=[seen["scan"]])
         launches["scan"] = read_launches()
-        if launches["loop"] != want or launches["scan"] != want:
+        if cfg.moe.enabled:
+            # the dispatch and combine are free of atomics: a second GPU
+            # loop run repeats the first bitwise
+            reset_launches()
+            again = fedsim.run(cfg, pz, pipe, 3, params=weights(dev),
+                               device=dev)
+            launches["again"] = read_launches()
+            if again.losses != gpu.losses or again.p_hats != gpu.p_hats \
+                    or not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                        zo.flatten(again.params), zo.flatten(gpu.params))):
+                raise AssertionError(f"tiny {name}: a second GPU run "
+                                     f"{again.losses} differs from the "
+                                     f"first {gpu.losses}")
+        if any(run != want for run in launches.values()):
             raise AssertionError(f"tiny {name}: launches {launches}, "
-                                 f"expected {want} on each engine")
+                                 f"expected {want} in each GPU run")
         state = {"params": (scan.params, gpu.params)}
         if fo:
             state.update(m=(scan.opt_state["m"], gpu.opt_state["m"]),
@@ -1210,7 +1367,9 @@ def check_small_reference(torch, dev) -> None:
               + ("" if parted is None else " before it") + f"); p_hat "
               f"{gpu.p_hats}; mask sums {seen['gpu'].k_eff}; privacy spent "
               f"{gpu.privacy_spent:.6g}; the scan engine's match the loop's "
-              "bitwise" + (" (Adam moments too)" if fo else ""), flush=True)
+              "bitwise" + (" (Adam moments too)" if fo else "")
+              + ("; a second GPU loop run repeats the first bitwise"
+                 if cfg.moe.enabled else ""), flush=True)
 
 
 @contextlib.contextmanager
@@ -1248,7 +1407,7 @@ def teacher_forced(torch, cfg, params, seq, s: int):
     mod = registry.get_module(cfg)
     b, n = seq.shape
     logits, cache = mod.prefill(params, cfg, seq[:, :s])
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         big = mod.init_cache(cfg, b, n, device=seq.device)
         for name, c in cache.items():
             big[name][:, :, :s] = c
@@ -1286,7 +1445,9 @@ def leaves_rel_err(torch, got, want, what: str, tol: float) -> float:
 
 def check_small_serve(torch, dev) -> None:
     """The serve paths of the tiny dense, ssm and hybrid models (24 + 16
-    tokens, so the hybrid's decode wraps its 32-slot window) on the card
+    tokens, so the hybrid's decode wraps its 32-slot window) and of the
+    reduced deepseek-v2 (MLA's latent cache, MoE with a shared expert) and
+    moonshot (GQA, MoE) on the card
     (kernels) against the CPU (plain versions) from the same weights: the
     prefill logits and every state leaf, the teacher-forced logits along
     the CPU's greedy output (TINY_SERVE_TOL), and serve_loop's tokens
@@ -1304,7 +1465,9 @@ def check_small_serve(torch, dev) -> None:
                        n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=64,
                        head_dim=16)
     for cfg in (tiny, get_arch("mamba2-370m").reduced(),
-                get_arch("recurrentgemma-2b").reduced(n_layers=5)):
+                get_arch("recurrentgemma-2b").reduced(n_layers=5),
+                get_arch("deepseek-v2-236b").reduced(),
+                get_arch("moonshot-v1-16b-a3b").reduced()):
         mod = registry.get_module(cfg)
         cpu = registry.init_params(cfg, prng.key(3), "cpu")
         gpu = tree_to(cpu, dev)
@@ -1381,7 +1544,7 @@ def profile_decode_step(torch, cfg, params, tokens, dev) -> float:
     s = tokens.shape[1]
     seq = tokens_on(torch, tokens, dev)
     _, cache = mod.prefill(params, cfg, seq)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         big = mod.init_cache(cfg, tokens.shape[0], s + 2, device=dev)
         for name, c in cache.items():
             big[name][:, :, :s] = c
@@ -1420,16 +1583,18 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     (counters set to 0 just before it, read just after), peak at most
     SERVE_PEAK_THETA θ, the prefill with the kernels against the plain
     versions on the card, and (but for the hybrid, whose prefill returns a
-    zero state) decode ≡ forward, teacher-forced along its own output.
-    yi-6b also runs once through `serve.main`."""
+    zero state) decode ≡ forward, teacher-forced along its own output (the
+    moe family's both at `no_drop` capacity: a one-token decode step drops
+    no token, a capacity-bound forward does). yi-6b also runs once through
+    `serve.main`. Configs in DEPTH run at full width with their depth
+    cut."""
     import numpy as np
 
     from repro_torch import prng
-    from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
-    cfg = get_arch(arch)
+    cfg = full_width(arch)
     mod = registry.get_module(cfg)
     theta = 4 * cfg.param_count()
     row = {"name": f"serve {arch}"}
@@ -1502,8 +1667,9 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     del kernels, plain
     if cfg.family != "hybrid":
         seq = tokens_on(torch, out, dev)
-        tf = teacher_forced(torch, cfg, params, seq, SERVE_PROMPT)
-        fw = forward_logits(cfg, params, seq)[:, SERVE_PROMPT - 1:-1]
+        tf = teacher_forced(torch, no_drop(cfg), params, seq, SERVE_PROMPT)
+        fw = forward_logits(no_drop(cfg), params, seq)[
+            :, SERVE_PROMPT - 1:-1]
         row["decode_vs_forward_err"] = float((tf - fw).abs().max())
         if not torch.allclose(tf, fw, **DECODE_TOL):
             raise AssertionError(f"serve {arch}: teacher-forced decode vs "
@@ -1514,7 +1680,8 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     if profiling:
         row["decode_idle"] = profile_decode_step(torch, cfg, params, tokens,
                                                  dev)
-    print(f"serve {arch}: weight init on the card {row['init_s']:.3f} s; "
+    print(f"serve {arch}{depth_note(cfg)}: weight init on the card "
+          f"{row['init_s']:.3f} s; "
           f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: "
           f"prefill {row['prefill_ms']:.3f} ms, decode {row['decode_ms']:.3f}"
           f" ms/step (median of {len(steps)}; {row['decode_ms_min']:.3f}-"
@@ -1573,11 +1740,21 @@ def expected_launches(cfg, rounds: int, fused: bool, evals: int = 0,
     if fo:
         return out
     if fused:
-        # per rollout: the seven projections of each layer; one resolve per
-        # layer norm (two a layer), final norm and untied lm head; one
-        # gather of the embedding rows. The update is one axpy per leaf.
-        out["perturbed_matmul"] = rollouts * 7 * cfg.n_layers
-        resolves = 2 * cfg.n_layers + 1 + (0 if cfg.tie_embeddings else 1)
+        # per rollout, each layer: its projections by perturbed_matmul
+        # (GQA's four, or MLA's wkv_a, wo and wq_a, wq_b or wq; the MLP's
+        # three, or the router and a shared MLP's three) and one resolve
+        # per layer norm (ln1, ln2; MLA's kv_norm and q_norm), MLA's wkv_b
+        # and each expert bank; then the final norm and the untied lm head,
+        # and one gather of the embedding rows. The update is one axpy per
+        # leaf.
+        mla, moe = cfg.mla, cfg.moe
+        q_lora = mla.q_lora_rank > 0
+        pmm = (3 + q_lora if mla.enabled else 4) + (
+            1 + 3 * (moe.n_shared_experts > 0) if moe.enabled else 3)
+        res = 2 + (2 + q_lora if mla.enabled else 0) + (
+            3 if moe.enabled else 0)
+        out["perturbed_matmul"] = rollouts * pmm * cfg.n_layers
+        resolves = res * cfg.n_layers + 1 + (0 if cfg.tie_embeddings else 1)
         out["seeded_axpy"] = (rollouts * resolves
                               + rounds * n_perturb * n_leaves)
         out["seeded_gather"] = rollouts
@@ -1656,10 +1833,11 @@ class Stamp:
 
 
 def final_state(torch, res, name: str) -> dict:
-    """A run's final state on the host, by path: the parameters (the
-    hybrid's as `fingerprint` checksums) and under FO both Adam moments."""
+    """A run's final state on the host, by path: the parameters (those of
+    the LARGE paths as `fingerprint` checksums) and under FO both Adam
+    moments."""
     from repro_torch.core import zo
-    if name == "hybrid":
+    if name in LARGE:
         return fingerprint(torch, res.params)
     out = {p: t.cpu() for p, t in zo.flatten(res.params)}
     if res.opt_state is not None:
@@ -1720,7 +1898,8 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
     check_uplink(name, res, pz, seen.k_eff, cfg.param_count())
     steady = statistics.median(pre.times[r] - post.times[r - 1]
                                for r in range(1, rounds))
-    print(f"path {name}: {cfg.name}, {rounds} rounds (loop engine); run "
+    print(f"path {name}: {cfg.name}{depth_note(cfg)}, {rounds} rounds "
+          "(loop engine); run "
           f"{wall:.3f} s with weight init and schedule solve; steady "
           f"{steady * 1e3:.1f} ms/round, {1 / steady:.3f} rounds/s; losses "
           f"{res.losses}; p_hat {res.p_hats}; accuracies {res.accuracies}; "
@@ -1738,6 +1917,13 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
 
 
 def check_peak(name: str, peak_theta: float) -> None:
+    if name in ("mla", "moe", "moe-fused") and not peak_theta < 2.0:
+        # θ (11.8-36.0 GB) + the [2560, V] f32 logits and their
+        # log-sum-exp, the expanded MLA k/v or the expert dispatch, and
+        # under fused one layer's resolved banks and the lm head: about
+        # 1.2 θ; a θ-sized copy would show as 2.2 θ or more
+        raise AssertionError(f"{name} path peak {peak_theta:.2f} x theta, "
+                             "want < 2.0")
     if name == "hybrid" and not peak_theta <= 2.0:
         # θ + the [2560, 256000] logits + their log-sum-exp ≈ 1.45 θ; a
         # θ-sized copy would show as about 2.5 θ
@@ -1858,28 +2044,113 @@ def time_scan_chunks(torch, dev, loop: dict, params, rounds: int,
     return (stamp.times[-1] - stamp.times[0]) / (rounds - bounds[0][1])
 
 
+@contextlib.contextmanager
+def recorded_routing(log: list):
+    """`layers._moe_rows` wrapped to append each call's router logits
+    [B, T, E] (one call per MoE layer and dispatch group, in order) to
+    `log`: the comparison side of the fused check on the moe family."""
+    from repro_torch.models import layers
+    inner = layers._moe_rows
+
+    def rows(banks, x, logits, k, cap):
+        log.append(logits.detach().double().cpu())
+        return inner(banks, x, logits, k, cap)
+
+    layers._moe_rows = rows
+    try:
+        yield
+    finally:
+        layers._moe_rows = inner
+
+
+def routing_parted(torch, fused: list, fresh: list, k: int):
+    """The batch rows whose top-k routing parts between two forwards, walked
+    layer by layer (a row that parted is not compared further: its hidden
+    state differs from there on). A token may part only on a near-tie: its
+    top-k+1 logits in the fresh forward have two within 2·max|Δ| of its
+    logits of each other (the necessary condition for two experts to swap
+    ranks), else this raises. Returns the parted rows [B] and the number
+    of tokens that parted."""
+    parted = torch.zeros(fresh[0].shape[0], dtype=torch.bool)
+    tokens = 0
+    for layer, (a, r) in enumerate(zip(fused, fresh)):
+        ia = torch.sort(a, dim=-1, descending=True, stable=True).indices
+        vr, ir = torch.sort(r, dim=-1, descending=True, stable=True)
+        differ = (ia[..., :k] != ir[..., :k]).any(-1) & ~parted[:, None]
+        if not differ.any():
+            continue
+        gap = (vr[..., :k] - vr[..., 1:k + 1]).min(-1).values
+        bound = 2 * (a - r).abs().amax(-1)
+        if (differ & (gap > bound)).any():
+            raise AssertionError(
+                f"fused vs fresh: MoE layer call {layer} routes "
+                f"{int((differ & (gap > bound)).sum())} tokens differently "
+                "with no near-tie to explain it")
+        tokens += int(differ.sum())
+        parted |= differ.any(-1)
+    return parted, tokens
+
+
 def check_fused_against_fresh(torch, dev, path: dict) -> None:
     """One full-width fused dual forward against a fresh one from the same
     weights and batch (losses rtol 1e-4: the fused kernel sums in another
-    order than cuBLAS)."""
+    order than cuBLAS): the path's trained weights, or under MoE the
+    seed-0 weights. The router's top-k is discrete: a token whose ranks
+    around the k-th logit are within rounding may route to another expert
+    in the two forwards (`routing_parted`, which fails on any other
+    difference), and a client with such a row is left out of the loss
+    comparison of that rollout. After the moe-fused path's 4 rounds at the
+    CLI's lr the weights have moved by several times their init scale
+    (losses 17 → 57), and each layer amplifies the two forwards' rounding
+    differences many times over: from the third layer on they exceed the
+    router's gaps, and on the H100 a row of every client parted there.
+    The seed-0 weights hold the fused dual forward to the same function
+    without that amplification."""
+    from repro_torch import prng
     from repro_torch.core import engine, pairzero, zo
+    from repro_torch.models import registry
     cfg, params = path["cfg"], path["params"]
+    if cfg.moe.enabled:
+        params = registry.init_params(cfg, prng.key(0), dev)
     batch = {k: v[0] for k, v in engine.stack_batches(path["pipe"], 0, 1,
                                                        dev).items()}
     loss_fn = pairzero.make_loss_fn(cfg)
     seeds = zo.seed_row(zo.perturb_seed(1234, 0), len(zo.flatten(params)),
                         dev)
-    out = {}
+    out, logs = {}, {}
     for mode in ("fused", "fresh"):
-        lp, lm, _ = zo.dual_forward(lambda p: loss_fn(p, batch), params,
-                                    seeds, 1e-3, mode=mode)
+        logs[mode] = []
+        with recorded_routing(logs[mode]):
+            lp, lm, _ = zo.dual_forward(lambda p: loss_fn(p, batch), params,
+                                        seeds, 1e-3, mode=mode)
         out[mode] = torch.stack([lp, lm]).cpu()
-    if not torch.allclose(out["fused"], out["fresh"], rtol=1e-4, atol=0):
+    keep = torch.ones_like(out["fresh"], dtype=torch.bool)
+    note = ""
+    if cfg.moe.enabled:
+        n_clients, rows = batch["tokens"].shape[:2]
+        half = len(logs["fresh"]) // 2
+        moved = []
+        for rollout in range(2):
+            span = slice(rollout * half, (rollout + 1) * half)
+            parted, tokens = routing_parted(
+                torch, logs["fused"][span], logs["fresh"][span],
+                cfg.moe.n_experts_per_tok)
+            keep[rollout] = ~parted.reshape(n_clients, rows).any(-1)
+            moved.append(tokens)
+        note = (f"; MoE routing parted on near-ties at {moved} tokens "
+                f"(rollouts +, -), {int((~keep).sum())} of "
+                f"{keep.numel()} (rollout, client) losses left out")
+        print(f"fused vs fresh: {note[2:]}", flush=True)
+        if not keep.any():
+            raise AssertionError("fused vs fresh: every client's routing "
+                                 "parted; nothing left to compare")
+    got, want = out["fused"][keep], out["fresh"][keep]
+    if not torch.allclose(got, want, rtol=1e-4, atol=0):
         raise AssertionError(f"fused dual forward {out['fused'].tolist()} vs "
-                             f"fresh {out['fresh'].tolist()}")
+                             f"fresh {out['fresh'].tolist()}{note}")
     print(f"fused vs fresh dual forward at full width: max rel diff "
-          f"{float(((out['fused'] - out['fresh']) / out['fresh']).abs().max()):.3e}"
-          " (rtol 1e-4)", flush=True)
+          f"{float(((got - want) / want).abs().max()):.3e}"
+          f" (rtol 1e-4){note}", flush=True)
 
 
 class StartProfile:
@@ -2318,7 +2589,11 @@ def main() -> int:
     for name, cfg, fused in (("chained", opt, False), ("fused", opt, True),
                              ("mamba2", mamba, False),
                              ("hybrid", rgemma, False), ("sign", opt, False),
-                             ("fo", opt, False)):
+                             ("fo", opt, False),
+                             ("mla", full_width("minicpm3-4b"), False),
+                             ("moe", full_width("deepseek-v2-236b"), False),
+                             ("moe-fused", full_width("moonshot-v1-16b-a3b"),
+                              True)):
         scan = SCAN[name]
         path = run_path(torch, dev, name, cfg, fused, scan)
         check_peak(name, path["peak_theta"])

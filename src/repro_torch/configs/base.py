@@ -107,9 +107,9 @@ class ModelConfig:
         return count_params(self)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family variant for CPU smoke tests (the dense, ssm
-        and hybrid fields as in `repro`; the other families are not ported
-        yet)."""
+        """A tiny same-family variant for CPU smoke tests (the dense, moe,
+        mla, ssm and hybrid fields as in `repro`; the frontend of the vlm
+        and audio families is not ported yet)."""
         kw: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -120,6 +120,15 @@ class ModelConfig:
             head_dim=16,
             n_encoder_layers=min(self.n_encoder_layers, 2),
         )
+        if self.moe.enabled:
+            kw["moe"] = MoEConfig(
+                n_experts=4, n_experts_per_tok=2,
+                n_shared_experts=min(self.moe.n_shared_experts, 1),
+                d_expert=64)
+        if self.mla.enabled:
+            kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=48,
+                                  qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                  v_head_dim=16)
         if self.ssm.enabled:
             kw["ssm"] = SSMConfig(d_state=16, d_conv=4, expand=2,
                                   head_dim=16, chunk=32)

@@ -82,7 +82,8 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
     if pz.fused_perturbation:
         # fused dual forward: z regenerated inside the layer kernels
         # (zo.tag_perturbed); the reference wires it for the transformer
-        # families only (moe is not ported: make_loss_fn raised above)
+        # families only (dense and moe: MLA's wkv_b and the expert banks
+        # resolve to per-layer transients)
         if model_cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"fused_perturbation supports the dense/moe families; "

@@ -11,7 +11,10 @@
 // about 0.26 GFLOP of useful work, so it is bound by bytes (~9.4 us at
 // 3.35 TB/s); the f32 operations need ~4 us at 67 TFLOP/s.
 //
-// Design at head_dim 16, 32 and 64 (flash_fwd_small_kernel): one block
+// Design at head_dim 16, 32, 64 and 96 (flash_fwd_small_kernel; 96 is
+// minicpm3-4b's MLA q.k head, 64 + 32: its two K/V buffers fill the 48 KiB
+// of static shared memory exactly, and its qr[6] and acc[6] float4 and 32
+// scores take three blocks an SM, not four): one block
 // per (batch*head, tile of 32 query rows), each query row split over
 // kSmallLanes = 4 adjacent lanes of a warp (eight rows per warp, 128
 // threads a block); lane k owns the float4 columns k + 4i, so the four
@@ -28,8 +31,12 @@
 // shuffles instead of D FMAs. Plain f32 FMA and the precise expf, no TF32
 // and no tensor cores (wgmma tiles are later work).
 //
-// Head dims 128 and 256 have their own kernel, flash_fwd_group_kernel, a
-// template on D: 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
+// Head dims 128, 192 and 256 have their own kernel, flash_fwd_group_kernel,
+// a template on D: 192 for deepseek-v2's MLA q.k head (128 + 64, v padded
+// from 128 to 192 by the model, q [40,128,64,192] on 128 kv heads: group
+// 1, so an item is one head x 80 positions), with its own P V column
+// tiling (GroupShape: 48 float4 columns do not split over 32 column
+// groups; 183,200 B of dynamic shared memory); 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
 // head [40,1,64,256], causal, window 2048), 128 for yi-6b's prefill (q
 // [4,32,32,128] on four kv heads [4,4,32,128], causal: a group of 8 is one
 // chunk of 8 heads x 10 positions). At 128 the same block layout holds
@@ -148,9 +155,15 @@ constexpr int kSmallBK = 32;                      // key rows per tile
 
 // at most 128 registers, so four blocks (16 warps) share an SM: on the H100
 // that ran faster than 137 registers and three blocks, and than 16-row
-// blocks or 16-key tiles
+// blocks or 16-key tiles. At 96 the accumulator and q take 48 registers
+// and the tile's scores 32; under the 128-register cap ptxas spilled 32
+// bytes a thread (NVIDIA H100 80GB HBM3), so 96 runs three blocks an SM
+// at up to 168 registers.
 template <int D>
-__global__ void __launch_bounds__(kSmallThreads, 4)
+constexpr int small_min_blocks() { return D > 64 ? 3 : 4; }
+
+template <int D>
+__global__ void __launch_bounds__(kSmallThreads, small_min_blocks<D>())
 flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int hq, int hkv, int sq, int skv, float scale,
@@ -325,8 +338,17 @@ struct GroupShape {
   static constexpr int kKG = kGBK / kGKeysPerThread;        // key groups
   static constexpr int kDS = kGThreads / (kRG * kKG);       // D slices of S
   static constexpr int kSliceD = D / kDS;
-  static constexpr int kCG = kGThreads / kRG;               // column groups
+  // P V: kCG column groups of kPC float4 columns and kPRG row groups of
+  // kPRT rows. Where the S tile's row groups split D / 4 evenly (128,
+  // 256) the two tiles share rows; at 192 (48 float4 columns) each of 48
+  // column groups takes one column and 10 row groups of 8 rows cover the
+  // 80 rows: 480 threads, the last warp idle in P V.
+  static constexpr int kCG = kD4 % (kGThreads / kRG) == 0 ? kGThreads / kRG
+                                                          : kD4;
   static constexpr int kPC = kD4 / kCG;                     // float4 a thread
+  static constexpr int kPRG = kGThreads / kCG;              // row groups
+  static constexpr int kPRT = kGRows / kPRG;                // rows a thread
+  static constexpr int kPVThreads = kPRG * kCG;
   static constexpr int kQStride = D + 4;                    // padded Q row
   static constexpr int kSStride = kGBK + 4;                 // padded S row
   // softmax lanes a row: as many as the block's threads allow, up to 4
@@ -342,8 +364,8 @@ struct GroupShape {
                 "keys a thread in float4");
   static_assert(kRG * kKG * kDS == kGThreads && kSliceD % 4 == 0,
                 "S tile must cover the block's threads");
-  static_assert(kRG * kCG == kGThreads && kD4 % kCG == 0 && kCG >= 8,
-                "P V tile must cover the block's threads");
+  static_assert(kPRG * kPRT == kGRows && kD4 % kCG == 0 && kCG >= 8 &&
+                kPVThreads <= kGThreads, "P V tile must cover the rows");
   static_assert(kGBK % (4 * kSL) == 0, "softmax lanes split the key tile");
   static_assert(kRG <= 32 && (kKG * kRG) % 32 == 0, "S warps");
   // warps with no softmax row copy Q and K/V tiles (warp 0 if none)
@@ -479,9 +501,10 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rg = tid % G::kRG;
   const int kg = (32 / G::kRG) * (tid / 32 / G::kDS) + (tid % 32) / G::kRG;
   const int ds = (tid / 32) % G::kDS;
-  // P V coordinates: rows pr + kRG i, float4 columns cg + kCG c
+  // P V coordinates: rows pr + kPRG i, float4 columns cg + kCG c
   const int cg = tid % G::kCG;
   const int pr = tid / G::kCG;
+  const bool pv_active = tid < G::kPVThreads;
 
   int round = 0;                                     // items done
   GroupItem cur = group_item(a, item_index(0));      // gridDim.x <= n_items
@@ -498,7 +521,7 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_tile(k, cur.bkv, cur.t_first, 0);
   load_tile(v, cur.bkv, cur.t_first, 1);
 
-  float4 acc[RT][G::kPC];
+  float4 acc[G::kPRT][G::kPC];
   float m = -INFINITY;
   float l = 0.0f;
   int t = cur.t_first;
@@ -522,7 +545,7 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       fence_proxy_async();
 #pragma unroll
-      for (int i = 0; i < RT; ++i)
+      for (int i = 0; i < G::kPRT; ++i)
 #pragma unroll
         for (int c = 0; c < G::kPC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
       m = -INFINITY;
@@ -649,12 +672,12 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();         // (C) P, alpha and V(t) shown
 
     // O = alpha O + P V over the keys the item can see in this tile
-    {
+    if (pv_active) {
       const int j_lo = max(0, cur.k_begin - k0) & ~3;
       const int j_hi = min(kGBK, cur.k_end - k0);
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float al = alpha_s[pr + i * G::kRG];
+      for (int i = 0; i < G::kPRT; ++i) {
+        const float al = alpha_s[pr + i * G::kPRG];
 #pragma unroll
         for (int c = 0; c < G::kPC; ++c) {
           acc[i][c].x *= al; acc[i][c].y *= al; acc[i][c].z *= al; acc[i][c].w *= al;
@@ -664,10 +687,10 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* vt = ring + ((pos + 1) % kGSlots) * kGBK * D + 4 * cg;
 #pragma unroll 1
       for (int j = j_lo; j < j_hi; j += 4) {
-        float4 p[RT];
+        float4 p[G::kPRT];
 #pragma unroll
-        for (int i = 0; i < RT; ++i)
-          p[i] = *reinterpret_cast<const float4*>(pt + i * G::kRG * G::kSStride + j);
+        for (int i = 0; i < G::kPRT; ++i)
+          p[i] = *reinterpret_cast<const float4*>(pt + i * G::kPRG * G::kSStride + j);
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           float4 vv[G::kPC];
@@ -675,7 +698,7 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int c = 0; c < G::kPC; ++c)
             vv[c] = *reinterpret_cast<const float4*>(vt + (j + jj) * D + 4 * G::kCG * c);
 #pragma unroll
-          for (int i = 0; i < RT; ++i) {
+          for (int i = 0; i < G::kPRT; ++i) {
             const float w = jj == 0 ? p[i].x : jj == 1 ? p[i].y
                           : jj == 2 ? p[i].z : p[i].w;
 #pragma unroll
@@ -694,9 +717,9 @@ flash_fwd_group_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (s_active && slane == 0) l_s[srow] = l;
       __syncthreads();       // (D) l shown
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = pr + i * G::kRG;
-        const int64_t row = group_row(a, cur, r);
+      for (int i = 0; i < G::kPRT; ++i) {
+        const int r = pr + i * G::kPRG;
+        const int64_t row = pv_active ? group_row(a, cur, r) : -1;
         if (row < 0) continue;
         const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
         float4* op = reinterpret_cast<float4*>(o + row * D) + cg;
@@ -801,16 +824,40 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 16: return launch_small<16>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 32: return launch_small<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 64: return launch_small<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 96: return launch_small<96>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 128: return launch_group<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 192: return launch_group<192>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 256: return launch_group<256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// flash_fwd_group_kernel<d> as built, on the current device: eight ints
-// into info[8] -- registers and local memory bytes per thread, static and
-// dynamic shared memory bytes per block, resident blocks per SM, threads a
-// block, (head, position) rows a block, keys a K/V tile.
+// the head_dim-d kernel as built, on the current device
+// (flash_fwd_small_kernel<d> at 16, 32, 64 and 96, flash_fwd_group_kernel<d>
+// at 128, 192 and 256): eight ints into info[8] -- registers and local
+// memory bytes per thread, static and dynamic shared memory bytes per
+// block, resident blocks per SM, threads a block, query rows a block
+// ((head, position) rows for the group kernel), keys a K/V tile.
+template <int D>
+int small_attributes(int* info) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_small_kernel<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_small_kernel<D>, kSmallThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = fa.numRegs;
+  info[1] = static_cast<int>(fa.localSizeBytes);
+  info[2] = static_cast<int>(fa.sharedSizeBytes);
+  info[3] = 0;
+  info[4] = blocks;
+  info[5] = kSmallThreads;
+  info[6] = kSmallRows;
+  info[7] = kSmallBK;
+  return 0;
+}
+
 template <int D>
 int group_attributes(int* info) {
   const int smem = group_smem_bytes<D>();
@@ -837,7 +884,12 @@ int group_attributes(int* info) {
 
 extern "C" int flash_attention_attributes(int d, int* info) {
   switch (d) {
+    case 16: return small_attributes<16>(info);
+    case 32: return small_attributes<32>(info);
+    case 64: return small_attributes<64>(info);
+    case 96: return small_attributes<96>(info);
     case 128: return group_attributes<128>(info);
+    case 192: return group_attributes<192>(info);
     case 256: return group_attributes<256>(info);
     default: return cudaErrorInvalidValue;
   }

@@ -3,18 +3,24 @@
 
 Replaces the TPU kernel `repro/kernels/flash_attention.py:
 flash_attention_pallas` (body `_flash_kernel`) with the hand-written CUDA
-kernel in `csrc/flash_attention.cu` (f32, head_dim 16, 32, 64, 128 or 256
-as is — no padding to a multiple of 128 as the TPU path needs).
+kernel in `csrc/flash_attention.cu` (f32, instances at head_dim 16, 32,
+64, 96, 128, 192 and 256). Any other head_dim up to 256 is zero-padded up
+to the next instance (the reference pads to a multiple of 128), the
+scale taken from the unpadded head_dim, and the result sliced back;
+above 256 the wrapper raises.
 
 Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
 31.5 MB of q/k/v/out, ≥ 9.4 µs at 3.35 TB/s. At recurrentgemma-2b's
 (q [40,10,64,256] against one kv head [40,1,64,256], causal, window
 2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
 67 TFLOP/s. At yi-6b's prefill (q [4,32,32,128] on four kv heads
-[4,4,32,128], causal): bytes, 4.7 MB, ≥ 1.4 µs. At head_dim ≤ 64 each
+[4,4,32,128], causal): bytes, 4.7 MB, ≥ 1.4 µs. At the MLA heads, q, k
+and v of one shape, causal: minicpm3-4b's [40,40,64,96], bytes, 157.3 MB,
+≥ 47 µs; deepseek-v2's [40,128,64,192], bytes, 1.007 GB, ≥ 300 µs. At
+head_dim ≤ 96 each
 query row's accumulator stays in registers, split over 4 lanes, with
 key/value tiles of 32 rows copied by `cp.async` into two buffers. At
-head_dim 128 and 256 one persistent block an SM walks work items of 80
+head_dim 128, 192 and 256 one persistent block an SM walks work items of 80
 (q head, position) rows of one kv head's query group, so each K/V tile is
 copied once for the whole group; every copy is a TMA bulk copy, and both
 products are register-blocked f32 FMA from shared memory. Scores and
@@ -31,7 +37,8 @@ from typing import Optional
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the CUDA source has an instance for; others pad up to one
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
@@ -72,10 +79,11 @@ def _lib():
 
 
 def kernel_attributes(d: int = 256) -> dict:
-    """The head_dim-d kernel (`flash_fwd_group_kernel<d>`, d 128 or 256)
-    as built on the current CUDA device: registers and local memory per thread, static and
-    dynamic shared memory per block, resident blocks per SM, threads, rows
-    and keys of a K/V tile per block."""
+    """The head_dim-d instance (`flash_fwd_small_kernel<d>` at d ≤ 96,
+    `flash_fwd_group_kernel<d>` at 128, 192 and 256) as built on the
+    current CUDA device: registers and local memory per thread, static
+    and dynamic shared memory per block, resident blocks per SM, threads,
+    query rows and keys of a K/V tile per block."""
     from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -90,7 +98,8 @@ def kernel_attributes(d: int = 256) -> dict:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous f32 CUDA tensors."""
+    """Launch the CUDA kernel on contiguous f32 CUDA tensors; a head_dim
+    without an instance runs zero-padded up to the next one."""
     global launches
     b, hq, sq, d = q.shape
     bk, hkv, skv, dk = k.shape
@@ -99,9 +108,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} do not line up")
     if hq % hkv or sq > skv:
         raise ValueError("attention: want Hq % Hkv == 0 and Sq <= Skv")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"attention: head_dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS} for the CUDA kernel")
+    if d > SUPPORTED_HEAD_DIMS[-1]:
+        raise ValueError(f"attention: head_dim {d} is above the CUDA "
+                         f"kernel's largest, {SUPPORTED_HEAD_DIMS[-1]}")
     for t in (q, k, v):
         if t.dtype != torch.float32 or t.device != q.device \
                 or not t.is_contiguous():
@@ -111,13 +120,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention: window must be positive, got {window}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    d_run = next(x for x in SUPPORTED_HEAD_DIMS if x >= d)
+    if d_run != d:
+        # zeros add nothing to q·k, and give zero output columns
+        q, k, v = (torch.nn.functional.pad(t, (0, d_run - d))
+                   for t in (q, k, v))
     from repro_torch.kernels import build
     fn = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, hq, hkv, sq, skv, d, float(scale), int(bool(causal)),
-                    0 if window is None else int(window), stream)
+                b, hq, hkv, sq, skv, d_run, float(scale), int(bool(causal)),
+                0 if window is None else int(window), stream)
     build.check(status, "flash_attention_f32")
     launches += 1
-    return out
+    return out if d_run == d else out[..., :d].contiguous()

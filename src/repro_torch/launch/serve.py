@@ -7,7 +7,8 @@
         --reduced --arch mamba2-370m
 
 Runs prefill once, then a decode loop with the architecture's own state:
-the KV cache of the dense family, the SSD state and conv tail of the ssm
+the KV cache of the dense and moe families (MLA's compressed latent
+cache where the config has MLA), the SSD state and conv tail of the ssm
 family, the recurrent state and rolling attention window of the hybrid
 family. Every state is updated in place. The decode step runs eagerly
 (the reference jits it with the cache donated): one launch per operation.
@@ -52,9 +53,10 @@ def serve_loop(cfg, params, tokens, gen_steps: int, *, extra_cap: int = 0,
     mark("start")
 
     logits, cache = mod.prefill(params, cfg, prompt)
-    if cfg.family == "dense":
-        # prefill's cache holds the prompt; decode writes past it, into
-        # one buffer of the whole length, filled once
+    if cfg.family in ("dense", "moe"):
+        # prefill's cache (k/v, or MLA's latent) holds the prompt; decode
+        # writes past it, into one buffer of the whole length, filled once
+        # along the sequence dim (dim 2 of every leaf)
         small = cache
         cache = mod.init_cache(cfg, b, s + gen_steps, dtype=dtype,
                                device=dev)

@@ -269,3 +269,231 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(dense({"w": p["wg"]}, x).to(torch.float32)) \
         * dense({"w": p["wi"]}, x).to(torch.float32)
     return dense({"w": p["wd"]}, h.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+def mla_specs(path: tuple, lead: tuple, cfg: ModelConfig) -> dict:
+    """`mla_init`: split(key, 6) → wkv_a ks[0], wkv_b ks[1], wo ks[2], and
+    wq_a ks[3], wq_b ks[4] (q_lora_rank > 0) or wq ks[5]."""
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    w = lambda i, shape: (lead + shape, Normal(  # noqa: E731
+        sub(path, 6, i), 1.0 / math.sqrt(shape[0])))
+    p = {"wkv_a": w(0, (d, m.kv_lora_rank + m.qk_rope_head_dim)),
+         "kv_norm": norm_specs(lead, m.kv_lora_rank),
+         "wkv_b": w(1, (m.kv_lora_rank, h * (m.qk_nope_head_dim
+                                             + m.v_head_dim))),
+         "wo": w(2, (h * m.v_head_dim, d))}
+    if m.q_lora_rank > 0:
+        p["wq_a"] = w(3, (d, m.q_lora_rank))
+        p["q_norm"] = norm_specs(lead, m.q_lora_rank)
+        p["wq_b"] = w(4, (m.q_lora_rank, h * qd))
+    else:
+        p["wq"] = w(5, (d, h * qd))
+    return p
+
+
+def _mla_q(p: dict, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q_nope [B, S, H, dn] and the roped q_rope [B, S, H, dr]."""
+    b, s, _ = x.shape
+    m = cfg.mla
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if "wq_a" in p:
+        ql = rmsnorm(p["q_norm"], dense({"w": p["wq_a"]}, x), cfg.norm_eps)
+        q = dense({"w": p["wq_b"]}, ql)
+    else:
+        q = dense({"w": p["wq"]}, x)
+    q = q.reshape(b, s, cfg.n_heads, qd)
+    q_rope = rope(q[..., m.qk_nope_head_dim:].transpose(1, 2), positions,
+                  cfg.rope_theta).transpose(1, 2)
+    return q[..., :m.qk_nope_head_dim], q_rope
+
+
+def mla_latent(p: dict, x: torch.Tensor, kpos: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The latent a token caches: the normed ckv [B, S, R] and its roped
+    key krope [B, S, dr] at positions kpos."""
+    m = cfg.mla
+    kv = dense({"w": p["wkv_a"]}, x)
+    ckv = rmsnorm(p["kv_norm"], kv[..., :m.kv_lora_rank], cfg.norm_eps)
+    krope = rope(kv[..., m.kv_lora_rank:][:, None], kpos,
+                 cfg.rope_theta)[:, 0]
+    return ckv, krope
+
+
+def mla_attend(p: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, *, kv_cache: Optional[dict] = None,
+               cache_pos: Optional[int] = None) -> torch.Tensor:
+    """MLA with the compressed latent cache: x [B, S, D] → [B, S, D].
+
+    Train and prefill (no cache): k and v are expanded per head from the
+    latent, krope broadcast over the heads, v zero-padded from v_head_dim
+    up to the q·k dim, and `kops.attention` runs with the scale of the
+    unpadded q·k dim (1/√(dn + dr)). Decode (`kv_cache` {"ckv": [B, S_max,
+    R], "krope": [B, S_max, dr]}, one layer's views, written in place at
+    `cache_pos`, a host int): the absorbed form, attention in the latent
+    space, plain f32 einsums as in the reference (no kernel there), with
+    its −1e30 fill over the whole cache length."""
+    b, s, _ = x.shape
+    m = cfg.mla
+    h, dn, dv = cfg.n_heads, m.qk_nope_head_dim, m.v_head_dim
+    qd = dn + m.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(qd)
+    kpos = positions if kv_cache is None else (
+        cache_pos + torch.arange(s, device=x.device))
+    ckv, krope = mla_latent(p, x, kpos, cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    # fused ZO: a per-layer transient drawn by seeded_axpy
+    wkv_b = kops.resolve(p["wkv_b"]).reshape(m.kv_lora_rank, h, dn + dv)
+    wk, wv = wkv_b[..., :dn], wkv_b[..., dn:]            # [R, H, dn|dv]
+    f32 = torch.float32
+
+    if kv_cache is not None:
+        kv_cache["ckv"][:, cache_pos:cache_pos + s] = ckv
+        kv_cache["krope"][:, cache_pos:cache_pos + s] = krope
+        cckv = kv_cache["ckv"].to(f32)
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.to(f32), wk.to(f32))
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat, cckv)
+        s_rope = torch.einsum("bshr,btr->bhst", q_rope.to(f32),
+                              kv_cache["krope"].to(f32))
+        scores = (s_lat + s_rope) * scale
+        t_pos = torch.arange(cckv.shape[1], device=x.device)
+        mask = t_pos[None, :] <= kpos[:, None]
+        scores = torch.where(mask[None, None], scores,
+                             torch.full((), -1e30, device=x.device))
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, cckv)
+        out = torch.einsum("bshr,rhv->bshv", o_lat, wv.to(f32))
+        return dense({"w": p["wo"]}, out.reshape(b, s, h * dv).to(x.dtype))
+
+    k_nope = torch.einsum("btr,rhn->bthn", ckv, wk)
+    v = torch.einsum("btr,rhv->bthv", ckv, wv)
+    k_full = torch.cat([k_nope, krope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    v_pad = torch.nn.functional.pad(v, (0, qd - dv))
+    out = kops.attention(q_full.transpose(1, 2).contiguous(),
+                         k_full.transpose(1, 2).contiguous(),
+                         v_pad.transpose(1, 2).contiguous(), causal=True,
+                         scale=scale)
+    out = out.transpose(1, 2)[..., :dv].reshape(b, s, h * dv)
+    return dense({"w": p["wo"]}, out)
+
+
+# ---------------------------------------------------------------------------
+# MoE — capacity-grouped top-k experts
+# ---------------------------------------------------------------------------
+
+def moe_specs(path: tuple, lead: tuple, cfg: ModelConfig) -> dict:
+    """`moe_init`: split(key, 5) → router ks[0], the expert banks we_i,
+    we_g, we_d ks[1..3], and the shared experts' `mlp_init` at ks[4] of
+    width d_expert · n_shared_experts."""
+    d, m = cfg.d_model, cfg.moe
+    w = lambda i, shape, fan_in: (lead + shape, Normal(  # noqa: E731
+        sub(path, 5, i), 1.0 / math.sqrt(fan_in)))
+    p = {"router": w(0, (d, m.n_experts), d),
+         "we_i": w(1, (m.n_experts, d, m.d_expert), d),
+         "we_g": w(2, (m.n_experts, d, m.d_expert), d),
+         "we_d": w(3, (m.n_experts, m.d_expert, d), m.d_expert)}
+    if m.n_shared_experts > 0:
+        p["shared"] = mlp_specs(sub(path, 5, 4), lead, d,
+                                m.d_expert * m.n_shared_experts)
+    return p
+
+
+def _moe_rows(banks: dict, x: torch.Tensor, logits: torch.Tensor, k: int,
+              cap: int) -> torch.Tensor:
+    """The reference's `_moe_row` for every batch row of one dispatch
+    group: x [B, T, D], router logits [B, T, E] f32, the expert banks
+    `banks` (we_i, we_g, we_d) → [B, T, D].
+
+    Dispatch: (token, slot) pairs take queue positions in flat order and
+    those at or past `cap` are dropped. The reference scatters every
+    dropped pair onto expert 0's last slot with token 0 and gate 0, and
+    on its scatter the last write wins: so when a dropped pair follows
+    the pair that filled that slot, that pair is dropped too. Here no
+    scatter has a duplicate index (the card's has no defined winner):
+    served pairs are written, dropped ones go to slots of their own past
+    the table, and that overwrite is applied explicitly. Combine: each
+    token sums its served slots in ascending expert order (the order of
+    the reference's flat scatter-add), never by atomics, so runs repeat
+    bitwise. No host synchronization: a CUDA graph captures it."""
+    b, t, d = x.shape
+    e = logits.shape[-1]
+    n = t * k
+    dev = x.device
+    # top-k in descending order, the lower index first on ties
+    # (`jax.lax.top_k`)
+    gates, top = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(gates[..., :k], dim=-1).reshape(b, n)
+    flat_e = top[..., :k].reshape(b, n)                       # [B, T·k]
+    onehot = (flat_e[..., None]
+              == torch.arange(e, device=dev)).to(torch.int32)
+    pos = torch.gather(torch.cumsum(onehot, dim=1) - 1, 2,
+                       flat_e[..., None])[..., 0].long()
+    keep = pos < cap
+    idx = torch.arange(n, device=dev)
+    last_slot = keep & (flat_e == 0) & (pos == cap - 1)
+    filled_at = torch.amax(torch.where(last_slot, idx, -1), dim=1)
+    dropped_at = torch.amax(torch.where(keep, -1, idx), dim=1)
+    served = keep & ~(last_slot & (dropped_at > filled_at)[:, None])
+    slot = flat_e * cap + pos
+    where = torch.where(served, slot, e * cap + idx)
+    tok = torch.zeros((b, e * cap + n), dtype=torch.long, device=dev)
+    tok.scatter_(1, where, (idx // k).expand(b, n))
+    gate = torch.zeros((b, e * cap + n), dtype=torch.float32, device=dev)
+    gate.scatter_(1, where, gates)
+    tok, gate = tok[:, :e * cap], gate[:, :e * cap]
+
+    xe = torch.gather(x, 1, tok[..., None].expand(b, e * cap, d))
+    xe = xe.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    hi = torch.bmm(xe, banks["we_i"])                         # [E, B·C, F]
+    hg = torch.bmm(xe, banks["we_g"])
+    hh = (torch.nn.functional.silu(hg.to(torch.float32))
+          * hi.to(torch.float32)).to(x.dtype)
+    ye = torch.bmm(hh, banks["we_d"]).to(torch.float32)
+    ye = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    ye = ye * gate[..., None]
+
+    order = torch.argsort(flat_e.reshape(b, t, k), dim=-1)
+    slot = torch.gather(slot.reshape(b, t, k), 2, order)
+    served = torch.gather(served.reshape(b, t, k), 2, order)
+    picked = torch.gather(
+        ye, 1, torch.where(served, slot, 0).reshape(b, n, 1).expand(
+            b, n, d)).reshape(b, t, k, d)
+    out = torch.zeros((b, t, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        out = out + torch.where(served[..., j, None], picked[:, :, j], 0.0)
+    return out.to(x.dtype)
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked capacity-grouped top-k MoE, as the reference's: x [B, S, D]
+    → [B, S, D]. The sequence goes in dispatch groups of
+    chunk = min(moe.chunk, S) tokens (one group of S when chunk does not
+    divide S), each expert taking cap = max(⌈k·chunk·cf / E⌉, 1) tokens
+    of a group, dispatched per batch row; the router is one product over
+    all tokens. The expert products are batched matmuls over the expert
+    banks, as in the reference; under fused ZO each bank resolves to a
+    per-layer transient, once a layer (the reference resolves it in every
+    group). Its `_moe_tiny_tokens` runs only on a mesh with a `model` axis
+    larger than 1 (ROADMAP A11)."""
+    b, s, d = x.shape
+    m = cfg.moe
+    e, k = m.n_experts, m.n_experts_per_tok
+    chunk = min(m.chunk, s) if m.chunk > 0 else s
+    if s % chunk != 0:
+        chunk = s
+    cap = max(int(math.ceil(k * chunk * m.capacity_factor / e)), 1)
+    logits = dense({"w": p["router"]}, x).to(torch.float32)
+    banks = {n: kops.resolve(p[n]) for n in ("we_i", "we_g", "we_d")}
+    out = torch.cat([_moe_rows(banks, x[:, c:c + chunk],
+                               logits[:, c:c + chunk], k, cap)
+                     for c in range(0, s, chunk)], dim=1)
+    if "shared" in p:
+        out = out + mlp(p["shared"], x)
+    return out

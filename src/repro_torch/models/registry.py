@@ -1,5 +1,5 @@
-"""Architecture-family registry (the dense, ssm and hybrid families in
-this port).
+"""Architecture-family registry (the dense, moe, ssm and hybrid families
+in this port; dense and moe share the transformer module, as in `repro`).
 
 Each family module gives `param_specs(cfg)` (nested dicts and lists of
 (shape, init) per leaf), `init` and `loss_per_client`, and for serving
@@ -18,7 +18,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.zo import flatten
 from repro_torch.models import hybrid, ssm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
+             "hybrid": hybrid}
 
 
 def get_module(cfg: ModelConfig):
@@ -43,8 +44,17 @@ def shapes(cfg: ModelConfig) -> Tuple:
                  flatten(get_module(cfg).param_specs(cfg)))
 
 
-def count_params(cfg: ModelConfig) -> int:
-    return int(sum(math.prod(s) for s in shapes(cfg)))
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Every parameter, or (active_only) those one token uses: the routed
+    experts it is not sent to left out (the reference's Table II active
+    column)."""
+    total = int(sum(math.prod(s) for s in shapes(cfg)))
+    if active_only and cfg.moe.enabled:
+        m = cfg.moe
+        inactive = cfg.n_layers * (m.n_experts - m.n_experts_per_tok) \
+            * 3 * cfg.d_model * m.d_expert
+        return total - inactive
+    return total
 
 
 def serve_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
@@ -52,8 +62,9 @@ def serve_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     """The family's decode state as meta-device tensors (shapes and dtypes,
     nothing allocated): the port's counterpart of the reference's
     `jax.eval_shape` of `init_state` / `init_cache`, with its default
-    dtype. `max_len` sizes the dense KV cache; the ssm and hybrid states
-    do not depend on it."""
+    dtype. `max_len` sizes the KV cache of the dense and moe families
+    (MLA's latent cache too); the ssm and hybrid states do not depend on
+    it."""
     mod = get_module(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return mod.init_state(cfg, batch, dtype=dtype, device="meta")

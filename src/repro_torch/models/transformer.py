@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer, ported from `repro.models.transformer`.
+"""Decoder-only transformer (the dense and moe families: GQA or MLA
+attention, a SwiGLU MLP or MoE), ported from `repro.models.transformer`.
 
 Layers keep the reference's scan-stacked layout (leading L dim on every
 block leaf) so that leaf enumeration and per-leaf counter streams match;
@@ -23,24 +24,24 @@ def param_specs(cfg: ModelConfig) -> Dict:
     """Nested dict of (shape, init) per leaf, init a `layers.Normal` on the
     reference's key path (`repro.models.transformer.init`: split(key, 4)
     → blocks vmapped over split(ks[0], L), embed ks[1], lm_head ks[2]; a
-    block's split(k, 4) → attn `gqa_init` ks[0], mlp `mlp_init` ks[1]) and
-    scale (`layers._init`), or None for the ones-initialized norms."""
-    if cfg.moe.enabled or cfg.mla.enabled:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE / MLA layers are not ported (ROADMAP A8: "
-            "other families)")
+    block's split(k, 4) → attn (`mla_init` or `gqa_init`) ks[0], moe
+    (`moe_init`) or mlp (`mlp_init`) ks[1]) and scale (`layers._init`),
+    or None for the ones-initialized norms."""
     n, d, v = cfg.n_layers, cfg.d_model, cfg.vocab_size
-    hq, hkv, hd, f = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim(),
-                      cfg.d_ff)
     blocks = L.sub(L.sub((), 4, 0), n, None)
-    attn, mlp = L.sub(blocks, 4, 0), L.sub(blocks, 4, 1)
+    attn, ffn = L.sub(blocks, 4, 0), L.sub(blocks, 4, 1)
+    block = {
+        "attn": (L.mla_specs(attn, (n,), cfg) if cfg.mla.enabled
+                 else L.gqa_specs(attn, (n,), cfg)),
+        "ln1": {"g": ((n, d), None)},
+        "ln2": {"g": ((n, d), None)},
+    }
+    if cfg.moe.enabled:
+        block["moe"] = L.moe_specs(ffn, (n,), cfg)
+    else:
+        block["mlp"] = L.mlp_specs(ffn, (n,), d, cfg.d_ff)
     specs = {
-        "blocks": {
-            "attn": L.gqa_specs(attn, (n,), cfg),
-            "ln1": {"g": ((n, d), None)},
-            "ln2": {"g": ((n, d), None)},
-            "mlp": L.mlp_specs(mlp, (n,), d, f),
-        },
+        "blocks": block,
         "embed": L.embed_specs(L.sub((), 4, 1), v, d),
         "final_norm": {"g": ((d,), None)},
     }
@@ -58,9 +59,15 @@ def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, *, cache: Optional[Dict] = None,
                  cache_pos: Optional[int] = None) -> torch.Tensor:
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    x = x + L.gqa_attend(bp["attn"], h, positions, cfg, causal=True,
-                         kv_cache=cache, cache_pos=cache_pos)
+    if cfg.mla.enabled:
+        x = x + L.mla_attend(bp["attn"], h, positions, cfg, kv_cache=cache,
+                             cache_pos=cache_pos)
+    else:
+        x = x + L.gqa_attend(bp["attn"], h, positions, cfg, causal=True,
+                             kv_cache=cache, cache_pos=cache_pos)
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    if cfg.moe.enabled:
+        return x + L.moe(bp["moe"], h, cfg)
     return x + L.mlp(bp["mlp"], h)
 
 
@@ -110,11 +117,15 @@ def loss_per_client(params: Dict, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda") -> Dict:
-    """Zero KV cache {"k", "v": [L, B, max_len, Hkv, hd]} on `device`."""
+    """Zero KV cache {"k", "v": [L, B, max_len, Hkv, hd]} on `device`;
+    under MLA the latent cache {"ckv": [L, B, max_len, kv_lora_rank],
+    "krope": [L, B, max_len, qk_rope_head_dim]}."""
     if cfg.mla.enabled:
-        raise NotImplementedError(
-            f"{cfg.name}: the MLA latent cache is not ported (ROADMAP A8: "
-            "MLA)")
+        lead = (cfg.n_layers, batch, max_len)
+        return {"ckv": torch.zeros(lead + (cfg.mla.kv_lora_rank,),
+                                   dtype=dtype, device=device),
+                "krope": torch.zeros(lead + (cfg.mla.qk_rope_head_dim,),
+                                     dtype=dtype, device=device)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim())
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -146,9 +157,10 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_embeds=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence prefill: (last-position logits [B, 1, V], cache [L, B,
-    S, Hkv, hd]). Each block runs its training form (attention through the
-    kernel), and its k/v are recomputed from the block input into the
-    cache (one extra k/v projection a layer, as the reference does)."""
+    S, Hkv, hd], or MLA's latent cache [L, B, S, R] and [L, B, S, dr]).
+    Each block runs its training form (attention through the kernel), and
+    its k/v (or latent) are recomputed from the block input into the
+    cache (one extra projection a layer, as the reference does)."""
     _no_embeds(prefix_embeds)
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
@@ -166,10 +178,15 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def _fill_cache(bp: Dict, h_norm: torch.Tensor, layer_cache: Dict,
                 positions: torch.Tensor, cfg: ModelConfig) -> None:
-    """Write this layer's roped k and its v into its cache views. (The
-    reference's `sharding.hint` on these writes lays the cache out over a
-    mesh: ROADMAP A11.)"""
+    """Write this layer's roped k and its v (MLA: its normed latent and
+    roped key) into its cache views. (The reference's `sharding.hint` on
+    these writes lays the cache out over a mesh: ROADMAP A11.)"""
     b, s, _ = h_norm.shape
+    if cfg.mla.enabled:
+        ckv, krope = L.mla_latent(bp["attn"], h_norm, positions, cfg)
+        layer_cache["ckv"][:, :s] = ckv
+        layer_cache["krope"][:, :s] = krope
+        return
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
     k = L.dense({"w": bp["attn"]["wk"]}, h_norm).reshape(b, s, hkv, hd)
     k = L.rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)

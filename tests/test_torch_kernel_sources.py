@@ -177,8 +177,8 @@ def test_perturbed_matmul_rejects_too_many_row_blocks_before_launch():
 
 
 @pytest.mark.parametrize("q_shape,kv_shape,match", [
-    # head_dim 96 (minicpm3's MLA q·k) has no instantiation (ROADMAP B3)
-    ((2, 4, 8, 96), (2, 4, 8, 96), "head_dim 96"),
+    # head_dim 320: above the largest instance, 256 (ROADMAP B3)
+    ((2, 4, 8, 320), (2, 4, 8, 320), "head_dim 320"),
     # k's head_dim differs from q's
     ((2, 4, 8, 256), (2, 4, 8, 64), "do not line up"),
     # 10 q heads on 3 kv heads

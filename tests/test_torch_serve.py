@@ -1,7 +1,7 @@
-"""The port's serve paths (dense, ssm, hybrid), `launch/serve.py` and
-`examples/serve_batched.py` against `repro` on the CPU.
+"""The port's serve paths (dense, moe, ssm, hybrid), `launch/serve.py`
+and `examples/serve_batched.py` against `repro` on the CPU.
 
-Four configurations, each package from the same seed (the port's
+Seven configurations, each package from the same seed (the port's
 threefry draws `repro`'s weights: `test_torch_prng.py`):
 - `dense`: the tiny dense config (2 layers, head_dim 16, 4 q heads on 2);
 - `yi128`: `yi-6b.reduced(head_dim=128, n_heads=8, n_kv_heads=2)`, yi-6b's
@@ -9,7 +9,12 @@ threefry draws `repro`'s weights: `test_torch_prng.py`):
 - `ssm`: `mamba2-370m.reduced()`, a 40-token prompt (its chunk, 32, does
   not divide 40, so the prefill runs one chunk of 40, as the reference);
 - `hybrid`: `recurrentgemma-2b.reduced(n_layers=5)`, one rra group and a
-  tail of two; 24 + 16 tokens, so decode wraps the 32-slot window.
+  tail of two; 24 + 16 tokens, so decode wraps the 32-slot window;
+- `minicpm3`: `minicpm3-4b.reduced()`, MLA: the latent cache, absorbed
+  decode;
+- `deepseek`: `deepseek-v2-236b.reduced()`, MLA and MoE with a shared
+  expert;
+- `moonshot`: `moonshot-v1-16b-a3b.reduced()`, GQA and MoE.
 
 Tolerances (f32 on both sides; the only differences are summation
 orders, XLA's fused multiply-adds and the weights' last ulps):
@@ -28,7 +33,10 @@ orders, XLA's fused multiply-adds and the weights' last ulps):
   8.3e-6 after one layer, 1.8e-4 after 12 and 3.6e-4 after 48, with the
   kernels and with the plain versions alike (logits up to 3.0).
   `chip_smoke.py` holds the full-width paths on the card to this
-  tolerance;
+  tolerance. A capacity-bound MoE forward drops tokens over an expert's
+  capacity and a one-token decode step drops none, so the moe family is
+  held there at a capacity factor E/k, where the forward drops none
+  either;
 - greedy tokens: equal, after a check that every step's top-2 logit gap
   exceeds LOGITS's tolerance at the top logit (else the two packages may
   rightly part on a near-tie, and the test says so instead).
@@ -64,10 +72,12 @@ STATE = dict(rtol=1e-5, atol=1e-5)
 DECODE = dict(rtol=2e-3, atol=2e-3)
 SEED = 3
 BATCH = 2
-FAMILIES = ["dense", "yi128", "ssm", "hybrid"]
+FAMILIES = ["dense", "yi128", "ssm", "hybrid", "minicpm3", "deepseek",
+            "moonshot"]
 # prompt and generated lengths per configuration
 LENGTHS = {"dense": (16, 8), "yi128": (16, 8), "ssm": (40, 8),
-           "hybrid": (24, 16)}
+           "hybrid": (24, 16), "minicpm3": (16, 8), "deepseek": (16, 8),
+           "moonshot": (16, 8)}
 
 
 def _configs(name):
@@ -79,7 +89,10 @@ def _configs(name):
     arch, kw = {"yi128": ("yi-6b", dict(head_dim=128, n_heads=8,
                                         n_kv_heads=2)),
                 "ssm": ("mamba2-370m", {}),
-                "hybrid": ("recurrentgemma-2b", dict(n_layers=5))}[name]
+                "hybrid": ("recurrentgemma-2b", dict(n_layers=5)),
+                "minicpm3": ("minicpm3-4b", {}),
+                "deepseek": ("deepseek-v2-236b", {}),
+                "moonshot": ("moonshot-v1-16b-a3b", {})}[name]
     return get_arch(arch).reduced(**kw), jreg.get_arch(arch).reduced(**kw)
 
 
@@ -131,8 +144,9 @@ def _assert_tree_close(got, want, **tol):
 
 def _jcache(case, small, max_len):
     """The reference's prefill cache in a buffer of max_len positions, as
-    its serve_loop makes it (dense); the ssm and hybrid state as it is."""
-    if case["cfg"].family != "dense":
+    its serve_loop makes it (dense, moe); the ssm and hybrid state as it
+    is."""
+    if case["cfg"].family not in ("dense", "moe"):
         return small
     big = case["jmod"].init_cache(case["jcfg"], BATCH, max_len,
                                   dtype=jnp.float32)
@@ -143,7 +157,7 @@ def _jcache(case, small, max_len):
 
 def _cache(case, small, max_len):
     """The port's counterpart of `_jcache`."""
-    if case["cfg"].family != "dense":
+    if case["cfg"].family not in ("dense", "moe"):
         return small
     big = transformer.init_cache(case["cfg"], BATCH, max_len, device="cpu")
     for name, c in small.items():
@@ -158,7 +172,7 @@ def test_serve_state_shapes_match_reference(name):
     shapes and dtypes, leaf for leaf."""
     case = _case(name)
     cfg, jcfg = case["cfg"], case["jcfg"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         ours = transformer.init_cache(cfg, BATCH, 20, device="cpu")
         ref = case["jmod"].init_cache(jcfg, BATCH, 20, dtype=jnp.float32)
     else:
@@ -269,12 +283,19 @@ def test_serve_loop_matches_reference(name):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-@pytest.mark.parametrize("name", ["dense", "yi128", "ssm"])
+@pytest.mark.parametrize("name", ["dense", "yi128", "ssm", "minicpm3",
+                                  "deepseek", "moonshot"])
 def test_decode_matches_forward(name):
     """Port only: prefill of a prompt, then stepwise decode, gives the full
-    forward's logits at every position from the prompt's last on."""
+    forward's logits at every position from the prompt's last on (MoE at
+    the capacity factor E/k, which drops no token)."""
+    import dataclasses
     case = _case(name)
     cfg, mod, params = case["cfg"], case["mod"], case["params"]
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts
+            / cfg.moe.n_experts_per_tok))
     s, steps = 12, 8
     tokens = _long(_tokens(cfg, (BATCH, s + steps), seed=2))
     want = layers.logits(params, mod.forward(params, cfg, tokens))[:, s - 1:]
@@ -316,7 +337,9 @@ def test_hybrid_prefill_returns_a_zero_state():
 
 
 @pytest.mark.parametrize("arch", ["opt-125m", "mamba2-370m",
-                                  "recurrentgemma-2b", "yi-6b"])
+                                  "recurrentgemma-2b", "yi-6b",
+                                  "minicpm3-4b", "deepseek-v2-236b",
+                                  "moonshot-v1-16b-a3b"])
 def test_serve_cli_matches_reference(arch, capsys, monkeypatch):
     """`main([... --device cpu --reduced])` prints the reference CLI's
     sample row from the same --seed."""
@@ -384,13 +407,12 @@ def test_attention_plain_matches_reference_at_head_dim_128(impl):
 
 
 @pytest.mark.parametrize("what,item", [("impl", "A12"), ("vlm", "A8"),
-                                       ("mla", "A8"), ("prefix", "A8")])
+                                       ("audio", "A8"), ("prefix", "A8")])
 def test_unported_serve_options_raise(what, item):
     """Options of `repro`'s serve path that are not ported raise naming
     their ROADMAP item."""
     import dataclasses
 
-    from repro_torch.configs.base import MLAConfig
     case = _case("dense")
     cfg, params = case["cfg"], case["params"]
     tokens = _tokens(cfg, (BATCH, 4))
@@ -400,9 +422,9 @@ def test_unported_serve_options_raise(what, item):
         elif what == "vlm":
             serve.serve_loop(dataclasses.replace(cfg, family="vlm"), params,
                              tokens, 2)
-        elif what == "mla":
-            transformer.init_cache(dataclasses.replace(
-                cfg, mla=MLAConfig(kv_lora_rank=8)), BATCH, 8, device="cpu")
+        elif what == "audio":
+            serve.serve_loop(dataclasses.replace(cfg, family="audio"),
+                             params, tokens, 2)
         else:
             transformer.prefill(params, cfg, _long(tokens),
                                 prefix_embeds=torch.zeros(BATCH, 2, 64))

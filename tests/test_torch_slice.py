@@ -199,3 +199,36 @@ def test_deprecated_variant_and_scheme_route_as_the_reference(
     assert res.transport == tp.resolve(want)
     again = fedsim.run(cfg, want, pipe(), rounds=2, device="cpu")
     assert res.losses == again.losses and res.p_hats == again.p_hats
+
+
+@pytest.mark.parametrize("arch,fused", [
+    ("minicpm3-4b", False), ("moonshot-v1-16b-a3b", False),
+    ("moonshot-v1-16b-a3b", True), ("deepseek-v2-236b", False),
+    ("deepseek-v2-236b", True)])
+def test_four_rounds_of_the_mla_and_moe_configs_match_reference(
+        monkeypatch, arch, fused):
+    """Four loop rounds of the reduced MLA (minicpm3-4b) and MoE configs
+    (moonshot; deepseek-v2 with MLA and a shared expert), chained and,
+    for the moe family, fused, from the reference's weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg, jcfg = get_arch(arch).reduced(), jreg.get_arch(arch).reduced()
+    _, pz = configs(base, n_perturb=2)
+    _, jpz = configs(jbase, n_perturb=2)
+    pz = dataclasses.replace(pz, fused_perturbation=fused)
+    jpz = dataclasses.replace(jpz, fused_perturbation=fused)
+    spec = (cfg.vocab_size, 24)
+    jpipe = JPipe("sst2", JSpec("sst2", *spec), 5, 4, seed=0)
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", *spec), 5, 4, seed=0)
+    jparams = jreg.init_params(jax.random.key(0), jcfg)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
+
+    ref = jfedsim.run(jcfg, jpz, jpipe, rounds=4, engine="loop",
+                      params=jparams, dtype=jnp.float32)
+    monkeypatch.setattr(engine, "noise_rows", jax_trace_noise)
+    res = fedsim.run(cfg, pz, pipe, rounds=4, params=params, device="cpu")
+    assert res.steps == ref.steps == 4
+    np.testing.assert_allclose(res.losses, ref.losses, rtol=1e-4)
+    np.testing.assert_allclose(res.p_hats, ref.p_hats, rtol=1e-4, atol=1e-3)
+    assert res.privacy_spent == ref.privacy_spent
