@@ -1,14 +1,26 @@
 #!/usr/bin/env python3
-"""Where flash_attention's head_dim-256 time goes on one GPU, measured by
-taking pieces away and by changing one design choice at a time.
+"""Where flash_attention's time goes on one GPU, measured by taking pieces
+away and by changing one design choice at a time.
 
-    python3 chip_flash_variants.py [--baseline FILE.cu] [variant ...]
+    python3 chip_flash_variants.py [--head-dim 256|192|96] [--baseline FILE.cu]
+                                   [variant ...]
 
 Each variant is src/repro_torch/kernels/csrc/flash_attention.cu with one or
-more text substitutions (VARIANTS below; an anchor that no longer matches
-the source raises), built with nvcc into build/flash_variants/ and called
-through the port's own wrapper at recurrentgemma-2b's attention shape
-(q [40,10,64,256] on k/v [40,1,64,256], causal, window 2048). `--baseline`
+more text substitutions (VARIANTS below for the head_dim-256 kernel,
+TC_VARIANTS for the tensor-core kernel at 96 and 192; an anchor that no
+longer matches the source raises), built with nvcc into
+build/flash_variants/ and called through the port's own wrapper. At
+head_dim 256 (the default) the shape is recurrentgemma-2b's attention (q
+[40,10,64,256] on k/v [40,1,64,256], causal, window 2048); `--head-dim
+192` takes deepseek-v2's MLA training shape (q/k/v [40,128,64,192],
+causal) and `--head-dim 96` minicpm3-4b's ([40,40,64,96]), with
+TC_VARIANTS: key tiles of 16 or 64, ring slots, blocks an SM or a
+register cap, P through shared memory or by shuffles instead of in place,
+the split's rounding, where the scores are summed, and `skip_lo_terms`
+(one TF32 pass, timed only: never the kernel, which needs three); each
+checked variant also prints its largest share of the flash gate and, at
+inputs x8, its distance from the f64 value beside attention_plain's.
+`--baseline`
 adds one more variant, "baseline": another flash_attention.cu built as it
 is (an older version of the source, to time against in the same call).
 Three kinds:
@@ -27,7 +39,8 @@ Three kinds:
 Every variant runs twice, in the order given and then reversed, on the
 same inputs. Printed per run: the device time of one call (its kernel's
 self time under torch.profiler, mean of 20 calls); per variant, ptxas's
-registers and spill bytes of the head_dim-256 kernel. Needs one CUDA
+registers and spill bytes of the head-dim's kernel and, from the built
+library, its registers, shared memory and blocks an SM. Needs one CUDA
 device and nvcc; exits non-zero without either.
 """
 from __future__ import annotations
@@ -47,6 +60,19 @@ MAIN = ((40, 10, 64, 256), (40, 1, 64, 256), True, 2048)
 CHECKS = (MAIN,
           ((2, 6, 40, 256), (2, 2, 40, 256), True, None),     # group 3
           ((2, 10, 64, 256), (2, 1, 300, 256), True, None))   # many tiles
+# the tensor-core kernel's shapes: the MLA training shape, group 8 with a
+# window and Sq < Skv, and 300 keys (the online rescale over ten tiles)
+TC_MAIN = {192: ((40, 128, 64, 192), (40, 128, 64, 192), True, None),
+           96: ((40, 40, 64, 96), (40, 40, 64, 96), True, None)}
+# and the serve prefill's (batch 4, prompt 32), timed beside the main shape
+TC_SERVE = {192: ((4, 128, 32, 192), (4, 128, 32, 192), True, None),
+            96: ((4, 40, 32, 96), (4, 40, 32, 96), True, None)}
+
+
+def tc_checks(d: int) -> tuple:
+    return (TC_MAIN[d],
+            ((2, 16, 45, d), (2, 2, 130, d), True, 40),
+            ((2, 4, 70, d), (2, 2, 300, d), True, None))
 
 
 def _consts(**values) -> list:
@@ -233,10 +259,174 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str, baseline) -> str:
+def _tc_shape(**values) -> list:
+    """Substitutions of TcShape's per-D constants (one value for both D)."""
+    src = SOURCE.read_text()
+    out = []
+    for name, value in values.items():
+        m = re.search(rf"static constexpr int {name} = D > 128 \? \d+ : \d+;",
+                      src)
+        if m is None:
+            raise AssertionError(f"TcShape::{name} not in the source")
+        out.append((m.group(0), f"static constexpr int {name} = {value};"))
+    return out
+
+
+# P V's A fragment: from S's C fragment in place with P V's key index
+# permuted (as built: column t is key 2t, t + 4 is 2t + 1, and V's B
+# fragment reads rows 2t and 2t + 1), or in the unpermuted layout (V rows
+# t and t + 4) through a per-warp [16][12] shared tile or by shuffles
+_P_IN_PLACE = """          uint32_t ph[4], pl[4];
+          tc_split(pc[j][0], ph[0], pl[0]);
+          tc_split(pc[j][2], ph[1], pl[1]);
+          tc_split(pc[j][1], ph[2], pl[2]);
+          tc_split(pc[j][3], ph[3], pl[3]);"""
+_V_ROWS_T = [
+    ("+ 2 * tq * RS + g;", "+ tq * RS + g;"),
+    ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
+     "tc_split(vj[4 * RS + 8 * n], bh[1], bl[1]);")]
+_P_SMEM = """          float* pw = p_tile + g * 12 + 2 * tq;
+          *reinterpret_cast<float2*>(pw) = make_float2(pc[j][0], pc[j][1]);
+          *reinterpret_cast<float2*>(pw + 8 * 12) = make_float2(pc[j][2], pc[j][3]);
+          __syncwarp();
+          const float* pr = p_tile + g * 12 + tq;
+          uint32_t ph[4], pl[4];
+          tc_split(pr[0], ph[0], pl[0]);
+          tc_split(pr[8 * 12], ph[1], pl[1]);
+          tc_split(pr[4], ph[2], pl[2]);
+          tc_split(pr[8 * 12 + 4], ph[3], pl[3]);
+          __syncwarp();"""
+# lane 4g + t wants P[g][t] and P[g][t + 4]: element t & 1 of lanes
+# 4g + t / 2 and 4g + t / 2 + 2 (rows g + 8 likewise)
+_P_SHUFFLES = """          const int src0 = (lane & ~3) | (tq >> 1);
+          float x[2][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[0][e] = __shfl_sync(0xffffffffu, pc[j][e], src0);
+            x[1][e] = __shfl_sync(0xffffffffu, pc[j][e], src0 + 2);
+          }
+          const int odd = tq & 1;
+          uint32_t ph[4], pl[4];
+          tc_split(odd ? x[0][1] : x[0][0], ph[0], pl[0]);
+          tc_split(odd ? x[0][3] : x[0][2], ph[1], pl[1]);
+          tc_split(odd ? x[1][1] : x[1][0], ph[2], pl[2]);
+          tc_split(odd ? x[1][3] : x[1][2], ph[3], pl[3]);"""
+_LO_TERMS = """  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh[0]), "r"(bh[1]));
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(ah[0]), "r"(ah[1]), "r"(ah[2]), "r"(ah[3]), "r"(bl[0]), "r"(bl[1]));
+"""
+_HI_TERM = """  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(ah[0]), "r"(ah[1]), "r"(ah[2]), "r"(ah[3]), "r"(bh[0]), "r"(bh[1]));
+"""
+# each k-step's three products summed from zero on the tensor cores, then
+# added to the accumulator in f32 (rounded to nearest)
+_SUM_PER_STEP = ("  float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
+                 + (_LO_TERMS + _HI_TERM).replace("c[", "z[")
+                 + "#pragma unroll\n"
+                 "  for (int e = 0; e < 4; ++e) c[e] += z[e];\n")
+_SKIP_COPIES = [
+    ("if (lane == 0) mbar_expect(bar, rows * D * 4);",
+     "if (lane == 0) mbar_expect(bar, 0);"),
+    ("for (int r = lane; r < rows; r += 32)\n        bulk_copy(",
+     "for (int r = lane; r < 0; r += 32)\n        bulk_copy("),
+    ("if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * D * 4);",
+     "if (lane == 0) mbar_expect(q_full, 0);"),
+    ("if (row >= 0) bulk_copy(smem_u32(qs + r * RS)",
+     "if (row < -1) bulk_copy(smem_u32(qs + r * RS)")]
+
+TC_VARIANTS = {
+    "as_built": [],
+    "bk_64": lambda: _consts(kTcBK=64),
+    "bk_16": lambda: _consts(kTcBK=16),
+    "slots_2": lambda: _tc_shape(kSlots=2),
+    "slots_3": lambda: _tc_shape(kSlots=3),
+    "slots_4": lambda: _tc_shape(kSlots=4),
+    # __launch_bounds__' blocks an SM: the register cap ptxas works to
+    "min_blocks_1": lambda: _tc_shape(kBlocksPerSM=1),
+    "min_blocks_2": lambda: _tc_shape(kBlocksPerSM=2),
+    "min_blocks_4": lambda: _tc_shape(kBlocksPerSM=4),
+    # the register cap set directly, above __launch_bounds__' 168 (two
+    # blocks) and 128 (three): does a block of 160 threads fit the SM as
+    # often at 200 (or 136) registers?
+    "maxnreg": [("__global__ void __launch_bounds__(kTcThreads, TcShape<D>::kBlocksPerSM)",
+                 "__global__ void __launch_bounds__(kTcThreads) "
+                 "__maxnreg__(D > 128 ? 200 : 136)")],
+    "p_smem": [
+        (_P_IN_PLACE, _P_SMEM),
+        ("                                 + kSlots * kSlotFloats;",
+         "                                 + kSlots * kSlotFloats + kTcWarps * 16 * 12;"),
+        ("  const int g = lane >> 2;\n",
+         "  const int g = lane >> 2;\n"
+         "  float* p_tile = ring + S * T::kSlotFloats + warp * 16 * 12;\n")]
+        + _V_ROWS_T,
+    "p_shuffles": [(_P_IN_PLACE, _P_SHUFFLES)] + _V_ROWS_T,
+    "sum_per_step": [(_LO_TERMS + _HI_TERM, _SUM_PER_STEP)],
+    # hi by cvt.rna.tf32.f32 (the same rounding, more instructions), by
+    # truncation (one LOP3), and lo rounded to TF32 too (a second cvt)
+    "split_cvt": [("hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+                   'asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));')],
+    "split_rz": [("hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+                  "hi = __float_as_uint(x) & 0xffffe000u;")],
+    "lo_rounded": [(
+        "lo = __float_as_uint(x - __uint_as_float(hi));",
+        'asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')],
+    # scores summed in the tensor core's accumulator, not a pair at a time
+    "s_sum_in_mma": [("""            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            tc_mma3(z, ah, al, bh, bl);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] += z[e];""",
+                      "            tc_mma3(sc[j], ah, al, bh, bl);")],
+    # each warp scales its Q rows in shared memory once an item, not at
+    # every load
+    "q_prescaled": [
+        ("    mbar_wait(q_full, round & 1);\n",
+         "    mbar_wait(q_full, round & 1);\n"
+         "    for (int e = lane; e < 16 * (D / 4); e += 32) {\n"
+         "      float4* x = reinterpret_cast<float4*>(qs + (16 * warp + e / (D / 4)) * RS) + e % (D / 4);\n"
+         "      const float4 y = *x;\n"
+         "      *x = make_float4(__fmul_rn(y.x, a.scale), __fmul_rn(y.y, a.scale),\n"
+         "                       __fmul_rn(y.z, a.scale), __fmul_rn(y.w, a.scale));\n"
+         "    }\n"
+         "    fence_proxy_async();\n"
+         "    __syncwarp();\n")]
+        + [(f"__fmul_rn({x}, a.scale)", x)
+           for x in ("xa.x", "xb.x", "xa.y", "xb.y")],
+    "s_unroll_1": [("#pragma unroll 2\n        for (int d0 = 0;",
+                    "#pragma unroll 1\n        for (int d0 = 0;")],
+    "s_unroll_4": [("#pragma unroll 2\n        for (int d0 = 0;",
+                    "#pragma unroll 4\n        for (int d0 = 0;")],
+    # one TF32 pass (hi.hi): wrong by about 1e-3, only timed
+    "skip_lo_terms": [(_LO_TERMS, "")],
+    # K or V taken as hi with lo = 0: what their splits cost
+    "skip_k_split": [(f"tc_split(y.{c}, bh[{i}], bl[{i}]);",
+                      f"bh[{i}] = __float_as_uint(y.{c}); bl[{i}] = 0;")
+                     for c, i in (("x", 0), ("y", 1))],
+    "skip_v_split": [
+        ("tc_split(vj[8 * n], bh[0], bl[0]);",
+         "bh[0] = __float_as_uint(vj[8 * n]); bl[0] = 0;"),
+        ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
+         "bh[1] = __float_as_uint(vj[RS + 8 * n]); bl[1] = 0;")],
+    # no products at all (nor the loads and splits that feed them)
+    "skip_mma": [(_LO_TERMS + _HI_TERM, "")],
+    # no copies: the consumers work on whatever shared memory holds
+    "skip_copies": _SKIP_COPIES,
+    # no stores, but a condition the compiler cannot fold keeps P V alive
+    "skip_stores": [("    if (row_a >= 0) {\n", "    if (row_a >= 0 && a.scale != a.scale) {\n"),
+                    ("    if (row_b >= 0) {\n", "    if (row_b >= 0 && a.scale != a.scale) {\n")],
+}
+
+
+def variant_source(name: str, baseline, variants: dict) -> str:
     if name == "baseline":
         return Path(baseline).read_text()
-    subs = VARIANTS[name]
+    subs = variants[name]
     subs = subs() if callable(subs) else subs
     src = SOURCE.read_text()
     if name == "trace":
@@ -249,14 +439,15 @@ def variant_source(name: str, baseline) -> str:
     return src
 
 
-def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of the head_dim-256 kernel (the group
-    kernel, or the split kernel of an older source)."""
+def ptxas_summary(log: str, d: int) -> dict:
+    """Registers and spill bytes of the head_dim-d kernel (at 256 the group
+    kernel, or the split kernel of an older source; at 96 and 192 the tc
+    kernel, or an older source's small or group kernel)."""
     out, inside = {}, False
     for line in log.splitlines():
         if "Function properties for" in line:
-            inside = bool(re.search(r"flash_fwd_(group|split)_kernelILi256E",
-                                    line))
+            inside = bool(re.search(
+                rf"flash_fwd_(tc|group|small|split)_kernelILi{d}E", line))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and inside:
@@ -269,16 +460,16 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def build(names, baseline) -> dict:
+def build(names, baseline, d: int, variants: dict) -> dict:
     """One nvcc per variant, all started together (the port's flags plus
     -Xptxas -v); returns name -> (library path, ptxas summary)."""
     from repro_torch.kernels import build as kbuild
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        cu = OUT / f"{name}.cu"
-        cu.write_text(variant_source(name, baseline))
-        lib = OUT / f"lib{name}.so"
+        cu = OUT / f"{name}_{d}.cu"
+        cu.write_text(variant_source(name, baseline, variants))
+        lib = OUT / f"lib{name}_{d}.so"
         procs[name] = (lib, subprocess.Popen(
             [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-Xptxas", "-v",
              "-o", str(lib), str(cu)],
@@ -288,8 +479,22 @@ def build(names, baseline) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        out[name] = (lib, ptxas_summary(log))
+        out[name] = (lib, ptxas_summary(log, d))
     return out
+
+
+def attributes(lib, d: int) -> dict:
+    """The head_dim-d kernel's registers, shared memory and blocks an SM,
+    as the variant's library reports them on this card."""
+    fn = lib.flash_attention_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 8)()
+    if fn(d, ctypes.addressof(info)) != 0:
+        raise RuntimeError("flash_attention_attributes failed")
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "blocks_per_sm", "threads", "rows", "key_tile")
+    return dict(zip(keys, info))
 
 
 def main() -> int:
@@ -307,7 +512,18 @@ def main() -> int:
         i = args.index("--baseline")
         baseline = args[i + 1]
         del args[i:i + 2]
-    names = args or list(VARIANTS)
+    d = 256
+    if "--head-dim" in args:
+        i = args.index("--head-dim")
+        d = int(args[i + 1])
+        del args[i:i + 2]
+    if d == 256:
+        variants, main_case, checks = VARIANTS, MAIN, CHECKS
+    elif d in TC_MAIN:
+        variants, main_case, checks = TC_VARIANTS, TC_MAIN[d], tc_checks(d)
+    else:
+        raise SystemExit(f"--head-dim takes 256, 192 or 96, not {d}")
+    names = args or list(variants)
     if baseline is not None:
         names.append("baseline")
     smi = subprocess.run(
@@ -315,24 +531,42 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    built = build(names, baseline)
+    built = build(names, baseline, d, variants)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     inputs = []
-    for qs, ks, causal, window in CHECKS:
+    for qs, ks, causal, window in checks:
         q = torch.randn(qs, generator=gen, device=dev)
         k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
         inputs.append((q, k, v, causal, window,
                        fa.attention_plain(q, k, v, causal, window)))
+    # inputs x8 (scores x64): every f32 implementation, the plain version
+    # included, is tens of times the 1e-5 gate from the exact value here;
+    # printed against the f64 value, beside the plain version's own
+    qs = main_case[1][:1] + (8,) + main_case[1][2:]
+    large = [8 * torch.randn(qs, generator=gen, device=dev) for _ in range(3)]
+    large_exact = chip_smoke.attention_f64(torch, *large)
+    errors = {"plain": {"x8_vs_f64": chip_smoke.gate_share(
+        fa.attention_plain(*large), large_exact)}} if d != 256 else {}
+    serve = None
+    if d in TC_SERVE:
+        qs, ks, causal, window = TC_SERVE[d]
+        serve = [torch.randn(qs, generator=gen, device=dev)] + [
+            torch.randn(ks, generator=gen, device=dev) for _ in range(2)]
     plain_lib = fa._lib
     times = {name: [] for name in names}
+    serve_times = {name: [] for name in names}
+    attrs = {}
     for name in names + names[::-1]:
-        fn = ctypes.CDLL(str(built[name][0])).flash_attention_f32
+        lib = ctypes.CDLL(str(built[name][0]))
+        attrs.setdefault(name, attributes(lib, d))
+        fn = lib.flash_attention_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fa._lib = lambda fn=fn: fn
         if not name.startswith("skip_"):
+            gates = []
             for q, k, v, causal, window, want in inputs:
                 got = fa.flash_attention_cuda(q, k, v, causal, window)
                 torch.cuda.synchronize()
@@ -340,21 +574,37 @@ def main() -> int:
                     err = float((got - want).abs().max())
                     raise AssertionError(f"{name} {tuple(q.shape)} on "
                                          f"{tuple(k.shape)}: max err {err}")
+                gates.append(chip_smoke.gate_share(got, want))
+            if name not in errors and d != 256:
+                q, k, v = large
+                errors[name] = {
+                    "gate_share": max(gates),
+                    "x8_vs_f64": chip_smoke.gate_share(fa.flash_attention_cuda(q, k, v),
+                                            large_exact)}
+                print(f"{name}: {errors[name]}", flush=True)
         q, k, v, causal, window, _ = inputs[0]
         ms = chip_smoke.device_ms(torch, lambda: fa.flash_attention_cuda(
             q, k, v, causal, window))
         times[name].append(ms)
         print(f"{name}: device time {ms:.4f} ms", flush=True)
+        if serve is not None:
+            ms = chip_smoke.device_ms(torch, lambda: fa.flash_attention_cuda(
+                *serve))
+            serve_times[name].append(ms)
+            print(f"{name}: serve shape device time {ms:.4f} ms", flush=True)
         if name == "trace":
             trace_report(ctypes.CDLL(str(built[name][0])))
     fa._lib = plain_lib
     for name in names:
-        print(f"{name}: ptxas {built[name][1]}", flush=True)
-    print(json.dumps({"device": smi, "shape": [list(MAIN[0]), list(MAIN[1])],
+        print(f"{name}: ptxas {built[name][1]}; {attrs[name]}", flush=True)
+    print(json.dumps({"device": smi, "head_dim": d,
+                      "shape": [list(main_case[0]), list(main_case[1])],
                       "device_ms": {name: statistics.median(v)
                                     for name, v in times.items()},
                       "runs_ms": times,
-                      "ptxas": {name: built[name][1] for name in names}}),
+                      "serve_runs_ms": serve_times if serve else None,
+                      "ptxas": {name: built[name][1] for name in names},
+                      "attributes": attrs, "errors": errors}),
           flush=True)
     return 0
 

@@ -20,8 +20,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      with its registers, local and shared memory and blocks an SM, and at
      head_dim 128 (yi-6b) at the serve shapes (its prefill and a 2048-token
      prompt, beside SDPA with enable_gqa), and at MLA's q·k heads 96
-     (minicpm3-4b) and 192 (deepseek-v2) at their training and serve
-     shapes, each failing on any local memory;
+     (minicpm3-4b) and 192 (deepseek-v2: the tensor-core kernel) at
+     their training and serve shapes, each failing on any local memory
+     or on two calls that differ; inputs x8, where no f32 evaluation
+     meets the 1e-5 gate against another, held to be no further from the
+     f64 value than attention_plain is;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
      drawn once per weight), and with its registers, shared memory and
      cluster size; ssd_scan's two entries (y only, as training calls it,
@@ -294,6 +297,28 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple:
     by_ops = n_flops / F32_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def attention_f64(torch, q, k, v, causal: bool = True, window=None):
+    """attention_plain's function evaluated in float64: the value that an
+    f32 evaluation (attention_plain's own included) approximates, for
+    inputs whose scores are too large for any f32 evaluation to stay within
+    the flash gate of another."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kd = k.double().repeat_interleave(group, dim=1)
+    vd = v.double().repeat_interleave(group, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.double() * (1.0 / d ** 0.5), kd)
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vd)
 
 
 def ulps(torch, a, b) -> int:
@@ -616,12 +641,12 @@ def check_flash_attention(torch, dev) -> dict:
         ((2, 4, 70, 128), (2, 4, 70, 128), True, None),
         ((2, 16, 45, 128), (2, 2, 130, 128), True, 40),
         ((3, 8, 33, 128), (3, 4, 33, 128), False, None),
-        # MLA's q·k heads. 96 (minicpm3-4b, the head_dim <= 96 kernel): its
+        # MLA's q·k heads, the tensor-core kernel. 96 (minicpm3-4b): its
         # training and serve shapes, GQA with a window over several key
-        # tiles, non-causal. 192 (deepseek-v2, the group kernel's 48-column
-        # P V tiling): its training and serve shapes, group 8 with a
-        # window, group 2 non-causal, one query row. 24 (the reduced MLA
-        # configs): zero-padded to the 32 instance by the wrapper
+        # tiles, non-causal. 192 (deepseek-v2): its training and serve
+        # shapes, group 8 with a window, group 2 non-causal, one query row.
+        # 24 (the reduced MLA configs): zero-padded to the 32 instance by
+        # the wrapper
         ((40, 40, 64, 96), (40, 40, 64, 96), True, None),
         ((4, 40, 32, 96), (4, 40, 32, 96), True, None),
         ((2, 6, 70, 96), (2, 2, 130, 96), True, 40),
@@ -632,8 +657,21 @@ def check_flash_attention(torch, dev) -> dict:
         ((3, 6, 33, 192), (3, 3, 33, 192), False, None),
         ((2, 10, 1, 192), (2, 1, 70, 192), True, None),
         ((2, 4, 24, 24), (2, 4, 24, 24), True, None),
+        # the tensor-core kernel (96 and 192) at its edges: Sq not a
+        # multiple of a warp's 16 rows and Skv not of the 32-key tile, 300
+        # keys (the online rescale over ten tiles), group 8 at 96 with a
+        # window, window 1 (each row sees only itself), one query row
+        ((2, 4, 37, 96), (2, 4, 37, 96), True, None),
+        ((2, 4, 37, 192), (2, 4, 37, 192), True, None),
+        ((2, 4, 70, 96), (2, 2, 300, 96), True, None),
+        ((2, 4, 70, 192), (2, 2, 300, 192), True, None),
+        ((2, 16, 45, 96), (2, 2, 130, 96), True, 40),
+        ((2, 4, 64, 96), (2, 4, 64, 96), True, 1),
+        ((2, 4, 64, 192), (2, 4, 64, 192), True, 1),
+        ((2, 10, 1, 96), (2, 1, 70, 96), True, None),
     ]
     max_err = 0.0
+    tc_err = {96: 0.0, 192: 0.0}
     for qs, ks, causal, window in cases:
         q = torch.randn(qs, generator=gen, device=dev)
         k = torch.randn(ks, generator=gen, device=dev)
@@ -645,8 +683,12 @@ def check_flash_attention(torch, dev) -> dict:
         if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
             raise AssertionError(f"flash_attention {qs}/{ks}: max err {err}")
         max_err = max(max_err, err)
-    print(f"flash_attention: {len(cases)} cases ok, max err {max_err:.3e}",
-          flush=True)
+        if qs[-1] in tc_err:
+            tc_err[qs[-1]] = max(tc_err[qs[-1]], err)
+    print(f"flash_attention: {len(cases)} cases ok, max err {max_err:.3e}; "
+          f"tensor-core kernel, max err at 96 {tc_err[96]:.3e}, at 192 "
+          f"{tc_err[192]:.3e}", flush=True)
+    large = flash_attention_large_scores(torch, dev, gen)
 
     b, h, s, d = cases[0][0]
     q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev)
@@ -705,7 +747,52 @@ def check_flash_attention(torch, dev) -> dict:
                 "library_device_ms": lib_dev2, "kernel_attributes": attrs2,
                 "shape": f"q [{b2},{h2},{s2},{d2}] k/v "
                          f"[{','.join(map(str, kv_shape))}] causal"},
-            "head_dim_128": hd128, **mla}
+            "head_dim_128": hd128, "tc_max_abs_err": tc_err,
+            "large_scores": large, **mla}
+
+
+# inputs x8 (scores x64) at 96 and 192: no f32 evaluation stays within the
+# flash gate of another here (attention_plain is 30-60 times the gate from
+# the f64 value, as is the f32 FMA kernel these instances replaced), so the
+# kernel is held to be no further from the f64 value than attention_plain
+# is. One TF32 pass would be hundreds of times further.
+FLASH_LARGE = (((2, 8, 64, 96), (2, 8, 64, 96)),
+               ((2, 4, 70, 96), (2, 2, 300, 96)),
+               ((2, 8, 64, 192), (2, 8, 64, 192)),
+               ((2, 4, 70, 192), (2, 2, 300, 192)))
+
+
+def gate_share(got, want) -> float:
+    """max |got - want| / (1e-5 + 1e-5 |want|): at most 1 passes the
+    flash gate (allclose at rtol = atol = 1e-5)."""
+    return float(((got.double() - want.double()).abs()
+                  / (1e-5 + 1e-5 * want.double().abs())).max())
+
+
+def flash_attention_large_scores(torch, dev, gen) -> list:
+    from repro_torch.kernels import flash_attention as fa
+
+    out = []
+    for qs, ks in FLASH_LARGE:
+        q = 8 * torch.randn(qs, generator=gen, device=dev)
+        k, v = (8 * torch.randn(ks, generator=gen, device=dev)
+                for _ in range(2))
+        exact = attention_f64(torch, q, k, v)
+        plain = fa.attention_plain(q, k, v)
+        got = fa.flash_attention_cuda(q, k, v)
+        row = {"shape": f"q {list(qs)} k/v {list(ks)} x8 causal",
+               "kernel_vs_f64": gate_share(got, exact),
+               "plain_vs_f64": gate_share(plain, exact),
+               "kernel_vs_plain": gate_share(got, plain)}
+        print(f"flash_attention x8 {row['shape']}: from the f64 value "
+              f"{row['kernel_vs_f64']:.2f} gates (attention_plain "
+              f"{row['plain_vs_f64']:.2f}); from attention_plain "
+              f"{row['kernel_vs_plain']:.2f}", flush=True)
+        if not row["kernel_vs_f64"] <= row["plain_vs_f64"]:
+            raise AssertionError(f"flash_attention x8 {qs}/{ks}: further "
+                                 "from the f64 value than attention_plain")
+        out.append(row)
+    return out
 
 
 def flash_attention_128(torch, dev, gen, cases) -> dict:
@@ -759,10 +846,11 @@ MLA_FLASH = {96: {"minicpm3-4b train": (40, 40, 64, 96),
 
 
 def flash_attention_mla(torch, dev, gen) -> dict:
-    """The head_dim-96 and 192 instances at MLA_FLASH's shapes, each timed
-    beside the plain version, SDPA and the bound, with the instance's
-    registers, local and shared memory; no local memory allowed (a
-    spill). The scale is MLA's, 1/√D."""
+    """The head_dim-96 and 192 instances (the tensor-core kernel) at
+    MLA_FLASH's shapes, each timed beside the plain version, SDPA and the
+    bound, with the instance's registers, local and shared memory; no
+    local memory allowed (a spill), and two calls must agree bitwise. The
+    scale is MLA's, 1/√D."""
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -793,6 +881,13 @@ def flash_attention_mla(torch, dev, gen) -> dict:
             flops = b * h * (s * (s + 1) // 2) * (4 * d + 3)
             row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 4 * q.numel(),
                                                         flops)
+            # a fixed order of sums and no atomics: two calls agree bitwise
+            # (the scan engine's graph replay relies on it)
+            if not torch.equal(fa.flash_attention_cuda(q, k, v),
+                               fa.flash_attention_cuda(q, k, v)):
+                raise AssertionError(f"flash_attention head_dim {d} {label}:"
+                                     " two calls differ")
+            row["bitwise_repeat"] = True
             print(f"flash_attention head_dim {d}, {label} {row['shape']}: "
                   f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "

@@ -11,10 +11,7 @@
 // about 0.26 GFLOP of useful work, so it is bound by bytes (~9.4 us at
 // 3.35 TB/s); the f32 operations need ~4 us at 67 TFLOP/s.
 //
-// Design at head_dim 16, 32, 64 and 96 (flash_fwd_small_kernel; 96 is
-// minicpm3-4b's MLA q.k head, 64 + 32: its two K/V buffers fill the 48 KiB
-// of static shared memory exactly, and its qr[6] and acc[6] float4 and 32
-// scores take three blocks an SM, not four): one block
+// Design at head_dim 16, 32 and 64 (flash_fwd_small_kernel): one block
 // per (batch*head, tile of 32 query rows), each query row split over
 // kSmallLanes = 4 adjacent lanes of a warp (eight rows per warp, 128
 // threads a block); lane k owns the float4 columns k + 4i, so the four
@@ -31,12 +28,11 @@
 // shuffles instead of D FMAs. Plain f32 FMA and the precise expf, no TF32
 // and no tensor cores (wgmma tiles are later work).
 //
-// Head dims 128, 192 and 256 have their own kernel, flash_fwd_group_kernel,
-// a template on D: 192 for deepseek-v2's MLA q.k head (128 + 64, v padded
-// from 128 to 192 by the model, q [40,128,64,192] on 128 kv heads: group
-// 1, so an item is one head x 80 positions), with its own P V column
-// tiling (GroupShape: 48 float4 columns do not split over 32 column
-// groups; 183,200 B of dynamic shared memory); 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
+// Head dims 96 and 192 (MLA's q.k heads) have their own kernel on the
+// tensor cores, flash_fwd_tc_kernel; its design is noted where it starts.
+//
+// Head dims 128 and 256 have their own kernel, flash_fwd_group_kernel,
+// a template on D: 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
 // head [40,1,64,256], causal, window 2048), 128 for yi-6b's prefill (q
 // [4,32,32,128] on four kv heads [4,4,32,128], causal: a group of 8 is one
 // chunk of 8 heads x 10 positions). At 128 the same block layout holds
@@ -147,6 +143,50 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// an mbarrier whose phase completes after `count` arrivals; a block's
+// inits are published together by fence_mbar_init
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// this thread is done with what the barrier guards (release)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The 3xTF32 split: x = hi + lo, hi TF32 (10-bit mantissa) rounded to
+// nearest, ties away, as cvt.rna.tf32.f32 rounds (two integer instructions
+// here; the cvt is more on sm_90a), and lo = x - hi, exact in f32. The
+// tensor core reads only the top 19 bits of a TF32 operand, so lo goes in
+// unrounded: x to about 22 bits. A NaN or infinite x gives a NaN lo.
+__device__ __forceinline__ void tc_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// c += a b on the tensor cores in 3xTF32, one m16n8k8 tile: lo.hi, hi.lo,
+// then hi.hi into the f32 accumulator (lo.lo, about 2^-22 of a.b, is left
+// out). a is the A fragment (rows g, g+8; columns t, t+4), b the B fragment
+// (rows t, t+4; column g) of lane 4 g + t; c rows g, g+8, columns 2t, 2t+1.
+__device__ __forceinline__ void tc_mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4],
+                                        const uint32_t (&bh)[2],
+                                        const uint32_t (&bl)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh[0]), "r"(bh[1]));
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(ah[0]), "r"(ah[1]), "r"(ah[2]), "r"(ah[3]), "r"(bl[0]), "r"(bl[1]));
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(ah[0]), "r"(ah[1]), "r"(ah[2]), "r"(ah[3]), "r"(bh[0]), "r"(bh[1]));
+}
 
 constexpr int kSmallLanes = 4;                    // lanes per query row
 constexpr int kSmallRows = 32;                    // query rows per block
@@ -155,15 +195,11 @@ constexpr int kSmallBK = 32;                      // key rows per tile
 
 // at most 128 registers, so four blocks (16 warps) share an SM: on the H100
 // that ran faster than 137 registers and three blocks, and than 16-row
-// blocks or 16-key tiles. At 96 the accumulator and q take 48 registers
-// and the tile's scores 32; under the 128-register cap ptxas spilled 32
-// bytes a thread (NVIDIA H100 80GB HBM3), so 96 runs three blocks an SM
-// at up to 168 registers.
-template <int D>
-constexpr int small_min_blocks() { return D > 64 ? 3 : 4; }
+// blocks or 16-key tiles
+constexpr int kSmallBlocksPerSM = 4;
 
 template <int D>
-__global__ void __launch_bounds__(kSmallThreads, small_min_blocks<D>())
+__global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSM)
 flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int hq, int hkv, int sq, int skv, float scale,
@@ -339,12 +375,8 @@ struct GroupShape {
   static constexpr int kDS = kGThreads / (kRG * kKG);       // D slices of S
   static constexpr int kSliceD = D / kDS;
   // P V: kCG column groups of kPC float4 columns and kPRG row groups of
-  // kPRT rows. Where the S tile's row groups split D / 4 evenly (128,
-  // 256) the two tiles share rows; at 192 (48 float4 columns) each of 48
-  // column groups takes one column and 10 row groups of 8 rows cover the
-  // 80 rows: 480 threads, the last warp idle in P V.
-  static constexpr int kCG = kD4 % (kGThreads / kRG) == 0 ? kGThreads / kRG
-                                                          : kD4;
+  // kPRT rows; the two tiles share rows
+  static constexpr int kCG = kGThreads / kRG;
   static constexpr int kPC = kD4 / kCG;                     // float4 a thread
   static constexpr int kPRG = kGThreads / kCG;              // row groups
   static constexpr int kPRT = kGRows / kPRG;                // rows a thread
@@ -808,6 +840,436 @@ int launch_group(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Head dims 96 and 192 (flash_fwd_tc_kernel, a template on D): MLA's q.k
+// heads, minicpm3-4b's 64 + 32 ([40,40,64,96], causal, group 1) and
+// deepseek-v2's 128 + 64 ([40,128,64,192] on 128 kv heads); v is padded to
+// the q.k width by the model. Bound on the H100: bytes, 157.3 MB (96) and
+// 1.007 GB (192) of q/k/v/out, at least 47 us and 300 us at 3.35 TB/s; the
+// visible pairs' 8.2 GFLOP at 192 need 0.12 ms of f32 FMA at 67 TFLOP/s,
+// and their three TF32 passes 0.05 ms at 495 TFLOP/s. Design:
+// - Work items of kTcRows = 64 (q head, position) rows of one kv head's
+//   query group, numbered as the group kernel numbers them (position tile
+//   x head chunk, heaviest first, persistent blocks in snake order): at
+//   group 1 and Sq = 64 an item is one head's 64 positions, no row idle.
+//   All rows of an item see the same keys, so each K/V tile is copied once.
+// - A block is four consumer warps of 16 rows and one producer warp. The
+//   producer copies by TMA, one bulk copy a row: the item's first K tile,
+//   its Q (after the consumers released the last item's Q), then V and K
+//   tiles of kTcBK keys through a ring of kSlots slots, each completing on
+//   its `full` mbarrier and refilled after all 128 consumer threads arrived
+//   on its `empty` one; rows past Skv are zeroed (P is 0 there, and 0 x NaN
+//   would not be). The next item's Q and first tiles land while this item
+//   finishes.
+// - Both products on the tensor cores: mma.sync m16n8k8 in 3xTF32
+//   (tc_split, tc_mma3), f32 accumulators; one TF32 pass misses the f32
+//   plain version by about 1e-3, three by about 1e-6. wgmma's TF32 form
+//   takes B only K-major, and V is N-major in P V. In S = (Q scale) K^T a
+//   lane loads Q and K as float2 (rows padded to D + 8 floats, as V's, so
+//   the fragment loads hit 32 banks), and each k-step's three products are
+//   summed from zero and added to S in f32: summed in the tensor core's
+//   accumulator, scores lose low bits as they grow (at inputs x8 the
+//   result strayed twice as far from the f64 value as attention_plain).
+//   One k-step at a time keeps 168 registers, the cap for two blocks an
+//   SM, without a spill. S stays in registers as the warp's 16 x kTcBK C
+//   fragment, and P V takes it as its A fragment in place: its k (key)
+//   index is permuted so that a lane's columns t and t + 4 are the keys
+//   2t and 2t + 1 it holds (on the H100 no slower than moving P through
+//   shared memory or by shuffles, and nothing moves).
+// - Online softmax on the fragment: a row's four lanes reduce its max with
+//   two xor shuffles; alpha = expf(m - m_new) rescales the accumulator each
+//   tile, as the TPU kernel's step; each lane keeps its part of the
+//   normalizer, summed over the quad once an item.
+// - Causal and window skipping by the warp: an 8-key column block of S
+//   that none of the warp's rows can see, and its k-step of P V, are left
+//   out; masks are applied only in blocks that cross the diagonal, the
+//   window's edge or Skv.
+// - Fixed order of every sum and no atomics: two calls are bitwise equal.
+constexpr int kTcWarps = 4;                       // consumer warps, 16 rows each
+constexpr int kTcThreads = 32 * (kTcWarps + 1);   // and the producer warp
+constexpr int kTcRows = 16 * kTcWarps;            // (q head, position) rows an item
+constexpr int kTcMinPositions = 16;               // positions an item at least
+constexpr int kTcBK = 32;                         // keys a K/V tile
+
+template <int D>
+struct TcShape {
+  // K/V ring slots and blocks an SM: two blocks of 102,448 B at 192, three
+  // of 66,624 B at 96
+  static constexpr int kSlots = D > 128 ? 2 : 3;
+  static constexpr int kBlocksPerSM = D > 128 ? 2 : 3;
+  static constexpr int kStride = D + 8;                     // Q, K, V rows
+  static constexpr int kSlotFloats = kTcBK * kStride;
+  // mbarriers: Q full and empty, then each slot's full, then its empty
+  static constexpr int kBars = 2 + 2 * kSlots;
+  static constexpr int kBarFloats = (2 * kBars + 3) / 4 * 4;
+  static constexpr int kFloats = kBarFloats + kTcRows * kStride
+                                 + kSlots * kSlotFloats;
+  static_assert(D % 8 == 0 && kTcBK % 8 == 0, "8-column k-steps, 8-key blocks");
+  static_assert(kStride % 32 == 8, "conflict-free fragment loads");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, TcShape<D>::kBlocksPerSM)
+flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    const GroupArgs a) {
+  using T = TcShape<D>;
+  constexpr int S = T::kSlots;
+  constexpr int NB = kTcBK / 8;                   // 8-key blocks a tile
+  constexpr int RS = T::kStride;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t q_full = smem_u32(smem);
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full0 = q_full + 16;             // slot s: full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * S;          // slot s: empty0 + 8 s
+  float* qs = smem + T::kBarFloats;               // [kTcRows][RS]
+  float* ring = qs + kTcRows * RS;                // [S][kTcBK][RS]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  constexpr int kConsumerThreads = 32 * kTcWarps;
+
+  if (threadIdx.x == 0) {
+    mbar_init_count(q_full, 1);
+    mbar_init_count(q_empty, kConsumerThreads);
+    for (int s = 0; s < S; ++s) {
+      mbar_init_count(full0 + 8 * s, 1);
+      mbar_init_count(empty0 + 8 * s, kConsumerThreads);
+    }
+    fence_mbar_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // round r's item: heaviest first, in snake order over the blocks
+  auto item_index = [&](int r) {
+    return r * static_cast<int>(gridDim.x)
+           + ((r & 1) ? static_cast<int>(gridDim.x - 1 - blockIdx.x)
+                      : static_cast<int>(blockIdx.x));
+  };
+
+  if (warp == kTcWarps) {
+    // the producer, in the order the consumers read: K(t0), the item's Q,
+    // V(t0), then K(t) and V(t); ring position p is phase p / S of slot
+    // p % S
+    int fill = 0;
+    auto load_tile = [&](const float* base, int bkv, int t) {
+      const int slot = fill % S;
+      if (fill >= S) mbar_wait(empty0 + 8 * slot, (fill / S - 1) & 1);
+      const int k0 = t * kTcBK;
+      const int rows = min(kTcBK, a.skv - k0);
+      float* dst = ring + slot * T::kSlotFloats;
+      if (rows < kTcBK) {
+        for (int e = lane; e < (kTcBK - rows) * (D / 4); e += 32)
+          reinterpret_cast<float4*>(dst + (rows + e / (D / 4)) * RS)[e % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        fence_proxy_async();
+      }
+      __syncwarp();
+      const uint32_t bar = full0 + 8 * slot;
+      if (lane == 0) mbar_expect(bar, rows * D * 4);
+      __syncwarp();
+      const float* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
+      for (int r = lane; r < rows; r += 32)
+        bulk_copy(smem_u32(dst + r * RS), src + static_cast<int64_t>(r) * D,
+                  D * 4, bar);
+      ++fill;
+    };
+    for (int round = 0;; ++round) {
+      const int index = item_index(round);
+      if (index >= a.n_items) break;
+      const GroupItem it = group_item(a, index);
+      const int t_first = it.k_begin / kTcBK;
+      const int t_end = (it.k_end + kTcBK - 1) / kTcBK;
+      for (int t = t_first; t < t_end; ++t) {
+        load_tile(k, it.bkv, t);
+        if (t == t_first) {
+          // the item's Q rows, once the last item's scores are done
+          if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
+          if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * D * 4);
+          __syncwarp();
+          for (int r = lane; r < kTcRows; r += 32) {
+            const int64_t row = group_row(a, it, r);
+            if (row >= 0) bulk_copy(smem_u32(qs + r * RS), q + row * D, D * 4, q_full);
+          }
+        }
+        load_tile(v, it.bkv, t);
+      }
+    }
+    return;
+  }
+
+  // a consumer warp: rows 16 warp + g and 16 warp + g + 8 of the item
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const float* q_lane = qs + (16 * warp + g) * RS + 2 * tq;
+  int fill = 0;
+  for (int round = 0;; ++round) {
+    const int index = item_index(round);
+    if (index >= a.n_items) break;
+    const GroupItem it = group_item(a, index);
+    const int t_first = it.k_begin / kTcBK;
+    const int t_end = (it.k_end + kTcBK - 1) / kTcBK;
+    const int r_a = 16 * warp + g;
+    const int r_b = r_a + 8;
+    // q/o rows (-1: the item leaves the row idle); launch_tc checks that
+    // every row index fits an int
+    const int row_a = static_cast<int>(group_row(a, it, r_a));
+    const int row_b = static_cast<int>(group_row(a, it, r_b));
+    const int pos_a = a.skv - a.sq + it.p0 + r_a % a.positions;
+    const int pos_b = a.skv - a.sq + it.p0 + r_b % a.positions;
+    // the positions of the warp's rows, and the keys any of them can see
+    int lo = min(row_a >= 0 ? pos_a : 0x7fffffff, row_b >= 0 ? pos_b : 0x7fffffff);
+    int hi = max(row_a >= 0 ? pos_a : -1, row_b >= 0 ? pos_b : -1);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    // tile t's 8-key blocks [b_lo, b_hi) that the warp can see
+    auto blocks = [&](int t, int& b_lo, int& b_hi) {
+      const int k_end = hi < 0 ? 0 : a.causal ? min(a.skv, hi + 1) : a.skv;
+      const int k_begin = hi < 0 || a.window <= 0 ? 0 : max(0, lo - a.window + 1);
+      b_lo = max(0, k_begin - t * kTcBK) / 8;
+      b_hi = min(NB, (k_end - t * kTcBK + 7) / 8);
+    };
+
+    // tile t's scores (Q scale) K^T into sc, masked (lane: keys 2t, 2t + 1
+    // of each block, rows g and g + 8) where a block crosses the
+    // diagonal, the window's edge or Skv; -inf in blocks left out
+    auto scores = [&](int t, float (&sc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+      const int slot = fill % S;
+      mbar_wait(full0 + 8 * slot, (fill / S) & 1);
+      if (b_lo < b_hi) {
+        const float* k_lane = ring + slot * T::kSlotFloats + g * RS + 2 * tq;
+#pragma unroll 2
+        for (int d0 = 0; d0 < D; d0 += 8) {
+          // one k-step: columns 2t and 2t + 1 of these 8 as A's columns t
+          // and t + 4 and B's rows t and t + 4 (the same permutation of the
+          // k index in both), so a lane loads each operand as a float2
+          const float2 xa = *reinterpret_cast<const float2*>(q_lane + d0);
+          const float2 xb = *reinterpret_cast<const float2*>(q_lane + 8 * RS + d0);
+          uint32_t ah[4], al[4];
+          tc_split(__fmul_rn(xa.x, a.scale), ah[0], al[0]);
+          tc_split(__fmul_rn(xb.x, a.scale), ah[1], al[1]);
+          tc_split(__fmul_rn(xa.y, a.scale), ah[2], al[2]);
+          tc_split(__fmul_rn(xb.y, a.scale), ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            if (j < b_lo || j >= b_hi) continue;
+            const float2 y = *reinterpret_cast<const float2*>(k_lane + 8 * j * RS + d0);
+            uint32_t bh[2], bl[2];
+            tc_split(y.x, bh[0], bl[0]);
+            tc_split(y.y, bh[1], bl[1]);
+            // the k-step's products summed from zero, then added in f32:
+            // the tensor core's own running sum drops low bits as it grows
+            float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            tc_mma3(z, ah, al, bh, bl);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] += z[e];
+          }
+        }
+      }
+      mbar_arrive(empty0 + 8 * slot);                // K(t) read
+      ++fill;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int kb = t * kTcBK + 8 * j;
+        if (j < b_lo || j >= b_hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = -INFINITY;
+          continue;
+        }
+        const bool whole = kb + 8 <= a.skv && (!a.causal || kb + 7 <= lo)
+                           && (a.window <= 0 || kb > hi - a.window);
+        if (whole) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kb + 2 * tq + (e & 1);
+          const int pos = e < 2 ? pos_a : pos_b;
+          bool visible = kp < a.skv;
+          if (a.causal) visible = visible && kp <= pos;
+          if (a.window > 0) visible = visible && kp > pos - a.window;
+          if (!visible) sc[j][e] = -INFINITY;
+        }
+      }
+    };
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    float m_a = -INFINITY, m_b = -INFINITY;       // rows g and g + 8
+    float l_a = 0.0f, l_b = 0.0f;                 // this lane's part
+    float alpha_a = 1.0f, alpha_b = 1.0f;         // tile t's rescale
+
+    // online softmax of tile t: the row's max over its quad; sc becomes P
+    auto softmax = [&](int t, float (&sc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+      float mt_a = -INFINITY, mt_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        mt_a = fmaxf(mt_a, fmaxf(sc[j][0], sc[j][1]));
+        mt_b = fmaxf(mt_b, fmaxf(sc[j][2], sc[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        mt_a = fmaxf(mt_a, __shfl_xor_sync(0xffffffffu, mt_a, off));
+        mt_b = fmaxf(mt_b, __shfl_xor_sync(0xffffffffu, mt_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mt_a);
+      const float mn_b = fmaxf(m_b, mt_b);
+      // a row that sees no key yet keeps p = 0 (and m = -inf)
+      const float mu_a = mn_a == -INFINITY ? 0.0f : mn_a;
+      const float mu_b = mn_b == -INFINITY ? 0.0f : mn_b;
+      alpha_a = expf(m_a - mu_a);                  // exp(-inf) = 0 on the first hit
+      alpha_b = expf(m_b - mu_b);
+      float p_a = 0.0f, p_b = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < b_lo || j >= b_hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+          continue;
+        }
+        sc[j][0] = expf(sc[j][0] - mu_a);
+        sc[j][1] = expf(sc[j][1] - mu_a);
+        sc[j][2] = expf(sc[j][2] - mu_b);
+        sc[j][3] = expf(sc[j][3] - mu_b);
+        p_a += sc[j][0];
+        p_a += sc[j][1];
+        p_b += sc[j][2];
+        p_b += sc[j][3];
+      }
+      l_a = alpha_a * l_a + p_a;
+      l_b = alpha_b * l_b + p_b;
+      m_a = mn_a;
+      m_b = mn_b;
+    };
+
+    // O = alpha O + P V over tile t: S's C fragment is P's A fragment with
+    // columns t and t + 4 as keys 2t and 2t + 1 (P V's k index permuted),
+    // so the B fragment reads V rows 2t and 2t + 1
+    auto weigh = [&](int t, const float (&pc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+      const int slot = fill % S;
+      mbar_wait(full0 + 8 * slot, (fill / S) & 1);
+      if (b_lo < b_hi) {          // else alpha is 1 (or 0 on a zero O)
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][0] *= alpha_a;
+          acc[n][1] *= alpha_a;
+          acc[n][2] *= alpha_b;
+          acc[n][3] *= alpha_b;
+        }
+        const float* v_lane = ring + slot * T::kSlotFloats + 2 * tq * RS + g;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          if (j < b_lo || j >= b_hi) continue;
+          uint32_t ph[4], pl[4];
+          tc_split(pc[j][0], ph[0], pl[0]);
+          tc_split(pc[j][2], ph[1], pl[1]);
+          tc_split(pc[j][1], ph[2], pl[2]);
+          tc_split(pc[j][3], ph[3], pl[3]);
+          const float* vj = v_lane + 8 * j * RS;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            uint32_t bh[2], bl[2];
+            tc_split(vj[8 * n], bh[0], bl[0]);
+            tc_split(vj[RS + 8 * n], bh[1], bl[1]);
+            tc_mma3(acc[n], ph, pl, bh, bl);
+          }
+        }
+      }
+      mbar_arrive(empty0 + 8 * slot);                // V(t) read
+      ++fill;
+    };
+
+    float p[NB][4];
+    mbar_wait(q_full, round & 1);
+    for (int t = t_first; t < t_end; ++t) {
+      scores(t, p);
+      if (t + 1 == t_end) mbar_arrive(q_empty);      // the item's Q read
+      softmax(t, p);
+      weigh(t, p);
+    }
+
+    // normalize and store: a row's normalizer over its quad
+#pragma unroll
+    for (int off = 1; off < 4; off *= 2) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+    if (row_a >= 0) {
+      float* op = o + static_cast<int64_t>(row_a) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            make_float2(acc[n][0] * inv_a, acc[n][1] * inv_a);
+    }
+    if (row_b >= 0) {
+      float* op = o + static_cast<int64_t>(row_b) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            make_float2(acc[n][2] * inv_b, acc[n][3] * inv_b);
+    }
+  }
+}
+
+template <int D>
+int tc_smem_bytes() {
+  return static_cast<int>(sizeof(float)) * TcShape<D>::kFloats;
+}
+
+// dynamic shared memory allowed so far, and blocks the card holds at once,
+// for flash_fwd_tc_kernel<D>
+template <int D>
+int allowed_tc_smem = 0;
+template <int D>
+int resident_tc_blocks = 0;
+
+template <int D>
+int launch_tc(const float* q, const float* k, const float* v, float* o,
+              int b, int hq, int hkv, int sq, int skv, float scale,
+              int causal, int window, cudaStream_t stream) {
+  if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
+  // an item holds at most kTcRows / min(Sq, kTcMinPositions) heads; a
+  // larger group splits into equal chunks, and positions fill the rows
+  // the chunk leaves
+  GroupArgs a;
+  const int group = hq / hkv;
+  const int max_heads = kTcRows / min(sq, kTcMinPositions);
+  a.hq = hq; a.hkv = hkv; a.sq = sq; a.skv = skv; a.causal = causal;
+  a.window = window; a.scale = scale;
+  a.chunks = (group + max_heads - 1) / max_heads;
+  a.chunk_heads = (group + a.chunks - 1) / a.chunks;
+  a.positions = kTcRows / a.chunk_heads;
+  a.n_tiles = (sq + a.positions - 1) / a.positions;
+  const int64_t items = static_cast<int64_t>(a.n_tiles) * b * hkv * a.chunks;
+  if (items > 0x7fffffff || static_cast<int64_t>(b) * hq * sq > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  a.n_items = static_cast<int>(items);
+  const int smem = tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem, &allowed_tc_smem<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = resident_blocks(flash_fwd_tc_kernel<D>, kTcThreads, smem,
+                        &resident_tc_blocks<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = min(a.n_items, resident_tc_blocks<D>);
+  flash_fwd_tc_kernel<D><<<blocks, kTcThreads, smem, stream>>>(q, k, v, o, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q [b, hq, sq, d], k/v [b, hkv, skv, d], o [b, hq, sq, d]; all contiguous
@@ -824,20 +1286,21 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 16: return launch_small<16>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 32: return launch_small<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 64: return launch_small<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 96: return launch_small<96>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 96: return launch_tc<96>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 128: return launch_group<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 192: return launch_group<192>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 192: return launch_tc<192>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 256: return launch_group<256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // the head_dim-d kernel as built, on the current device
-// (flash_fwd_small_kernel<d> at 16, 32, 64 and 96, flash_fwd_group_kernel<d>
-// at 128, 192 and 256): eight ints into info[8] -- registers and local
-// memory bytes per thread, static and dynamic shared memory bytes per
-// block, resident blocks per SM, threads a block, query rows a block
-// ((head, position) rows for the group kernel), keys a K/V tile.
+// (flash_fwd_small_kernel<d> at 16, 32 and 64, flash_fwd_tc_kernel<d> at 96
+// and 192, flash_fwd_group_kernel<d> at 128 and 256): eight ints into
+// info[8] -- registers and local memory bytes per thread, static and
+// dynamic shared memory bytes per block, resident blocks per SM, threads a
+// block, query rows a block ((head, position) rows an item for the tc and
+// group kernels), keys a K/V tile.
 template <int D>
 int small_attributes(int* info) {
   cudaFuncAttributes fa;
@@ -882,14 +1345,37 @@ int group_attributes(int* info) {
   return 0;
 }
 
+template <int D>
+int tc_attributes(int* info) {
+  const int smem = tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem, &allowed_tc_smem<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_tc_kernel<D>, kTcThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = fa.numRegs;
+  info[1] = static_cast<int>(fa.localSizeBytes);
+  info[2] = static_cast<int>(fa.sharedSizeBytes);
+  info[3] = smem;
+  info[4] = blocks;
+  info[5] = kTcThreads;
+  info[6] = kTcRows;
+  info[7] = kTcBK;
+  return 0;
+}
+
 extern "C" int flash_attention_attributes(int d, int* info) {
   switch (d) {
     case 16: return small_attributes<16>(info);
     case 32: return small_attributes<32>(info);
     case 64: return small_attributes<64>(info);
-    case 96: return small_attributes<96>(info);
+    case 96: return tc_attributes<96>(info);
     case 128: return group_attributes<128>(info);
-    case 192: return group_attributes<192>(info);
+    case 192: return tc_attributes<192>(info);
     case 256: return group_attributes<256>(info);
     default: return cudaErrorInvalidValue;
   }

@@ -3,9 +3,13 @@ depend on. CPU only: nothing here compiles or launches a kernel.
 
 - the build targets sm_90a and never passes --use_fast_math, so logf,
   cosf, sqrtf and expf stay the precise versions;
-- no code line under csrc/ calls a fast-math intrinsic or reaches the
-  tensor cores (TF32, mma.sync, wgmma), which would break the bitwise
-  identity probe and the parity tolerances against cuBLAS SGEMM;
+- no code line under csrc/ calls a fast-math intrinsic or uses wgmma;
+- no code line reaches the tensor cores (TF32, mma.sync) but inside
+  flash_attention.cu's two 3xTF32 helpers, `tc_split` and `tc_mma3`,
+  which issue exactly three mma.sync a product (lo.hi, hi.lo, hi.hi):
+  perturbed_matmul and seeded_axpy keep f32 FMA for their bitwise
+  identity probe and their parity with cuBLAS SGEMM, and flash
+  attention's 3xTF32 is held to the flash gate on the card;
 - every kernel that draws z includes the one counter-hash header;
 - a library is rebuilt when a shared header changes;
 - each ctypes binding matches its C entry point, argument for argument,
@@ -26,10 +30,15 @@ from repro_torch.kernels import rglru_scan  # noqa: E402
 from repro_torch.kernels import seeded_axpy as sa  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 
-FORBIDDEN = ("__expf", "__logf", "__cosf", "__sinf", "tf32", "mma.sync",
-             "wgmma")
+FAST_MATH = ("__expf", "__logf", "__cosf", "__sinf")
+# TF32 operands, PTX's mma.sync / mma.sp, the C++ wmma API, and wgmma
+TENSOR_CORES = ("tf32", "mma.", "wmma", "wgmma")
+FORBIDDEN = FAST_MATH + TENSOR_CORES
 SOURCE_FILES = sorted(p.name for p in build.CSRC.iterdir()
                       if p.suffix in (".cu", ".cuh"))
+# the only code allowed on the tensor cores: (file, helper)
+TC_HELPERS = (("flash_attention.cu", "tc_split"),
+              ("flash_attention.cu", "tc_mma3"))
 
 
 def _code_lines(text: str):
@@ -53,12 +62,77 @@ def test_every_source_has_its_cu(name):
     assert build.library_path(name).name.startswith(f"lib{name}-")
 
 
+def _helper_span(lines, name: str) -> range:
+    """The code lines of `__device__ ... name(...) { ... }`, from its
+    signature to its closing brace."""
+    start = next(i for i, line in enumerate(lines)
+                 if re.search(rf"__device__ .*\b{name}\(", line))
+    depth, seen = 0, False
+    for i in range(start, len(lines)):
+        depth += lines[i].count("{") - lines[i].count("}")
+        seen = seen or "{" in lines[i]
+        if seen and depth == 0:
+            return range(start, i + 1)
+    raise AssertionError(f"{name}: no closing brace")
+
+
 @pytest.mark.parametrize("fname", SOURCE_FILES)
 def test_no_fast_math_or_tensor_core_calls(fname):
+    """Fast-math intrinsics and wgmma nowhere; TF32 and mma only inside
+    the named 3xTF32 helpers."""
     lines = _code_lines((build.CSRC / fname).read_text())
+    inside = set()
+    for f, helper in TC_HELPERS:
+        if f == fname:
+            inside.update(_helper_span(lines, helper))
     hits = [(i + 1, word) for i, line in enumerate(lines)
-            for word in FORBIDDEN if word in line]
+            for word in (FAST_MATH + ("wgmma",) if i in inside else FORBIDDEN)
+            if word in line]
     assert not hits, f"{fname}: {hits}"
+
+
+def test_tensor_core_helpers_issue_three_passes():
+    """tc_mma3 is three mma.sync m16n8k8 TF32 products into one f32
+    accumulator, small terms first: lo.hi, hi.lo, hi.hi; tc_split issues
+    none; the tensor-core kernel calls tc_mma3 and nothing else on the
+    tensor cores."""
+    lines = _code_lines((build.CSRC / "flash_attention.cu").read_text())
+    mma3 = "\n".join(lines[i] for i in _helper_span(lines, "tc_mma3"))
+    split = "\n".join(lines[i] for i in _helper_span(lines, "tc_split"))
+    assert mma3.count("mma.sync") == 3
+    assert mma3.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") == 3
+    operands = re.findall(r'"r"\((a[hl])\[0\]\).*?"r"\((b[hl])\[0\]\)', mma3,
+                          flags=re.S)
+    assert operands == [("al", "bh"), ("ah", "bl"), ("ah", "bh")]
+    assert "mma" not in split
+    # hi rounded to TF32 (10 mantissa bits, to nearest), lo = x - hi
+    assert "0xffffe000u" in split and "x - __uint_as_float(hi)" in split
+    kernel = "\n".join(lines)
+    assert "tc_mma3(" in kernel[kernel.index("flash_fwd_tc_kernel("):]
+
+
+def test_tf32_rounding_helper_rounds_as_cvt_rna():
+    """tc_split's hi, (bits + 0x1000) & 0xffffe000, is round to nearest
+    with ties away from zero at 10 mantissa bits, as cvt.rna.tf32.f32:
+    checked here on float32 values against that rounding done in float64,
+    and lo = x - hi is exact."""
+    np = pytest.importorskip("numpy")
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.standard_normal(4096).astype(np.float32) * 8,
+                        np.float32([1.0, -1.0, 0.0, 3.0e38, 1.5e-38]),
+                        # ties: exactly half a TF32 ulp above a TF32 value
+                        np.array([0x3F801000, 0xBF801000, 0x40003000],
+                                 dtype=np.uint32).view(np.float32)])
+    hi = ((x.view(np.uint32) + np.uint32(0x1000))
+          & np.uint32(0xFFFFE000)).view(np.float32)
+    exp = np.floor(np.log2(np.abs(x.astype(np.float64)),
+                           where=x != 0, out=np.zeros(x.shape)))
+    ulp = np.exp2(exp - 10)
+    want = np.sign(x) * np.floor(np.abs(x.astype(np.float64)) / ulp + 0.5) * ulp
+    np.testing.assert_array_equal(hi.astype(np.float64), want)
+    lo = x - hi
+    np.testing.assert_array_equal(hi.astype(np.float64) + lo.astype(np.float64),
+                                  x.astype(np.float64))
 
 
 def test_comment_stripping_keeps_code():
@@ -67,6 +141,14 @@ def test_comment_stripping_keeps_code():
     assert "__expf" in lines[0] and "wgmma" not in lines[0]
     assert not any("tf32" in line for line in lines)
     assert "z;" in lines[2]
+
+
+def test_helper_span_covers_the_body_only():
+    """The tensor-core exemption covers a helper's braces and nothing
+    past them."""
+    lines = _code_lines("int a;\n__device__ inline void tc_mma3(float c) {\n"
+                        "  if (c) { mma.sync; }\n}\nmma.sync;\n")
+    assert list(_helper_span(lines, "tc_mma3")) == [1, 2, 3]
 
 
 @pytest.mark.parametrize("name", ["perturbed_matmul", "seeded_axpy"])

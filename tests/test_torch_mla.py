@@ -180,8 +180,9 @@ def test_every_instance_is_launched_and_described():
     """Each head dim of SUPPORTED_HEAD_DIMS has a launch case and an
     attributes case in the CUDA source, and no other head dim has."""
     code = (build.CSRC / "flash_attention.cu").read_text()
-    launch = re.findall(r"case (\d+): return launch_(?:small|group)<\1>", code)
-    attrs = re.findall(r"case (\d+): return (?:small|group)_attributes<\1>",
+    launch = re.findall(r"case (\d+): return launch_(?:small|tc|group)<\1>",
+                        code)
+    attrs = re.findall(r"case (\d+): return (?:small|tc|group)_attributes<\1>",
                        code)
     want = [str(d) for d in fa.SUPPORTED_HEAD_DIMS]
     assert launch == want and attrs == want
