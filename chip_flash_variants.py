@@ -2,21 +2,24 @@
 """Where flash_attention's time goes on one GPU, measured by taking pieces
 away and by changing one design choice at a time.
 
-    python3 chip_flash_variants.py [--head-dim 256|192|96] [--baseline FILE.cu]
-                                   [variant ...]
+    python3 chip_flash_variants.py [--head-dim 256|192|128|96]
+                                   [--baseline FILE.cu] [variant ...]
 
 Each variant is src/repro_torch/kernels/csrc/flash_attention.cu with one or
 more text substitutions (VARIANTS below for the head_dim-256 kernel,
-TC_VARIANTS for the tensor-core kernel at 96 and 192; an anchor that no
-longer matches the source raises), built with nvcc into
+TC_VARIANTS for the tensor-core kernel at 96, 128 and 192; an anchor
+that no longer matches the source raises), built with nvcc into
 build/flash_variants/ and called through the port's own wrapper. At
 head_dim 256 (the default) the shape is recurrentgemma-2b's attention (q
 [40,10,64,256] on k/v [40,1,64,256], causal, window 2048); `--head-dim
 192` takes deepseek-v2's MLA training shape (q/k/v [40,128,64,192],
-causal) and `--head-dim 96` minicpm3-4b's ([40,40,64,96]), with
-TC_VARIANTS: key tiles of 16 or 64, ring slots, blocks an SM or a
-register cap, P through shared memory or by shuffles instead of in place,
-the split's rounding, where the scores are summed, and `skip_lo_terms`
+causal), `--head-dim 96` minicpm3-4b's ([40,40,64,96]) and `--head-dim
+128` moonshot's GQA training shape ([40,16,64,128]), each also timed at
+TC_TIMED's shapes (the serve prefill; at 128 yi-6b's and a 2048-token
+prompt), with TC_VARIANTS: key tiles of 16 or 64, ring slots, blocks an
+SM or a register cap, P through shared memory or by shuffles instead of
+in place, the split's rounding, where the scores are summed, S's 8-key
+blocks scored apart or a whole tile at once, and `skip_lo_terms`
 (one TF32 pass, timed only: never the kernel, which needs three); each
 checked variant also prints its largest share of the flash gate and, at
 inputs x8, its distance from the f64 value beside attention_plain's.
@@ -60,13 +63,18 @@ MAIN = ((40, 10, 64, 256), (40, 1, 64, 256), True, 2048)
 CHECKS = (MAIN,
           ((2, 6, 40, 256), (2, 2, 40, 256), True, None),     # group 3
           ((2, 10, 64, 256), (2, 1, 300, 256), True, None))   # many tiles
-# the tensor-core kernel's shapes: the MLA training shape, group 8 with a
-# window and Sq < Skv, and 300 keys (the online rescale over ten tiles)
+# the tensor-core kernel's shapes: the training shape (MLA's at 96 and
+# 192, moonshot's GQA at 128), group 8 with a window and Sq < Skv, and 300
+# keys (the online rescale over ten tiles)
 TC_MAIN = {192: ((40, 128, 64, 192), (40, 128, 64, 192), True, None),
+           128: ((40, 16, 64, 128), (40, 16, 64, 128), True, None),
            96: ((40, 40, 64, 96), (40, 40, 64, 96), True, None)}
-# and the serve prefill's (batch 4, prompt 32), timed beside the main shape
-TC_SERVE = {192: ((4, 128, 32, 192), (4, 128, 32, 192), True, None),
-            96: ((4, 40, 32, 96), (4, 40, 32, 96), True, None)}
+# and the shapes timed beside it, causal: the serve prefill (batch 4,
+# prompt 32; yi-6b's at 128) and at 128 a 2048-token prompt
+TC_TIMED = {192: {"prefill": ((4, 128, 32, 192), (4, 128, 32, 192))},
+            128: {"prefill": ((4, 32, 32, 128), (4, 4, 32, 128)),
+                  "prompt 2048": ((1, 32, 2048, 128), (1, 4, 2048, 128))},
+            96: {"prefill": ((4, 40, 32, 96), (4, 40, 32, 96))}}
 
 
 def tc_checks(d: int) -> tuple:
@@ -115,9 +123,11 @@ def _trace() -> list:
              " written",
              "    __syncthreads();         // (C) P, alpha and V(t) shown")
     subs = [("namespace {\n", _TRACE_DECL),
-            ("  // round r's item: heaviest first",
+            ("  // round r's item: heaviest first, in snake order over the "
+             "blocks so that",
              "  int ntr = 0;\n  trace_time(46);\n  trace_mark(ntr);\n"
-             "  // round r's item: heaviest first"),
+             "  // round r's item: heaviest first, in snake order over the "
+             "blocks so that"),
             ("    if (last) {              // the item is done",
              "    trace_mark(ntr);\n    if (last) {              // the item is"
              " done"),
@@ -158,12 +168,12 @@ VARIANTS = {
         "const int blocks = min(a.n_items, resident_group_blocks<D>);",
         "const int blocks = a.n_items;")],
     # 256 threads: 5 rows x 16 columns of O and 5 x 8 scores a thread
-    "threads_256": lambda: _consts(kGThreads=256, kGKeysPerThread=8),
+    "threads_256": lambda d: _consts(kGThreads=256, kGKeysPerThread=8),
     # 40 rows, 16-key tiles, 128 threads, two blocks an SM
-    "rows_40": lambda: _consts(kGThreads=128, kGRows=40, kGBK=16,
+    "rows_40": lambda d: _consts(kGThreads=128, kGRows=40, kGBK=16,
                                kGBlocksPerSM=2),
     # 5 heads x 16 positions an item, the group in two chunks
-    "positions_16": lambda: _consts(kGMinPositions=16),
+    "positions_16": lambda d: _consts(kGMinPositions=16),
     # the score FMAs of one key's float4 back to back (the same sums in the
     # same order; the source orders them component by component)
     "score_chains": [(
@@ -221,16 +231,15 @@ VARIANTS = {
       for (int step = 0; step < G::kSliceD / 4; ++step) {
         const int d = 4 * ((step + rg) % (G::kSliceD / 4));
         float4 qv[RT];""")],
-    "trace": _trace,
+    "trace": lambda d: _trace(),
     "skip_q_copies": [
         ("mbar_expect(q_bar, it.heads * it.n_pos * D * 4);",
          "mbar_expect(q_bar, 0);"),
         ("      if (row >= 0)\n        bulk_copy(",
          "      if (row < -1)\n        bulk_copy(")],
     "skip_kv_copies": [
-        ("mbar_expect(bar, rows * D * 4);", "mbar_expect(bar, 0);"),
-        ("      bulk_copy(smem_u32(dst), base",
-         "      if (rows < 0) bulk_copy(smem_u32(dst), base")],
+        ("mbar_expect(bar, rows * D * 4);\n      bulk_copy(smem_u32(dst), base",
+         "mbar_expect(bar, 0);\n      if (rows < 0) bulk_copy(smem_u32(dst), base")],
     # no stores, but a condition the compiler cannot fold keeps P V alive
     "skip_stores": [("        if (row < 0) continue;",
                      "        if (row < 0 || a.scale == a.scale) continue;")],
@@ -259,16 +268,17 @@ VARIANTS = {
 }
 
 
-def _tc_shape(**values) -> list:
-    """Substitutions of TcShape's per-D constants (one value for both D)."""
+def _tc_shape(d: int, **values) -> list:
+    """Substitutions of TcShape's constants at head dim d (the other head
+    dims keep theirs)."""
     src = SOURCE.read_text()
     out = []
     for name, value in values.items():
-        m = re.search(rf"static constexpr int {name} = D > 128 \? \d+ : \d+;",
-                      src)
+        m = re.search(rf"static constexpr (int|bool) {name} = ([^;]+);", src)
         if m is None:
             raise AssertionError(f"TcShape::{name} not in the source")
-        out.append((m.group(0), f"static constexpr int {name} = {value};"))
+        out.append((m.group(0), f"static constexpr {m.group(1)} {name} = "
+                                f"D == {d} ? {value} : ({m.group(2)});"))
     return out
 
 
@@ -343,25 +353,25 @@ _SKIP_COPIES = [
 
 TC_VARIANTS = {
     "as_built": [],
-    "bk_64": lambda: _consts(kTcBK=64),
-    "bk_16": lambda: _consts(kTcBK=16),
-    "slots_2": lambda: _tc_shape(kSlots=2),
-    "slots_3": lambda: _tc_shape(kSlots=3),
-    "slots_4": lambda: _tc_shape(kSlots=4),
+    "bk_64": lambda d: _consts(kTcBK=64),
+    "bk_16": lambda d: _consts(kTcBK=16),
+    "slots_2": lambda d: _tc_shape(d, kSlots=2),
+    "slots_3": lambda d: _tc_shape(d, kSlots=3),
+    "slots_4": lambda d: _tc_shape(d, kSlots=4),
     # __launch_bounds__' blocks an SM: the register cap ptxas works to
-    "min_blocks_1": lambda: _tc_shape(kBlocksPerSM=1),
-    "min_blocks_2": lambda: _tc_shape(kBlocksPerSM=2),
-    "min_blocks_4": lambda: _tc_shape(kBlocksPerSM=4),
+    "min_blocks_1": lambda d: _tc_shape(d, kBlocksPerSM=1),
+    "min_blocks_2": lambda d: _tc_shape(d, kBlocksPerSM=2),
+    "min_blocks_4": lambda d: _tc_shape(d, kBlocksPerSM=4),
     # the register cap set directly, above __launch_bounds__' 168 (two
     # blocks) and 128 (three): does a block of 160 threads fit the SM as
     # often at 200 (or 136) registers?
     "maxnreg": [("__global__ void __launch_bounds__(kTcThreads, TcShape<D>::kBlocksPerSM)",
                  "__global__ void __launch_bounds__(kTcThreads) "
-                 "__maxnreg__(D > 128 ? 200 : 136)")],
+                 "__maxnreg__(D == 96 ? 136 : 200)")],
     "p_smem": [
         (_P_IN_PLACE, _P_SMEM),
-        ("                                 + kSlots * kSlotFloats;",
-         "                                 + kSlots * kSlotFloats + kTcWarps * 16 * 12;"),
+        ("+ kSlots * kSlotFloats;",
+         "+ kSlots * kSlotFloats + kTcWarps * 16 * 12;"),
         ("  const int g = lane >> 2;\n",
          "  const int g = lane >> 2;\n"
          "  float* p_tile = ring + S * T::kSlotFloats + warp * 16 * 12;\n")]
@@ -402,6 +412,10 @@ TC_VARIANTS = {
                     "#pragma unroll 1\n        for (int d0 = 0;")],
     "s_unroll_4": [("#pragma unroll 2\n        for (int d0 = 0;",
                     "#pragma unroll 4\n        for (int d0 = 0;")],
+    # S scored only in the 8-key blocks the warp can see, a branch each (as
+    # built at 192), or every block of a tile the warp sees (at 96, 128)
+    "score_blocks_apart": lambda d: _tc_shape(d, kScoreWholeTile="false"),
+    "score_whole_tile": lambda d: _tc_shape(d, kScoreWholeTile="true"),
     # one TF32 pass (hi.hi): wrong by about 1e-3, only timed
     "skip_lo_terms": [(_LO_TERMS, "")],
     # K or V taken as hi with lo = 0: what their splits cost
@@ -423,11 +437,11 @@ TC_VARIANTS = {
 }
 
 
-def variant_source(name: str, baseline, variants: dict) -> str:
+def variant_source(name: str, baseline, variants: dict, d: int) -> str:
     if name == "baseline":
         return Path(baseline).read_text()
     subs = variants[name]
-    subs = subs() if callable(subs) else subs
+    subs = subs(d) if callable(subs) else subs
     src = SOURCE.read_text()
     if name == "trace":
         src += _TRACE_TAIL
@@ -468,7 +482,7 @@ def build(names, baseline, d: int, variants: dict) -> dict:
     procs = {}
     for name in names:
         cu = OUT / f"{name}_{d}.cu"
-        cu.write_text(variant_source(name, baseline, variants))
+        cu.write_text(variant_source(name, baseline, variants, d))
         lib = OUT / f"lib{name}_{d}.so"
         procs[name] = (lib, subprocess.Popen(
             [kbuild.nvcc_path(), *kbuild.NVCC_FLAGS, "-Xptxas", "-v",
@@ -522,7 +536,7 @@ def main() -> int:
     elif d in TC_MAIN:
         variants, main_case, checks = TC_VARIANTS, TC_MAIN[d], tc_checks(d)
     else:
-        raise SystemExit(f"--head-dim takes 256, 192 or 96, not {d}")
+        raise SystemExit(f"--head-dim takes 256, 192, 128 or 96, not {d}")
     names = args or list(variants)
     if baseline is not None:
         names.append("baseline")
@@ -548,14 +562,12 @@ def main() -> int:
     large_exact = chip_smoke.attention_f64(torch, *large)
     errors = {"plain": {"x8_vs_f64": chip_smoke.gate_share(
         fa.attention_plain(*large), large_exact)}} if d != 256 else {}
-    serve = None
-    if d in TC_SERVE:
-        qs, ks, causal, window = TC_SERVE[d]
-        serve = [torch.randn(qs, generator=gen, device=dev)] + [
-            torch.randn(ks, generator=gen, device=dev) for _ in range(2)]
+    timed = {label: [torch.randn(qs, generator=gen, device=dev)] + [
+                 torch.randn(ks, generator=gen, device=dev) for _ in range(2)]
+             for label, (qs, ks) in TC_TIMED.get(d, {}).items()}
     plain_lib = fa._lib
     times = {name: [] for name in names}
-    serve_times = {name: [] for name in names}
+    timed_ms = {label: {name: [] for name in names} for label in timed}
     attrs = {}
     for name in names + names[::-1]:
         lib = ctypes.CDLL(str(built[name][0]))
@@ -587,13 +599,13 @@ def main() -> int:
             q, k, v, causal, window))
         times[name].append(ms)
         print(f"{name}: device time {ms:.4f} ms", flush=True)
-        if serve is not None:
-            ms = chip_smoke.device_ms(torch, lambda: fa.flash_attention_cuda(
-                *serve))
-            serve_times[name].append(ms)
-            print(f"{name}: serve shape device time {ms:.4f} ms", flush=True)
         if name == "trace":
             trace_report(ctypes.CDLL(str(built[name][0])))
+        for label, qkv in timed.items():
+            ms = chip_smoke.device_ms(torch, lambda: fa.flash_attention_cuda(
+                *qkv))
+            timed_ms[label][name].append(ms)
+            print(f"{name}: {label} device time {ms:.4f} ms", flush=True)
     fa._lib = plain_lib
     for name in names:
         print(f"{name}: ptxas {built[name][1]}; {attrs[name]}", flush=True)
@@ -602,7 +614,10 @@ def main() -> int:
                       "device_ms": {name: statistics.median(v)
                                     for name, v in times.items()},
                       "runs_ms": times,
-                      "serve_runs_ms": serve_times if serve else None,
+                      "timed_runs_ms": {
+                          label: {"shape": [list(t.shape) for t in qkv[:2]],
+                                  "runs_ms": timed_ms[label]}
+                          for label, qkv in timed.items()},
                       "ptxas": {name: built[name][1] for name in names},
                       "attributes": attrs, "errors": errors}),
           flush=True)

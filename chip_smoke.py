@@ -17,12 +17,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      computes the same function, and the card's bound for the same work,
      and where the host's launch overhead would hide the kernel, by device
      time under torch.profiler too; flash_attention at head_dim 256 also
-     with its registers, local and shared memory and blocks an SM, and at
-     head_dim 128 (yi-6b) at the serve shapes (its prefill and a 2048-token
-     prompt, beside SDPA with enable_gqa), and at MLA's q·k heads 96
-     (minicpm3-4b) and 192 (deepseek-v2: the tensor-core kernel) at
-     their training and serve shapes, each failing on any local memory
-     or on two calls that differ; inputs x8, where no f32 evaluation
+     with its registers, local and shared memory and blocks an SM, and on
+     the tensor-core kernel at head_dim 128 (moonshot's training shape,
+     yi-6b's prefill and a 2048-token prompt, beside SDPA with enable_gqa
+     and its bytes, f32 and 3xTF32 bounds) and at MLA's q·k heads 96
+     (minicpm3-4b) and 192 (deepseek-v2) at their training and serve
+     shapes, each failing on any local memory or on two calls that
+     differ; inputs x8, where no f32 evaluation
      meets the 1e-5 gate against another, held to be no further from the
      f64 value than attention_plain is;
      perturbed_matmul also per shape beside cuBLAS, at M = BM·C rows (z
@@ -144,6 +145,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 # per path: rounds (both engines), rounds a scan chunk, eval cadence
 SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "mamba2": (4, 2, 2),
         "hybrid": (3, 3, 3), "sign": (8, 4, 4), "fo": (8, 4, 4),
@@ -633,11 +635,13 @@ def check_flash_attention(torch, dev) -> dict:
         ((2, 12, 200, 64), (2, 12, 200, 64), True, None),
         ((2, 12, 37, 64), (2, 4, 300, 64), True, 64),
         ((3, 4, 150, 32), (3, 4, 150, 32), False, None),
-        # head_dim 128 (yi-6b): its prefill (group 8 on four kv heads), a
-        # long prompt, group 1, a window that binds with Sq < Skv, and
-        # non-causal
+        # head_dim 128 (yi-6b, moonshot; the tensor-core kernel): yi-6b's
+        # prefill (group 8 on four kv heads), a long prompt, moonshot's
+        # training shape (group 1), group 1 over 70 keys, a window that
+        # binds with Sq < Skv, and non-causal
         ((4, 32, 32, 128), (4, 4, 32, 128), True, None),
         ((1, 32, 2048, 128), (1, 4, 2048, 128), True, None),
+        ((40, 16, 64, 128), (40, 16, 64, 128), True, None),
         ((2, 4, 70, 128), (2, 4, 70, 128), True, None),
         ((2, 16, 45, 128), (2, 2, 130, 128), True, 40),
         ((3, 8, 33, 128), (3, 4, 33, 128), False, None),
@@ -657,21 +661,26 @@ def check_flash_attention(torch, dev) -> dict:
         ((3, 6, 33, 192), (3, 3, 33, 192), False, None),
         ((2, 10, 1, 192), (2, 1, 70, 192), True, None),
         ((2, 4, 24, 24), (2, 4, 24, 24), True, None),
-        # the tensor-core kernel (96 and 192) at its edges: Sq not a
+        # the tensor-core kernel (96, 128 and 192) at its edges: Sq not a
         # multiple of a warp's 16 rows and Skv not of the 32-key tile, 300
-        # keys (the online rescale over ten tiles), group 8 at 96 with a
-        # window, window 1 (each row sees only itself), one query row
+        # keys over two kv heads (the online rescale over ten tiles), group
+        # 8 at 96 with a window, window 1 (each row sees only itself), one
+        # query row
         ((2, 4, 37, 96), (2, 4, 37, 96), True, None),
+        ((2, 4, 37, 128), (2, 4, 37, 128), True, None),
         ((2, 4, 37, 192), (2, 4, 37, 192), True, None),
         ((2, 4, 70, 96), (2, 2, 300, 96), True, None),
+        ((2, 4, 70, 128), (2, 2, 300, 128), True, None),
         ((2, 4, 70, 192), (2, 2, 300, 192), True, None),
         ((2, 16, 45, 96), (2, 2, 130, 96), True, 40),
         ((2, 4, 64, 96), (2, 4, 64, 96), True, 1),
+        ((2, 4, 64, 128), (2, 4, 64, 128), True, 1),
         ((2, 4, 64, 192), (2, 4, 64, 192), True, 1),
         ((2, 10, 1, 96), (2, 1, 70, 96), True, None),
+        ((2, 10, 1, 128), (2, 1, 70, 128), True, None),
     ]
     max_err = 0.0
-    tc_err = {96: 0.0, 192: 0.0}
+    tc_err = {96: 0.0, 128: 0.0, 192: 0.0}
     for qs, ks, causal, window in cases:
         q = torch.randn(qs, generator=gen, device=dev)
         k = torch.randn(ks, generator=gen, device=dev)
@@ -686,8 +695,8 @@ def check_flash_attention(torch, dev) -> dict:
         if qs[-1] in tc_err:
             tc_err[qs[-1]] = max(tc_err[qs[-1]], err)
     print(f"flash_attention: {len(cases)} cases ok, max err {max_err:.3e}; "
-          f"tensor-core kernel, max err at 96 {tc_err[96]:.3e}, at 192 "
-          f"{tc_err[192]:.3e}", flush=True)
+          f"tensor-core kernel, max err at 96 {tc_err[96]:.3e}, at 128 "
+          f"{tc_err[128]:.3e}, at 192 {tc_err[192]:.3e}", flush=True)
     large = flash_attention_large_scores(torch, dev, gen)
 
     b, h, s, d = cases[0][0]
@@ -732,7 +741,7 @@ def check_flash_attention(torch, dev) -> dict:
           f"{b2_ms:.4f} by {b2_by}; device time {dev2:.4f}, SDPA "
           f"{lib_dev2:.4f})", flush=True)
     print(f"flash_attention head_dim {d2} kernel: {attrs2}", flush=True)
-    hd128 = flash_attention_128(torch, dev, gen, cases)
+    hd128 = flash_attention_128(torch, dev, gen)
     mla = flash_attention_mla(torch, dev, gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -751,13 +760,15 @@ def check_flash_attention(torch, dev) -> dict:
             "large_scores": large, **mla}
 
 
-# inputs x8 (scores x64) at 96 and 192: no f32 evaluation stays within the
-# flash gate of another here (attention_plain is 30-60 times the gate from
-# the f64 value, as is the f32 FMA kernel these instances replaced), so the
-# kernel is held to be no further from the f64 value than attention_plain
-# is. One TF32 pass would be hundreds of times further.
+# inputs x8 (scores x64) at 96, 128 and 192: no f32 evaluation stays within
+# the flash gate of another here (attention_plain is 30-60 times the gate
+# from the f64 value, as is the f32 FMA kernel these instances replaced), so
+# the kernel is held to be no further from the f64 value than
+# attention_plain is. One TF32 pass would be hundreds of times further.
 FLASH_LARGE = (((2, 8, 64, 96), (2, 8, 64, 96)),
                ((2, 4, 70, 96), (2, 2, 300, 96)),
+               ((2, 8, 64, 128), (2, 8, 64, 128)),
+               ((2, 4, 70, 128), (2, 2, 300, 128)),
                ((2, 8, 64, 192), (2, 8, 64, 192)),
                ((2, 4, 70, 192), (2, 2, 300, 192)))
 
@@ -795,11 +806,23 @@ def flash_attention_large_scores(torch, dev, gen) -> list:
     return out
 
 
-def flash_attention_128(torch, dev, gen, cases) -> dict:
-    """The head_dim-128 kernel at the serve shapes (yi-6b's prefill and a
-    2048-token prompt, both causal on four kv heads), each timed beside
-    the plain version, SDPA with `enable_gqa` and the bound; its registers,
-    local and shared memory, with no local memory allowed (a spill)."""
+# head_dim 128's shapes on this slice's paths, causal: moonshot's training
+# forward (5 clients × batch 8 × seq 64, GQA group 1), yi-6b's serve
+# prefill (batch 4, prompt 32, group 8) and a 2048-token prompt
+GQA_FLASH = {"moonshot train": ((40, 16, 64, 128), (40, 16, 64, 128)),
+             "yi-6b prefill": ((4, 32, 32, 128), (4, 4, 32, 128)),
+             "long prompt": ((1, 32, 2048, 128), (1, 4, 2048, 128))}
+
+
+def flash_attention_128(torch, dev, gen) -> dict:
+    """The head_dim-128 instance (the tensor-core kernel) at GQA_FLASH's
+    shapes, each timed beside the plain version, SDPA with `enable_gqa` and
+    its bounds: bytes at 3.35 TB/s, the visible pairs' f32 FMA at 67
+    TFLOP/s and their three TF32 passes at 495 TFLOP/s. The kernel runs the
+    products in three TF32 passes, so its share is taken against the larger
+    of the bytes and the TF32 bound (a share above 100% fails: the bound
+    would be wrong). No local memory allowed (a spill), and two calls must
+    agree bitwise."""
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -809,8 +832,7 @@ def flash_attention_128(torch, dev, gen, cases) -> dict:
         raise AssertionError(f"flash_attention head_dim 128: {attrs['local_bytes']}"
                              " bytes of local memory a thread (a spill)")
     out = {"kernel_attributes": attrs}
-    for label, (qs, ks, _, _) in (("yi-6b prefill", cases[16]),
-                                  ("long prompt", cases[17])):
+    for label, (qs, ks) in GQA_FLASH.items():
         b, h, s, d = qs
         q = torch.randn(qs, generator=gen, device=dev)
         k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
@@ -824,14 +846,36 @@ def flash_attention_128(torch, dev, gen, cases) -> dict:
             q, k, v))
         row["library_device_ms"] = device_ms(torch, lambda: sdpa(
             q, k, v, is_causal=True, enable_gqa=True))
-        flops = b * h * (s * (s + 1) // 2) * (4 * d + 3)
-        n_bytes = 4.0 * (2 * q.numel() + 2 * k.numel())
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, flops)
+        pairs = b * h * (s * (s + 1) // 2)          # visible, Sq = Skv
+        row["bound_bytes_ms"] = (4.0 * (2 * q.numel() + 2 * k.numel())
+                                 / HBM_BYTES_PER_S * 1e3)
+        # per pair: q·k and p·v, 2d flops each (and the softmax's ≈ 3 in
+        # f32); three TF32 passes of both products on the tensor cores
+        row["bound_f32_ms"] = pairs * (4 * d + 3) / F32_FLOPS_PER_S * 1e3
+        row["bound_tf32_ms"] = pairs * 3 * 4 * d / TF32_FLOPS_PER_S * 1e3
+        by_bytes = row["bound_bytes_ms"] >= row["bound_tf32_ms"]
+        row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_tf32_ms"])
+        row["bound_by"] = "bytes" if by_bytes else "operations (3xTF32)"
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        if row["share_of_bound"] > 1.0:
+            raise AssertionError(f"flash_attention head_dim 128 {label}: "
+                                 f"{row['device_ms']} ms is under its bound "
+                                 f"{row['bound_ms']} ms")
+        # a fixed order of sums and no atomics: two calls agree bitwise
+        # (the scan engine's graph replay relies on it)
+        if not torch.equal(fa.flash_attention_cuda(q, k, v),
+                           fa.flash_attention_cuda(q, k, v)):
+            raise AssertionError(f"flash_attention head_dim 128 {label}: "
+                                 "two calls differ")
+        row["bitwise_repeat"] = True
         print(f"flash_attention head_dim 128, {label} {row['shape']}: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA "
-              f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-              f"{row['bound_by']}; device time {row['device_ms']:.4f}, SDPA "
-              f"{row['library_device_ms']:.4f})", flush=True)
+              f"{row['library_ms']:.4f}); device time {row['device_ms']:.4f}"
+              f" (SDPA {row['library_device_ms']:.4f}); bounds: bytes "
+              f"{row['bound_bytes_ms']:.4f}, f32 FMA at 67 TFLOP/s "
+              f"{row['bound_f32_ms']:.4f}, three TF32 passes at 495 TFLOP/s"
+              f" {row['bound_tf32_ms']:.4f}; {100 * row['share_of_bound']:.1f}%"
+              f" of the {row['bound_by']} bound", flush=True)
         out[label] = row
     return out
 

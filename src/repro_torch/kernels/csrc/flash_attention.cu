@@ -28,16 +28,13 @@
 // shuffles instead of D FMAs. Plain f32 FMA and the precise expf, no TF32
 // and no tensor cores (wgmma tiles are later work).
 //
-// Head dims 96 and 192 (MLA's q.k heads) have their own kernel on the
-// tensor cores, flash_fwd_tc_kernel; its design is noted where it starts.
+// Head dims 96, 128 and 192 (MLA's q.k heads; yi-6b's and moonshot's GQA
+// heads) have their own kernel on the tensor cores, flash_fwd_tc_kernel;
+// its design is noted where it starts.
 //
-// Head dims 128 and 256 have their own kernel, flash_fwd_group_kernel,
-// a template on D: 256 for recurrentgemma-2b (q [40,10,64,256] against one kv
-// head [40,1,64,256], causal, window 2048), 128 for yi-6b's prefill (q
-// [4,32,32,128] on four kv heads [4,4,32,128], causal: a group of 8 is one
-// chunk of 8 heads x 10 positions). At 128 the same block layout holds
-// (five rows x one float4 column of O a thread, 138,144 B of shared
-// memory); nothing else in the kernel depends on D. Bound at the
+// Head dim 256 has its own kernel, flash_fwd_group_kernel (a template on
+// D), for recurrentgemma-2b (q [40,10,64,256] against one kv head
+// [40,1,64,256], causal, window 2048). Bound at the
 // recurrentgemma shape: bytes, 57.7 MB of q/k/v/out, at least 17.2 us at
 // 3.35 TB/s; the 0.85 GFLOP of the visible pairs need 12.7 us of f32 FMA
 // at 67 TFLOP/s. The two bounds are close, so the copies have to
@@ -357,7 +354,7 @@ int launch_small(const float* q, const float* k, const float* v, float* o,
 }
 
 
-// head_dim >= 128: blocks of kGRows (head, position) rows of one kv head
+// head_dim 256: blocks of kGRows (head, position) rows of one kv head
 constexpr int kGThreads = 512;
 constexpr int kGBlocksPerSM = 1;
 constexpr int kGRows = 80;                 // (q head, position) rows an item
@@ -840,13 +837,20 @@ int launch_group(const float* q, const float* k, const float* v, float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Head dims 96 and 192 (flash_fwd_tc_kernel, a template on D): MLA's q.k
-// heads, minicpm3-4b's 64 + 32 ([40,40,64,96], causal, group 1) and
-// deepseek-v2's 128 + 64 ([40,128,64,192] on 128 kv heads); v is padded to
-// the q.k width by the model. Bound on the H100: bytes, 157.3 MB (96) and
-// 1.007 GB (192) of q/k/v/out, at least 47 us and 300 us at 3.35 TB/s; the
-// visible pairs' 8.2 GFLOP at 192 need 0.12 ms of f32 FMA at 67 TFLOP/s,
-// and their three TF32 passes 0.05 ms at 495 TFLOP/s. Design:
+// Head dims 96, 128 and 192 (flash_fwd_tc_kernel, a template on D): MLA's
+// q.k heads, minicpm3-4b's 64 + 32 ([40,40,64,96], causal, group 1) and
+// deepseek-v2's 128 + 64 ([40,128,64,192] on 128 kv heads), v padded to
+// the q.k width by the model; and GQA at 128, moonshot's training shape
+// ([40,16,64,128], causal, group 1), yi-6b's prefill (q [4,32,32,128] on
+// k/v [4,4,32,128], group 8) and a 2048-token prompt (q [1,32,2048,128] on
+// [1,4,2048,128]). Bound on the H100 (3.35 TB/s, 495 TFLOP/s in TF32, at
+// 700 W): bytes, 157.3 MB (96) and 1.007 GB (192) of q/k/v/out, at least
+// 47 us and 300 us; the visible pairs' 8.2 GFLOP at 192 need 0.12 ms of
+// f32 FMA at 67 TFLOP/s, and their three TF32 passes 0.05 ms. At 128:
+// bytes, 0.0250 ms (moonshot, 83.9 MB) and 0.0014 ms (yi-6b's prefill,
+// 4.7 MB); at the 2048-token prompt operations, its 67,141,632 visible
+// pairs in three TF32 passes (3 x 4 x 128 flops a pair) 0.2083 ms against
+// 0.0225 ms of bytes. Design:
 // - Work items of kTcRows = 64 (q head, position) rows of one kv head's
 //   query group, numbered as the group kernel numbers them (position tile
 //   x head chunk, heaviest first, persistent blocks in snake order): at
@@ -879,10 +883,15 @@ int launch_group(const float* q, const float* k, const float* v, float* o,
 //   two xor shuffles; alpha = expf(m - m_new) rescales the accumulator each
 //   tile, as the TPU kernel's step; each lane keeps its part of the
 //   normalizer, summed over the quad once an item.
-// - Causal and window skipping by the warp: an 8-key column block of S
-//   that none of the warp's rows can see, and its k-step of P V, are left
-//   out; masks are applied only in blocks that cross the diagonal, the
-//   window's edge or Skv.
+// - Causal and window skipping by the warp: a K/V tile that none of the
+//   warp's rows can see, and an 8-key block of P V, are left out; masks
+//   are applied only in blocks that cross the diagonal, the window's edge
+//   or Skv. At 96 and 128 a visible tile's four 8-key blocks of S are all
+//   scored, with no branch between them (the masks clear those the warp
+//   cannot see), so that their three-deep mma chains overlap: scored one
+//   block at a time behind a branch each, S took three times P V's time
+//   for as many products. At 192 that spills, and each block the warp
+//   cannot see is skipped.
 // - Fixed order of every sum and no atomics: two calls are bitwise equal.
 constexpr int kTcWarps = 4;                       // consumer warps, 16 rows each
 constexpr int kTcThreads = 32 * (kTcWarps + 1);   // and the producer warp
@@ -892,10 +901,13 @@ constexpr int kTcBK = 32;                         // keys a K/V tile
 
 template <int D>
 struct TcShape {
-  // K/V ring slots and blocks an SM: two blocks of 102,448 B at 192, three
-  // of 66,624 B at 96
-  static constexpr int kSlots = D > 128 ? 2 : 3;
-  static constexpr int kBlocksPerSM = D > 128 ? 2 : 3;
+  // K/V ring slots and blocks an SM: two blocks of 102,448 B at 192 and of
+  // 87,104 B at 128, three of 66,624 B at 96
+  static constexpr int kSlots = D == 192 ? 2 : 3;
+  static constexpr int kBlocksPerSM = D == 96 ? 3 : 2;
+  // every 8-key block of a visible tile scored (see above; at 192 the
+  // branch-free S spills)
+  static constexpr bool kScoreWholeTile = D != 192;
   static constexpr int kStride = D + 8;                     // Q, K, V rows
   static constexpr int kSlotFloats = kTcBK * kStride;
   // mbarriers: Q full and empty, then each slot's full, then its empty
@@ -1060,7 +1072,7 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
           tc_split(__fmul_rn(xb.y, a.scale), ah[3], al[3]);
 #pragma unroll
           for (int j = 0; j < NB; ++j) {
-            if (j < b_lo || j >= b_hi) continue;
+            if (!T::kScoreWholeTile && (j < b_lo || j >= b_hi)) continue;
             const float2 y = *reinterpret_cast<const float2*>(k_lane + 8 * j * RS + d0);
             uint32_t bh[2], bl[2];
             tc_split(y.x, bh[0], bl[0]);
@@ -1287,7 +1299,7 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
     case 32: return launch_small<32>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 64: return launch_small<64>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 96: return launch_tc<96>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 128: return launch_group<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 128: return launch_tc<128>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 192: return launch_tc<192>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     case 256: return launch_group<256>(q, k, v, o, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
@@ -1295,8 +1307,8 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
 }
 
 // the head_dim-d kernel as built, on the current device
-// (flash_fwd_small_kernel<d> at 16, 32 and 64, flash_fwd_tc_kernel<d> at 96
-// and 192, flash_fwd_group_kernel<d> at 128 and 256): eight ints into
+// (flash_fwd_small_kernel<d> at 16, 32 and 64, flash_fwd_tc_kernel<d> at 96,
+// 128 and 192, flash_fwd_group_kernel<d> at 256): eight ints into
 // info[8] -- registers and local memory bytes per thread, static and
 // dynamic shared memory bytes per block, resident blocks per SM, threads a
 // block, query rows a block ((head, position) rows an item for the tc and
@@ -1374,7 +1386,7 @@ extern "C" int flash_attention_attributes(int d, int* info) {
     case 32: return small_attributes<32>(info);
     case 64: return small_attributes<64>(info);
     case 96: return tc_attributes<96>(info);
-    case 128: return group_attributes<128>(info);
+    case 128: return tc_attributes<128>(info);
     case 192: return tc_attributes<192>(info);
     case 256: return group_attributes<256>(info);
     default: return cudaErrorInvalidValue;

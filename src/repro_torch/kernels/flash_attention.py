@@ -14,19 +14,23 @@ Bound on the H100 at OPT-125M's shape ([40,12,64,64], causal): bytes,
 (q [40,10,64,256] against one kv head [40,1,64,256], causal, window
 2048): bytes, 57.7 MB, ≥ 17.2 µs; its 0.85 GFLOP need 12.7 µs at
 67 TFLOP/s. At yi-6b's prefill (q [4,32,32,128] on four kv heads
-[4,4,32,128], causal): bytes, 4.7 MB, ≥ 1.4 µs. At the MLA heads, q, k
-and v of one shape, causal: minicpm3-4b's [40,40,64,96], bytes, 157.3 MB,
-≥ 47 µs; deepseek-v2's [40,128,64,192], bytes, 1.007 GB, ≥ 300 µs. At
-head_dim ≤ 64 each query row's accumulator stays in registers, split over
-4 lanes, with key/value tiles of 32 rows copied by `cp.async` into two
-buffers. At head_dim 96 and 192 persistent blocks of four 16-row warps
-and a TMA producer warp walk items of 64 (q head, position) rows of one
-kv head's query group, and both products run on the tensor cores in
-3xTF32 (`mma.sync`, f32 accumulators; a warp skips the 8-key blocks its
-rows cannot see). At head_dim 128 and 256 one persistent block an SM
-walks items of 80 such rows; there both products are register-blocked
-f32 FMA from shared memory. In both, each K/V tile is copied once for
-the whole group by TMA bulk copies. Scores and probabilities never reach
+[4,4,32,128], causal): bytes, 4.7 MB, ≥ 1.4 µs; at moonshot's training
+shape ([40,16,64,128], causal): bytes, 83.9 MB, ≥ 25.0 µs; at a
+2048-token prompt (q [1,32,2048,128] on [1,4,2048,128]): operations, its
+67.1 M visible pairs in three TF32 passes ≥ 0.208 ms at 495 TFLOP/s. At
+the MLA heads, q, k and v of one shape, causal: minicpm3-4b's
+[40,40,64,96], bytes, 157.3 MB, ≥ 47 µs; deepseek-v2's [40,128,64,192],
+bytes, 1.007 GB, ≥ 300 µs. At head_dim ≤ 64 each query row's accumulator
+stays in registers, split over 4 lanes, with key/value tiles of 32 rows
+copied by `cp.async` into two buffers. At head_dim 96, 128 and 192
+persistent blocks of four 16-row warps and a TMA producer warp walk items
+of 64 (q head, position) rows of one kv head's query group, and both
+products run on the tensor cores in 3xTF32 (`mma.sync`, f32
+accumulators; each warp splits what it loads into TF32 hi and lo). At
+head_dim 256 one persistent block an SM walks items of 80 such rows;
+there both products are register-blocked f32 FMA from shared memory. In
+both kernels each K/V tile is copied once for the
+whole group by TMA bulk copies. Scores and probabilities never reach
 device memory, and key tiles no row of the item can see are skipped.
 
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
@@ -82,8 +86,8 @@ def _lib():
 
 def kernel_attributes(d: int = 256) -> dict:
     """The head_dim-d instance (`flash_fwd_small_kernel<d>` at d ≤ 64,
-    `flash_fwd_tc_kernel<d>` at 96 and 192, `flash_fwd_group_kernel<d>`
-    at 128 and 256) as built on the current CUDA device: registers and
+    `flash_fwd_tc_kernel<d>` at 96, 128 and 192, `flash_fwd_group_kernel<d>`
+    at 256) as built on the current CUDA device: registers and
     local memory per thread, static and dynamic shared memory per block,
     resident blocks per SM, threads, query rows and keys of a K/V tile
     per block."""

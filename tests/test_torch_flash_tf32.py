@@ -1,5 +1,5 @@
-"""Why flash attention's tensor-core kernel (head_dim 96 and 192) takes
-three TF32 passes, shown on the CPU with torch alone.
+"""Why flash attention's tensor-core kernel (head_dim 96, 128 and 192)
+takes three TF32 passes, shown on the CPU with torch alone.
 
 TF32 is emulated as the kernel's `tc_split` forms it: hi = x rounded to 10
 mantissa bits (to nearest, ties away, as cvt.rna.tf32.f32), lo = x - hi,
@@ -9,8 +9,8 @@ a k-step's three products from zero before adding them to the scores.
 The gate is chip_smoke.py's flash gate: allclose to `attention_plain` at
 rtol = atol = 1e-5.
 
-- One pass (hi.hi) misses the gate by tens of times at head_dim 96 and
-  192; three (lo.hi + hi.lo + hi.hi) pass it.
+- One pass (hi.hi) misses the gate by tens of times at head_dim 96, 128
+  and 192; three (lo.hi + hi.lo + hi.hi) pass it.
 - At inputs x8 (scores x64) no f32 evaluation meets the gate against
   another: the f64 value itself misses `attention_plain` by tens of times.
   There chip_smoke holds the kernel to be no further from the f64 value
@@ -101,7 +101,7 @@ def test_tf32_round_is_round_to_nearest_ties_away():
     assert _tf32_read(torch.tensor([1.0 + 2.0 ** -11])).item() == 1.0
 
 
-@pytest.mark.parametrize("d", [96, 192])
+@pytest.mark.parametrize("d", [96, 128, 192])
 @pytest.mark.parametrize("q_shape,kv_shape,causal,window", [
     ((2, 8, 64, None), (2, 8, 64, None), True, None),     # MLA's shape, cut
     ((2, 6, 70, None), (2, 2, 130, None), True, 40),      # GQA, window
@@ -118,7 +118,7 @@ def test_gate_fails_one_tf32_pass_and_passes_three(d, q_shape, kv_shape,
     assert _gate_share(one, want) > 10.0
 
 
-@pytest.mark.parametrize("d", [96, 192])
+@pytest.mark.parametrize("d", [96, 128, 192])
 def test_large_scores_are_held_to_the_f64_value(d):
     """Inputs x8: the f64 value misses attention_plain's gate, so no
     f32 evaluation can be held to it; three passes stay no further from
