@@ -107,9 +107,8 @@ class ModelConfig:
         return count_params(self)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family variant for CPU smoke tests (the dense, moe,
-        mla, ssm and hybrid fields as in `repro`; the frontend of the vlm
-        and audio families is not ported yet)."""
+        """A tiny same-family variant for CPU smoke tests, as `repro`'s
+        (the vlm and audio frontends cut to 8 embeddings of 64)."""
         kw: dict = dict(
             n_layers=min(self.n_layers, 2),
             d_model=64,
@@ -136,8 +135,24 @@ class ModelConfig:
             kw["hybrid"] = HybridConfig(pattern=self.hybrid.pattern,
                                         lru_width=64, local_window=32,
                                         conv1d_width=4)
+        if self.frontend.kind != "none":
+            kw["frontend"] = FrontendConfig(kind=self.frontend.kind,
+                                            n_frontend_tokens=8,
+                                            d_frontend=64)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
 
 
 # ---------------------------------------------------------------------------

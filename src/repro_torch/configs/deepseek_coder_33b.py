@@ -5,6 +5,7 @@ layers, d_model 7168, 56 heads of 128 on 8 kv heads, d_ff 19200, vocab
 card and runs `--reduced` only.
 """
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -19,3 +20,6 @@ def build() -> ModelConfig:
         vocab_size=32256,
         head_dim=128,
     )
+
+
+register_arch("deepseek-coder-33b", build)

@@ -7,6 +7,7 @@ uniform for its scan over layers). 2.39e11 parameters, 957.5 GB in f32:
 one 80 GB card holds two of its layers.
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -26,3 +27,6 @@ def build() -> ModelConfig:
                       qk_nope_head_dim=128, qk_rope_head_dim=64,
                       v_head_dim=128),
     )
+
+
+register_arch("deepseek-v2-236b", build)

@@ -5,6 +5,7 @@ parameters, 189.0 GB in f32: it does not fit one 80 GB card and runs
 `--reduced` only.
 """
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -19,3 +20,6 @@ def build() -> ModelConfig:
         vocab_size=49152,
         head_dim=128,
     )
+
+
+register_arch("granite-34b", build)

@@ -4,6 +4,7 @@
 expand=2 → d_inner=2048, head_dim=64 → 32 SSD heads, d_conv=4, ngroups=1.
 """
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -21,3 +22,6 @@ def build() -> ModelConfig:
         subquadratic=True,
         tie_embeddings=True,
     )
+
+
+register_arch("mamba2-370m", build)

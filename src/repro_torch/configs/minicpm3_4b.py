@@ -5,6 +5,7 @@ qk_nope 64 + qk_rope 32 (a q·k head of 96), v_head 64. 4.26e9
 parameters, 17.05 GB in f32.
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -22,3 +23,6 @@ def build() -> ModelConfig:
                       qk_nope_head_dim=64, qk_rope_head_dim=32,
                       v_head_dim=64),
     )
+
+
+register_arch("minicpm3-4b", build)

@@ -7,6 +7,7 @@ parameters, 112.2 GB in f32: one 80 GB card holds it only with its depth
 cut.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -23,3 +24,6 @@ def build() -> ModelConfig:
         moe=MoEConfig(n_experts=64, n_experts_per_tok=6,
                       n_shared_experts=0, d_expert=1408),
     )
+
+
+register_arch("moonshot-v1-16b-a3b", build)

@@ -2,6 +2,7 @@
 `repro.configs.opt_125m` defines it (rotary positions instead of OPT's
 learned absolute embeddings)."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -16,3 +17,6 @@ def build() -> ModelConfig:
         vocab_size=50272,
         head_dim=64,
     )
+
+
+register_arch("opt-125m", build)

@@ -6,6 +6,7 @@ Pattern (r, r, a) cycled: 26 = 8×(r,r,a) + (r,r). lru_width=2560, local
 window=2048, head_dim=256 (10 heads × 256 = 2560, one kv head).
 """
 from repro_torch.configs.base import HybridConfig, ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -24,3 +25,6 @@ def build() -> ModelConfig:
         subquadratic=True,
         tie_embeddings=True,
     )
+
+
+register_arch("recurrentgemma-2b", build)

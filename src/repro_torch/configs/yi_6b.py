@@ -3,6 +3,7 @@
 heads, d_ff 11008, vocab 64000; 6.06e9 parameters, 24.2 GB in f32.
 """
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.arch_registry import register_arch
 
 
 def build() -> ModelConfig:
@@ -17,3 +18,6 @@ def build() -> ModelConfig:
         vocab_size=64000,
         head_dim=128,
     )
+
+
+register_arch("yi-6b", build)

@@ -123,12 +123,13 @@ class RoundHook:
 def eval_logits(params: Dict, model_cfg: ModelConfig,
                 tokens: torch.Tensor) -> torch.Tensor:
     """The greedy eval's logits at the last position, [n, V] f32: the
-    model's forward, then the lm head (or the tied embedding) on x[:, -1]
+    model's forward (the audio family's: zero frames [n, n_frontend_tokens,
+    d_model] encoded, then the decoder; the vlm's runs without a prefix, as
+    the reference's), then the lm head (or the tied embedding) on x[:, -1]
     only. `tasks.accuracy` reads no other position, and for
     recurrentgemma-2b the full [64, 64, 256000] logits would take 4.2 GB."""
     x = registry.get_module(model_cfg).forward(params, model_cfg, tokens)
-    head = params.get("lm_head", params["embed"])
-    return L.unembed(head, x[:, -1])
+    return L.unembed(L.head(params), x[:, -1])
 
 
 class EvalHook(RoundHook):

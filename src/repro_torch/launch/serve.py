@@ -8,9 +8,11 @@
 
 Runs prefill once, then a decode loop with the architecture's own state:
 the KV cache of the dense and moe families (MLA's compressed latent
-cache where the config has MLA), the SSD state and conv tail of the ssm
-family, the recurrent state and rolling attention window of the hybrid
-family. Every state is updated in place. The decode step runs eagerly
+cache where the config has MLA) and of the vlm behind its zero patch
+embeddings, the audio family's self cache and its cross cache over zero
+frames, the SSD state and conv tail of the ssm family, the recurrent state
+and rolling attention window of the hybrid family. Every state is updated
+in place. The decode step runs eagerly
 (the reference jits it with the cache donated): one launch per operation.
 """
 from __future__ import annotations
@@ -24,7 +26,52 @@ import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.configs import get_arch, list_archs
+from repro_torch.core import zo
 from repro_torch.models import registry
+
+
+def frontend_zeros(cfg, batch: int, like: torch.Tensor):
+    """The vlm's stub patch embeddings for serving, zeros [batch,
+    n_frontend_tokens, d_model] on `like`'s device and dtype, as the
+    reference serves them; None for the other families (the audio family's
+    modules take zero frames where none are given)."""
+    if cfg.family != "vlm":
+        return None
+    return torch.zeros((batch, cfg.frontend.n_frontend_tokens, cfg.d_model),
+                       dtype=like.dtype, device=like.device)
+
+
+def _grown(c: torch.Tensor, n: int) -> torch.Tensor:
+    """A cache leaf [L, B, S, ...] copied into zeros of length n along its
+    sequence dim, once."""
+    big = c.new_zeros(c.shape[:2] + (n,) + c.shape[3:])
+    big[:, :, :c.shape[2]] = c
+    return big
+
+
+def start(cfg, params, prompt: torch.Tensor, gen_steps: int):
+    """Prefill of `prompt` [B, S] (int64 on the params' device) behind the
+    family's zero frontend input, and the decode state sized for
+    `gen_steps` more tokens: (last logits [B, 1, V], state, the position of
+    the first decode step). The KV caches of the dense, moe and vlm
+    families and the audio family's self cache are copied once into a
+    buffer of the whole length (the vlm's holds the P patch positions too,
+    so its decode starts at S + P); the audio family's cross cache (its
+    `cross_` leaves) and the ssm and hybrid states are used as the prefill
+    leaves them."""
+    mod = registry.get_module(cfg)
+    leaf = zo.flatten(params)[0][1]
+    b, s = prompt.shape
+    front = frontend_zeros(cfg, b, leaf)
+    if cfg.family in ("ssm", "hybrid"):
+        logits, state = mod.prefill(params, cfg, prompt)
+        return logits, state, s
+    logits, small = mod.prefill(params, cfg, prompt, prefix_embeds=front)
+    grow = [name for name in small if not name.startswith("cross_")]
+    s_tot = small[grow[0]].shape[2]
+    cache = {name: _grown(c, s_tot + gen_steps) if name in grow else c
+             for name, c in small.items()}
+    return logits, cache, s_tot
 
 
 def serve_loop(cfg, params, tokens, gen_steps: int, *, extra_cap: int = 0,
@@ -40,34 +87,17 @@ def serve_loop(cfg, params, tokens, gen_steps: int, *, extra_cap: int = 0,
         raise NotImplementedError(
             "impl= (picking the plain versions or a kernel by name) is not "
             "ported (ROADMAP A12)")
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"serving the {cfg.family} family is not ported (ROADMAP A8: "
-            f"{cfg.family})")
     mod = registry.get_module(cfg)
-    embed = params["embed"]["w"]
-    dev, dtype = embed.device, embed.dtype
-    b, s = tokens.shape
     mark = hook or (lambda stage: None)
-    prompt = torch.as_tensor(np.asarray(tokens), device=dev).long()
+    prompt = torch.as_tensor(np.asarray(tokens),
+                             device=zo.flatten(params)[0][1].device).long()
     mark("start")
-
-    logits, cache = mod.prefill(params, cfg, prompt)
-    if cfg.family in ("dense", "moe"):
-        # prefill's cache (k/v, or MLA's latent) holds the prompt; decode
-        # writes past it, into one buffer of the whole length, filled once
-        # along the sequence dim (dim 2 of every leaf)
-        small = cache
-        cache = mod.init_cache(cfg, b, s + gen_steps, dtype=dtype,
-                               device=dev)
-        for name, c in small.items():
-            cache[name][:, :, :s] = c
-        del small
+    logits, cache, pos = start(cfg, params, prompt, gen_steps)
     tok = torch.argmax(logits[:, -1:], dim=-1)              # [B, 1]
     mark("prefill")
     out = [tok]
     for i in range(gen_steps - 1):
-        logits, cache = mod.decode_step(params, cfg, cache, tok, s + i)
+        logits, cache = mod.decode_step(params, cfg, cache, tok, pos + i)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out.append(tok)
         mark("decode")

@@ -166,7 +166,8 @@ def main(argv=None) -> dict:
         seed=args.seed)
     pipe = FederatedPipeline(
         task=args.task, spec=TaskSpec(args.task, cfg.vocab_size, args.seq_len),
-        n_clients=args.clients, per_client_batch=args.batch, seed=args.seed)
+        n_clients=args.clients, per_client_batch=args.batch, seed=args.seed,
+        frontend_tokens=cfg.frontend.n_frontend_tokens, d_model=cfg.d_model)
 
     fault = None
     if args.dropout_p or args.straggler_p:

@@ -1,1 +1,2 @@
-"""Model families (dense decoder-only transformer in this port)."""
+"""Model families: the dense and moe transformer, the ssm, hybrid, vlm and
+audio families, and the architecture registry."""

@@ -159,20 +159,33 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), p["w"].to(torch.float32).t())
 
 
+def head(params: dict) -> dict:
+    """The lm head, or the tied embedding (the encoder-decoder's
+    `dec_embed`)."""
+    for name in ("lm_head", "embed", "dec_embed"):
+        if name in params:
+            return params[name]
+    raise KeyError("params hold no lm_head, embed or dec_embed")
+
+
 def logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     """f32 logits [.., V] of final hidden states [.., D]: the lm head, or
     the tied embedding."""
-    return unembed(params.get("lm_head", params["embed"]), x)
+    return unembed(head(params), x)
 
 
 def loss_per_client(forward, params: dict, cfg: ModelConfig,
                     batch: dict) -> torch.Tensor:
     """Per-client mean NLL of a language model: batch tokens/targets/mask
-    [K, b, S] → [K]; `forward(params, cfg, tokens)` gives the final hidden
-    states and `logits` makes the logits."""
-    k, b, _ = batch["tokens"].shape
+    [K, b, S] (and the stub frontend's prefix_embeds [K, b, P, D] when
+    present, passed on to the forward) → [K]; `forward(params, cfg,
+    tokens)` gives the final hidden states, of which the last S (the text
+    positions) are scored, and `logits` makes the logits."""
+    k, b, s = batch["tokens"].shape
     flat = lambda a: a.reshape((k * b,) + tuple(a.shape[2:]))  # noqa: E731
-    x = forward(params, cfg, flat(batch["tokens"]))
+    extra = ({"prefix_embeds": flat(batch["prefix_embeds"])}
+             if "prefix_embeds" in batch else {})
+    x = forward(params, cfg, flat(batch["tokens"]), **extra)[:, -s:]
     nll = cross_entropy(logits(params, x), flat(batch["targets"]),
                         flat(batch["mask"]))
     return torch.mean(nll.reshape(k, b), dim=-1)
@@ -206,22 +219,32 @@ def gqa_attend(p: dict, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig, *, causal: bool = True,
                window: Optional[int] = None,
                kv_cache: Optional[dict] = None,
-               cache_pos: Optional[int] = None) -> torch.Tensor:
-    """Self-attention: x [B, S, D] → [B, S, D].
+               cache_pos: Optional[int] = None,
+               kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of x [B, S, D] → [B, S, D]: self-attention, or with
+    `kv_x` [B, T, D] cross-attention (k and v projected from kv_x, the
+    encoder-decoder's). q and k are roped at `positions` when `causal` or
+    for self-attention, as the reference's; a non-causal cross-attention
+    is not roped.
 
     Without a cache the whole sequence attends through `kops.attention`
     (the kernel on the card). With `kv_cache` ({"k","v": [B, S_max, Hkv,
-    hd]}, one layer's views of the stacked cache) the S new tokens enter
-    at `cache_pos` (a host int): k is roped at cache_pos + arange(S), k and
-    v are written into the cache in place (the reference donates its
-    cache; no copy of the whole buffer is made here either), and the
-    output is `decode_attend` over the whole buffer."""
+    hd]}, one layer's views of the stacked cache; self-attention only)
+    the S new tokens enter at `cache_pos` (a host int): k is roped at
+    cache_pos + arange(S), k and v are written into the cache in place
+    (the reference donates its cache; no copy of the whole buffer is made
+    here either), and the output is `decode_attend` over the whole
+    buffer."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
-    q = dense({"w": p["wq"]}, x).reshape(b, s, hq, hd)
-    k = dense({"w": p["wk"]}, x).reshape(b, s, hkv, hd)
-    v = dense({"w": p["wv"]}, x).reshape(b, s, hkv, hd)
-    q = rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    src = x if kv_x is None else kv_x
+    t = src.shape[1]
+    q = dense({"w": p["wq"]}, x).reshape(b, s, hq, hd).transpose(1, 2)
+    k = dense({"w": p["wk"]}, src).reshape(b, t, hkv, hd)
+    v = dense({"w": p["wv"]}, src).reshape(b, t, hkv, hd)
+    roped = causal or kv_x is None
+    if roped:
+        q = rope(q, positions, cfg.rope_theta)
     if kv_cache is not None:
         kpos = cache_pos + torch.arange(s, device=x.device)
         k = rope(k.transpose(1, 2), kpos, cfg.rope_theta).transpose(1, 2)
@@ -230,7 +253,9 @@ def gqa_attend(p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = decode_attend(q.transpose(1, 2), kv_cache["k"], kv_cache["v"],
                             kpos, window=window)
         return dense({"w": p["wo"]}, out.reshape(b, s, hq * hd))
-    k = rope(k.transpose(1, 2), positions, cfg.rope_theta)
+    k = k.transpose(1, 2)
+    if roped:
+        k = rope(k, positions, cfg.rope_theta)
     out = kops.attention(q.contiguous(), k.contiguous(),
                          v.transpose(1, 2).contiguous(), causal=causal,
                          window=window)

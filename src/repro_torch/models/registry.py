@@ -1,11 +1,14 @@
-"""Architecture-family registry (the dense, moe, ssm and hybrid families
-in this port; dense and moe share the transformer module, as in `repro`).
+"""Architecture-family registry, as `repro.models.registry`: dense and
+moe share the transformer module, vlm wraps it, audio is the
+encoder-decoder, and the ssm and hybrid families have their own.
 
 Each family module gives `param_specs(cfg)` (nested dicts and lists of
 (shape, init) per leaf), `init` and `loss_per_client`, and for serving
-`prefill`, `decode_step` and its decode state (`init_cache` of the dense
-family, `init_state` of the ssm and hybrid ones). Leaves enumerate as JAX
-flattens the reference's params: dicts by sorted key, lists by index.
+`prefill`, `decode_step` and its decode state (`init_cache` of the dense,
+moe, vlm and audio families, `init_state` of the ssm and hybrid ones).
+Leaves enumerate as JAX flattens the reference's params: dicts by sorted
+key, lists by index. Shapes come from the specs on the meta device, so
+nothing is allocated even for the 236B config.
 """
 from __future__ import annotations
 
@@ -14,21 +17,20 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.zo import flatten
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer, vlm
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": ssm,
-             "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": vlm,
+             "audio": encdec, "hybrid": hybrid, "ssm": ssm}
 
 
 def get_module(cfg: ModelConfig):
     try:
         return _FAMILIES[cfg.family]
     except KeyError:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported (ROADMAP A8: "
-            f"other families); ported: {sorted(_FAMILIES)}") from None
+        raise ValueError(
+            f"unknown family {cfg.family!r} for {cfg.name}") from None
 
 
 def init_params(cfg: ModelConfig, key: torch.Tensor, device) -> Dict:
@@ -36,6 +38,19 @@ def init_params(cfg: ModelConfig, key: torch.Tensor, device) -> Dict:
     drawn from `key` (a `repro_torch.prng` key, e.g. `prng.key(seed)`)
     along the reference's key tree, on `device`."""
     return get_module(cfg).init(cfg, key, device)
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:
+    """Every leaf as a meta-device tensor (shape and dtype, nothing
+    allocated), in the params' nesting: the counterpart of the reference's
+    `jax.eval_shape` of `init`, with its default dtype."""
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return torch.empty(node[0], dtype=dtype, device="meta")
+    return build(get_module(cfg).param_specs(cfg))
 
 
 def shapes(cfg: ModelConfig) -> Tuple:
@@ -57,14 +72,34 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
+def train_batch_shapes(cfg: ModelConfig, shape: ShapeConfig,
+                       n_clients: int) -> Dict[str, torch.Tensor]:
+    """The train batch as meta-device tensors: tokens/targets/mask
+    [K, b, S], and the stub frontend's prefix_embeds [K, b, P, D] (bf16, as
+    the reference's) when the config has one."""
+    assert shape.global_batch % n_clients == 0, \
+        f"global_batch {shape.global_batch} not divisible by K={n_clients}"
+    lead = (n_clients, shape.global_batch // n_clients)
+    meta = lambda dims, dtype: torch.empty(  # noqa: E731
+        lead + dims, dtype=dtype, device="meta")
+    spec = {"tokens": meta((shape.seq_len,), torch.int32),
+            "targets": meta((shape.seq_len,), torch.int32),
+            "mask": meta((shape.seq_len,), torch.float32)}
+    if cfg.frontend.kind != "none":
+        spec["prefix_embeds"] = meta(
+            (cfg.frontend.n_frontend_tokens, cfg.d_model), torch.bfloat16)
+    return spec
+
+
 def serve_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16) -> Dict:
     """The family's decode state as meta-device tensors (shapes and dtypes,
     nothing allocated): the port's counterpart of the reference's
     `jax.eval_shape` of `init_state` / `init_cache`, with its default
-    dtype. `max_len` sizes the KV cache of the dense and moe families
-    (MLA's latent cache too); the ssm and hybrid states do not depend on
-    it."""
+    dtype. `max_len` sizes the KV cache of the dense, moe and vlm families
+    (MLA's latent cache too) and the audio family's self cache, whose
+    cross cache holds the config's `n_frontend_tokens` frames; the ssm and
+    hybrid states do not depend on it."""
     mod = get_module(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return mod.init_state(cfg, batch, dtype=dtype, device="meta")

@@ -71,10 +71,17 @@ def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,
     return x + L.mlp(bp["mlp"], h)
 
 
-def forward(params: Dict, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: [B, S] → hidden [B, S, D]."""
-    x = L.embed(params["embed"], tokens)
+def forward(params: Dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            *, prefix_embeds: Optional[torch.Tensor] = None,
+            inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens: [B, S] → hidden [B, S(+P), D]. `prefix_embeds` [B, P, D]
+    are prepended (the vlm's stub frontend); `inputs_embeds` [B, S, D]
+    replace the embedding lookup (tokens may be None), as the reference's
+    continuous input surface."""
+    x = L.embed(params["embed"], tokens) if inputs_embeds is None \
+        else inputs_embeds
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
         x = _block_apply(L.layer_slice(params["blocks"], i), x, positions,
@@ -88,27 +95,24 @@ def logits_from_hidden(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return L.logits(params, x)
 
 
-def _no_embeds(prefix_embeds, inputs_embeds=None) -> None:
-    if prefix_embeds is not None or inputs_embeds is not None:
-        raise NotImplementedError(
-            "prefix_embeds= / inputs_embeds= (the vlm frontend, soft "
-            "tokens) are not ported (ROADMAP A8: vlm)")
-
-
 def token_nll(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               targets: torch.Tensor, mask: torch.Tensor, *,
-              prefix_embeds=None, inputs_embeds=None) -> torch.Tensor:
-    """Per-row mean NLL [B] of tokens/targets/mask [B, S]."""
-    _no_embeds(prefix_embeds, inputs_embeds)
-    x = forward(params, cfg, tokens)
+              prefix_embeds: Optional[torch.Tensor] = None,
+              inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row mean NLL [B] of tokens/targets/mask [B, S], scored on the
+    text positions only (the prefix's are sliced off)."""
+    x = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                inputs_embeds=inputs_embeds)
+    if prefix_embeds is not None:
+        x = x[:, prefix_embeds.shape[1]:]
     return L.cross_entropy(logits_from_hidden(params, x), targets, mask)
 
 
 def loss_per_client(params: Dict, cfg: ModelConfig,
                     batch: Dict) -> torch.Tensor:
-    """batch tokens/targets/mask: [K, b, S] → per-client losses [K]."""
+    """batch tokens/targets/mask: [K, b, S] (and the vlm's prefix_embeds
+    [K, b, P, D] when present) → per-client losses [K]."""
     return L.loss_per_client(forward, params, cfg, batch)
-
 
 
 # ---------------------------------------------------------------------------
@@ -155,15 +159,19 @@ def decode_step(params: Dict, cfg: ModelConfig, cache: Dict,
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            prefix_embeds=None) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence prefill: (last-position logits [B, 1, V], cache [L, B,
-    S, Hkv, hd], or MLA's latent cache [L, B, S, R] and [L, B, S, dr]).
-    Each block runs its training form (attention through the kernel), and
-    its k/v (or latent) are recomputed from the block input into the
-    cache (one extra projection a layer, as the reference does)."""
-    _no_embeds(prefix_embeds)
-    b, s = tokens.shape
+            prefix_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence prefill of `prefix_embeds` [B, P, D] (if given) and
+    tokens [B, S]: (last-position logits [B, 1, V], cache [L, B, P + S,
+    Hkv, hd], or MLA's latent cache [L, B, P + S, R] and [.., dr]). Each
+    block runs its training form (attention through the kernel), and its
+    k/v (or latent) are recomputed from the block input into the cache
+    (one extra projection a layer, as the reference does)."""
+    b = tokens.shape[0]
     x = L.embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     cache = init_cache(cfg, b, s, dtype=x.dtype, device=x.device)
     for i in range(cfg.n_layers):

@@ -409,22 +409,42 @@ def test_attention_plain_matches_reference_at_head_dim_128(impl):
 @pytest.mark.parametrize("what,item", [("impl", "A12"), ("vlm", "A8"),
                                        ("audio", "A8"), ("prefix", "A8")])
 def test_unported_serve_options_raise(what, item):
-    """Options of `repro`'s serve path that are not ported raise naming
-    their ROADMAP item."""
+    """`impl=`, which is not ported, raises naming its ROADMAP item. The
+    A8 cases (the vlm and audio families, prefill behind prefix_embeds)
+    are ported now and run: the vlm family with no frontend tokens
+    serves what the dense family serves, reduced whisper-medium serves
+    the reference's tokens, and a prefill behind two prefix embeddings
+    fills a cache of 2 + S positions whose logits are the forward's."""
     import dataclasses
 
     case = _case("dense")
     cfg, params = case["cfg"], case["params"]
     tokens = _tokens(cfg, (BATCH, 4))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if what == "impl":
+    if what == "impl":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             serve.serve_loop(cfg, params, tokens, 2, impl="xla")
-        elif what == "vlm":
-            serve.serve_loop(dataclasses.replace(cfg, family="vlm"), params,
-                             tokens, 2)
-        elif what == "audio":
-            serve.serve_loop(dataclasses.replace(cfg, family="audio"),
-                             params, tokens, 2)
-        else:
-            transformer.prefill(params, cfg, _long(tokens),
-                                prefix_embeds=torch.zeros(BATCH, 2, 64))
+    elif what == "vlm":
+        got = serve.serve_loop(dataclasses.replace(cfg, family="vlm"),
+                               params, tokens, 2)
+        np.testing.assert_array_equal(
+            got, serve.serve_loop(cfg, params, tokens, 2))
+    elif what == "audio":
+        wcfg = get_arch("whisper-medium").reduced()
+        jcfg = jreg.get_arch("whisper-medium").reduced()
+        wparams = registry.init_params(wcfg, prng.key(SEED), "cpu")
+        jparams = jreg.init_params(jax.random.key(SEED), jcfg)
+        wtok = _tokens(wcfg, (BATCH, 4))
+        np.testing.assert_array_equal(
+            serve.serve_loop(wcfg, wparams, wtok, 2),
+            np.asarray(jserve.serve_loop(jcfg, jparams, wtok, 2)))
+    else:
+        prefix = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (BATCH, 2, 64)).astype(np.float32))
+        logits, cache = transformer.prefill(params, cfg, _long(tokens),
+                                            prefix_embeds=prefix)
+        assert tuple(cache["k"].shape[:3]) == (cfg.n_layers, BATCH, 6)
+        x = transformer.forward(params, cfg, _long(tokens),
+                                prefix_embeds=prefix)
+        np.testing.assert_allclose(
+            logits.numpy(), layers.logits(params, x[:, -1:]).numpy(),
+            **LOGITS)
