@@ -107,6 +107,40 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   layers (DEPTH; 256 patch embeddings in front of 64
                   tokens, GQA at head_dim 128, group 8), chained; fails at
                   2.0 θ;
+     then two scenario paths (ROADMAP A9) at the CLI's defaults,
+     OPT-125M, each on the loop engine and then on the scan engine
+     (SCENARIO_SCAN) from the same init, with the eavesdropper's capture
+     (`privacy.Adversary`, an `AttackHook`), exact launches, the uplink
+     bill and a peak gate reckoned from the path's structure:
+       attacked  — analog/solution, sign_flip on a quarter of the clients,
+                  robust_decode over ATTACK_GROUPS = 4 sub-slots (the
+                  uplink bills one payload a client-round on 4 resource
+                  blocks), desync (fraction 0.25, lag ≤ 4, phase std 0.1:
+                  each direction adds a fresh-mode dual forward on the
+                  lagged seed, 2 axpys a leaf and 2 forwards); scan ≡
+                  loop bitwise (losses, p̂, p_clients, obs_y, final
+                  weights), a loop run with the adversary off ≡ the loop
+                  run; fails at ATTACKED_PEAK_THETA = 3.9 θ (chained's
+                  2.41-2.50 θ plus the stale forward's perturbed copy,
+                  1 θ); then a loop run with desync off for the stale
+                  forward's share of a round, seed_replay on the capture
+                  and the ε̂ audit at AUDIT_TRIALS = 1500 paired traces
+                  on the card, `dominated`, its statistics within
+                  AUDIT_RTOL = 1e-5 of the largest of the CPU's;
+       fo-desync — FO-Adam, desync (fraction 0.25, phase std 0.1,
+                  16-symbol frames: frame gains and interference normals
+                  drawn on the card each round), obs_grad0 captured (a
+                  forward and backward over client 0's rows a round, one
+                  more flash launch a layer); scan ≡ loop bitwise (Adam
+                  moments and the captured gradients too); fails at
+                  FO_DESYNC_PEAK_THETA = 13 θ (the fo path's 9.7-9.9 θ;
+                  under scan the pipelined chunk's captured gradients and
+                  the graph's own, 3 θ); then DLG (600 steps, embed
+                  space, cosine) on round 0's captured gradient for
+                  client 0's [8, 64] batch from the seed-0 init, its first
+                  DLG_CHECK_STEPS = 5 residuals with the kernels within
+                  DLG_PLAIN_RTOL = 1e-4 of the plain versions' on the
+                  card, its seconds, final residual and token accuracy;
   5. the `resume` path (OPT-125M chained, the CLI's defaults, checkpoints
      every RESUME_EVERY = 4 rounds into temporary directories removed
      after use): 8 rounds on the loop with an elastic event at round 4
@@ -193,6 +227,35 @@ SIGN_HORIZON = 32
 # θ-sized at whisper-medium's width (2.71 θ on the loop, 2.86-2.92 on scan
 # on an H100, PERF.md §2), so a θ-sized copy would show at 3.7 or more
 AUDIO_PEAK_THETA = 3.3
+# the scenario paths (ROADMAP A9): rounds (both engines), rounds a chunk
+SCENARIO_SCAN = {"attacked": (8, 4), "fo-desync": (4, 2)}
+# robust_decode's orthogonal sub-slots on the attacked path
+ATTACK_GROUPS = 4
+# the attacked path's peak gate (× θ): the chained path's 2.41-2.50 θ plus
+# the stale clients' fresh-mode dual forward, which holds one perturbed
+# copy of θ beside w: about 3.4-3.5 θ; a second θ-sized copy would show
+# at 4.4 or more
+ATTACKED_PEAK_THETA = 3.9
+# the fo-desync path's peak gate (× θ), reckoned before its first run:
+# the fo path's 9.7-9.9 θ plus the captured gradients; on the loop the
+# forward and backward over client 0's rows run beside the averaged
+# gradient (1 θ) at a fifth of the activations, under the first
+# backward's peak; under scan a chunk's first round runs while the
+# previous chunk's captured gradients (2 θ) wait to be synced and the
+# graph holds its own (1 θ); the frame gains and the interference act in
+# place, a leaf of normals at a time
+FO_DESYNC_PEAK_THETA = 13.0
+# the audit's paired traces (the training CLI's --audit-trials default),
+# and its statistics on the card against the CPU's: max|Δ| over the
+# largest |statistic| of each arm (a statistic sums signed per-round
+# LLRs, so one near 0 has no relative precision; the y that enter them
+# sum K terms in another order, with normals 2 ulps apart on 1.6e-5 of
+# draws, PERF.md §6)
+AUDIT_TRIALS = 1500
+AUDIT_RTOL = 1e-5
+# DLG's first steps with the kernels against the plain versions
+DLG_CHECK_STEPS = 5
+DLG_PLAIN_RTOL = 1e-4
 # the resume path's checkpoint, eval and scan-chunk cadence
 RESUME_EVERY = 4
 N_PERTURB = 4                  # the training CLI's default
@@ -2840,6 +2903,338 @@ def run_resume_path(torch, dev, cfg, chained: dict) -> dict:
     return out
 
 
+def scenario_setup(name: str, cfg):
+    """The scenario paths' run configs at the CLI's defaults on sst2 over
+    Rayleigh: `attacked`, analog/solution with sign_flip on a quarter of
+    the clients, robust_decode over ATTACK_GROUPS sub-slots and desync
+    (fraction 0.25, lag up to 4, phase std 0.1); `fo-desync`, FO-Adam with
+    desync (fraction 0.25, phase std 0.1, 16-symbol frames)."""
+    from repro_torch.configs.base import ByzantineConfig, DesyncConfig
+    from repro_torch.data.pipeline import FederatedPipeline
+    from repro_torch.data.tasks import TaskSpec
+    if name == "attacked":
+        pz = dataclasses.replace(
+            pz_defaults(cfg, rounds=800),
+            byzantine=ByzantineConfig(behavior="sign_flip", fraction=0.25,
+                                      defense="robust_decode",
+                                      groups=ATTACK_GROUPS),
+            desync=DesyncConfig(fraction=0.25, max_lag=4, phase_std=0.1))
+    else:
+        pz = dataclasses.replace(
+            pz_defaults(cfg, rounds=800, mechanism="fo"),
+            desync=DesyncConfig(fraction=0.25, phase_std=0.1,
+                                frame_symbols=16))
+    pipe = FederatedPipeline("sst2", TaskSpec("sst2", cfg.vocab_size, 64),
+                             n_clients=5, per_client_batch=8, seed=0)
+    return pz, pipe
+
+
+def scenario_run(torch, dev, cfg, pz, pipe, rounds: int,
+                 adversary: bool = True, **kw) -> dict:
+    """One `fedsim.run` of a scenario path from the seed-0 init, with the
+    eavesdropper's capture (`privacy.Adversary` and an `AttackHook`) on or
+    off; the launch counters set to 0 just before and read just after.
+    ms/round: the median time between synchronized chunk boundaries from
+    the second on, over their rounds."""
+    from repro_torch import privacy as pv
+    from repro_torch.core import engine, fedsim
+    stamp, hook, seen = Stamp(torch), pv.AttackHook(), Payloads()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = fedsim.run(cfg, pz, pipe, rounds, device=dev,
+                     adversary=pv.Adversary() if adversary else None,
+                     hooks=[stamp, hook, seen], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, replays = read_launches(), engine.replays
+    peak = torch.cuda.max_memory_allocated() / (4 * cfg.param_count())
+    if len(res.losses) != rounds or not all(map(math.isfinite, res.losses)):
+        raise AssertionError(f"losses {res.losses}")
+    bounds = engine.chunk_boundaries(0, rounds, kw.get("chunk_rounds", 1)
+                                     if kw.get("engine") == "scan" else 1)
+    spans = [(stamp.times[c] - stamp.times[c - 1]) / (b - a)
+             for c, (a, b) in enumerate(bounds) if c > 0]
+    return {"res": res, "hook": hook, "seen": seen, "captured": adversary,
+            "launches": launches,
+            "replays": replays, "peak_theta": peak, "wall": wall,
+            "ms_per_round": statistics.median(spans) * 1e3,
+            "bounds": bounds}
+
+
+def scenario_expected_launches(cfg, pz, rounds: int,
+                               captured: bool) -> dict:
+    """`expected_launches` of the path, plus under ZO desync each
+    direction's fresh-mode dual forward on the lagged seed: two rollouts,
+    each one axpy a leaf (w ± μz into a new tree) and one forward; under
+    FO with the capture on, the forward over client 0's rows a round."""
+    from repro_torch.models import registry
+    fo = pz.transport.mechanism == "fo"
+    out = expected_launches(cfg, rounds, False, fo=fo,
+                            n_perturb=pz.zo.n_perturb)
+    if fo and captured:
+        out["flash_attention"] += rounds * attention_calls(cfg)
+    if not fo and pz.desync is not None:
+        stale = rounds * pz.zo.n_perturb * 2
+        out["seeded_axpy"] += stale * len(registry.shapes(cfg))
+        out["flash_attention"] += stale * attention_calls(cfg)
+    return out
+
+
+def scenario_gates(name: str, run: dict, cfg, pz, what: str) -> None:
+    """Exact launches, the uplink bill (the defense's through
+    `uplink_bits_total`: robust_decode bills one payload a client-round on
+    ATTACK_GROUPS resource blocks, no extra bits), the privacy spend and
+    the path's peak gate."""
+    import numpy as np
+    from repro_torch import byzantine as byz
+    from repro_torch.core import transport as tp
+    rounds = len(run["res"].losses)
+    expected = scenario_expected_launches(cfg, pz, rounds,
+                                          run["captured"])
+    if run["launches"] != expected:
+        raise AssertionError(f"{name} {what}: launches {run['launches']}, "
+                             f"expected {expected}")
+    res, k_eff = run["res"], run["seen"].k_eff
+    mech, defense = tp.resolve(pz), byz.resolve_defense(pz)
+    d = cfg.param_count()
+    plain_bits = mech.payload_bits(pz, d) * float(np.sum(k_eff))
+    want = tp.uplink_bits_total(mech, defense, pz, d, float(np.sum(k_eff)),
+                                rounds)
+    if res.uplink_bits != want or want != round(plain_bits):
+        raise AssertionError(f"{name} {what}: uplink bits "
+                             f"{res.uplink_bits}, want {want}")
+    if defense is not None and defense.resource_blocks() != ATTACK_GROUPS:
+        raise AssertionError(f"{name}: {defense.resource_blocks()} resource "
+                             f"blocks, want {ATTACK_GROUPS}")
+    fo = mech.kind == "fo"
+    if not (res.privacy_spent == 0 if fo else res.privacy_spent > 0):
+        raise AssertionError(f"{name} {what}: privacy spent "
+                             f"{res.privacy_spent}")
+    gate = FO_DESYNC_PEAK_THETA if fo else ATTACKED_PEAK_THETA
+    if not run["peak_theta"] < gate:
+        raise AssertionError(f"{name} {what}: peak {run['peak_theta']:.2f} "
+                             f"x theta, want < {gate}")
+    print(f"path {name} {what}: {rounds} rounds, run {run['wall']:.3f} s, "
+          f"steady {run['ms_per_round']:.1f} ms/round; losses "
+          f"{res.losses}; p_hat {res.p_hats}; privacy spent "
+          f"{res.privacy_spent:.6g}; uplink bits {res.uplink_bits}"
+          + (f" on {defense.resource_blocks()} resource blocks"
+             if defense is not None else "")
+          + f"; peak {run['peak_theta']:.2f} x theta (gate {gate}); "
+          f"launches {run['launches']}", flush=True)
+
+
+def same_scenario(name: str, a: dict, b: dict, final_a, torch,
+                  what: str) -> None:
+    """Run b equals run a bitwise: losses, p̂, the clients' payloads, the
+    captured observations (both, when both captured) and the final state
+    (parameters, and under FO both Adam moments)."""
+    import numpy as np
+    ra, rb = a["res"], b["res"]
+    if ra.losses != rb.losses or ra.p_hats != rb.p_hats:
+        raise AssertionError(f"{name} {what}: losses {rb.losses} p_hat "
+                             f"{rb.p_hats} vs {ra.losses} {ra.p_hats}")
+    if a["seen"].p_clients != b["seen"].p_clients:
+        raise AssertionError(f"{name} {what}: p_clients differ")
+    oa, ob = a["hook"].observations(), b["hook"].observations()
+    if oa and ob and (oa.keys() != ob.keys() or not all(
+            np.array_equal(oa[k], ob[k]) for k in oa)):
+        raise AssertionError(f"{name} {what}: captured observations differ")
+    mine = final_state(torch, rb, name)
+    if mine.keys() != final_a.keys() or not all(
+            torch.equal(v, final_a[k]) for k, v in mine.items()):
+        raise AssertionError(f"{name} {what}: final parameters (or Adam "
+                             "moments) differ")
+
+
+def run_attacked_path(torch, dev, cfg) -> dict:
+    """The `attacked` path: loop, scan and a loop run without the
+    adversary, each gated (`scenario_gates`), scan and the capture-off run
+    bitwise the loop run; then the stale forward's share of a round (a
+    loop run with desync off), seed_replay on the capture and the ε̂ audit
+    at AUDIT_TRIALS paired traces on the card, its statistics held against
+    the same call on the CPU."""
+    import numpy as np
+    from repro_torch import byzantine as byz
+    from repro_torch import privacy as pv
+    from repro_torch.privacy import audit as pa
+    from repro_torch.runtime import desync as ds
+    name = "attacked"
+    pz, pipe = scenario_setup(name, cfg)
+    rounds, chunk = SCENARIO_SCAN[name]
+    stale = ds.resolve(pz).sync_trace(0, rounds, pz.n_clients)[0]
+    cohort = byz.resolve_behavior(pz).client_mask(pz.n_clients)
+    if not stale.sum() > 0 or cohort.sum() != 1:
+        raise AssertionError(f"attacked: stale rows {stale.tolist()}, "
+                             f"cohort {cohort.tolist()}")
+    loop = scenario_run(torch, dev, cfg, pz, pipe, rounds)
+    scenario_gates(name, loop, cfg, pz, "loop")
+    final = final_state(torch, loop["res"], name)
+    loop["res"].params = None
+    scan = scenario_run(torch, dev, cfg, pz, pipe, rounds, engine="scan",
+                        chunk_rounds=chunk)
+    scenario_gates(name, scan, cfg, pz, "scan")
+    if scan["replays"] != rounds - len(scan["bounds"]):
+        raise AssertionError(f"attacked scan: {scan['replays']} replays")
+    same_scenario(name, loop, scan, final, torch, "scan")
+    scan["res"].params = None
+    off = scenario_run(torch, dev, cfg, pz, pipe, rounds, adversary=False)
+    scenario_gates(name, off, cfg, pz, "adversary off")
+    same_scenario(name, loop, off, final, torch, "adversary off")
+    off["res"].params = None
+    synced = scenario_run(torch, dev, cfg, dataclasses.replace(
+        pz, desync=None), pipe, rounds, adversary=False)
+    synced["res"].params = None
+    share = 1.0 - synced["ms_per_round"] / loop["ms_per_round"]
+    print(f"path attacked: stale clients per round {stale.sum(axis=1)}; "
+          f"scan and the capture-off loop equal the loop run bitwise "
+          f"(losses, p_hat, p_clients, obs_y, final weights); loop "
+          f"{loop['ms_per_round']:.1f} ms/round, scan "
+          f"{scan['ms_per_round']:.1f}, desync off "
+          f"{synced['ms_per_round']:.1f}: the stale forward {share:.3f} of "
+          "a round", flush=True)
+
+    res, hook = loop["res"], loop["hook"]
+    audited = byz.resolve_defense(pz).audited_pz(pz)
+    sent = np.asarray(res.transport.transmitted(hook.payloads()))
+    replay = pv.get("seed_replay")().run(hook.observations(), sent,
+                                         res.schedule.c, hook.k_eff())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = pv.audit_transport(res.transport, res.schedule, audited,
+                                rounds=res.steps, trials=AUDIT_TRIALS,
+                                spent=res.privacy_spent, device=dev)
+    audit_s = time.perf_counter() - t0
+    if not result.dominated or result.trials != AUDIT_TRIALS:
+        raise AssertionError(f"attacked: audit {result.to_dict()}")
+    canary = res.transport.canary_payload(audited)
+    kw = dict(rounds=res.steps, n_clients=pz.n_clients, trials=AUDIT_TRIALS)
+    on_card = pa.paired_trace_statistics(res.transport, res.schedule,
+                                         canary, device=dev, **kw)
+    on_cpu = pa.paired_trace_statistics(res.transport, res.schedule,
+                                        canary, device="cpu", **kw)
+    # a statistic is a sum of signed per-round LLRs and may lie near 0, so
+    # its error is taken relative to the largest statistic of its arm
+    worst = max(float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
+                for g, w in zip(on_card, on_cpu))
+    each = max(float(np.max(np.abs(g - w) / np.abs(w)))
+               for g, w in zip(on_card, on_cpu))
+    if not worst <= AUDIT_RTOL:
+        raise AssertionError(f"attacked: paired statistics on the card "
+                             f"{worst:.3g} of the largest from the CPU's, "
+                             f"want <= {AUDIT_RTOL}")
+    on_cpu_audit = pv.audit_transport(
+        res.transport, res.schedule, audited, rounds=res.steps,
+        trials=AUDIT_TRIALS, spent=res.privacy_spent, device="cpu")
+    if on_cpu_audit.dominated != result.dominated:
+        raise AssertionError(f"attacked: audit on the CPU "
+                             f"{on_cpu_audit.to_dict()}")
+    print(f"path attacked: seed_replay victim_rmse "
+          f"{replay['victim_rmse']:.6g}, mean_rmse {replay['mean_rmse']:.6g}"
+          f", mean_corr {replay['mean_corr']:.6g}; audit eps_hat "
+          f"{result.eps_hat:.6g} <= analytic {result.eps_analytic:.6g} "
+          f"(spent {result.spent:.6g}, {AUDIT_TRIALS} trials x "
+          f"{result.rounds} rounds, fpr {result.fpr:.4g}, fnr "
+          f"{result.fnr:.4g}) in {audit_s:.3f} s on the card (eps_hat on "
+          f"the CPU {on_cpu_audit.eps_hat:.6g}); paired statistics within "
+          f"{worst:.3g} of the largest of the CPU's (gate {AUDIT_RTOL}; "
+          f"each within {each:.3g} of its own)", flush=True)
+    return {"name": name, "launches": loop["launches"],
+            "peak_theta": loop["peak_theta"],
+            "ms_per_round": loop["ms_per_round"],
+            "scan_ms_per_round": scan["ms_per_round"],
+            "scan_peak_theta": scan["peak_theta"],
+            "stale_share": share, "audit_s": audit_s,
+            "eps_hat": result.eps_hat, "eps_analytic": result.eps_analytic}
+
+
+def run_fo_desync_path(torch, dev, cfg) -> dict:
+    """The `fo-desync` path: FO-Adam under desync with client 0's
+    gradient captured, on the loop and the scan engine (scan ≡ loop
+    bitwise, Adam moments and the captured gradients too), each gated;
+    then DLG on round 0's captured gradient for client 0's batch, from
+    the seed-0 init the run started from: DLG_CHECK_STEPS steps with the
+    kernels held against the same steps with the plain versions on the
+    card (residuals rtol DLG_PLAIN_RTOL), then the reference's 600."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch import privacy as pv
+    from repro_torch.models import registry
+    name = "fo-desync"
+    pz, pipe = scenario_setup(name, cfg)
+    rounds, chunk = SCENARIO_SCAN[name]
+    loop = scenario_run(torch, dev, cfg, pz, pipe, rounds)
+    scenario_gates(name, loop, cfg, pz, "loop")
+    final = final_state(torch, loop["res"], name)
+    loop["res"].params = loop["res"].opt_state = None
+    scan = scenario_run(torch, dev, cfg, pz, pipe, rounds, engine="scan",
+                        chunk_rounds=chunk)
+    scenario_gates(name, scan, cfg, pz, "scan")
+    if scan["replays"] != rounds - len(scan["bounds"]):
+        raise AssertionError(f"fo-desync scan: {scan['replays']} replays")
+    same_scenario(name, loop, scan, final, torch, "scan")
+    scan["res"].params = scan["res"].opt_state = None
+    del final
+    g0 = loop["hook"].observations()["obs_grad0"]
+    if g0.shape != (rounds, cfg.param_count()) or not np.isfinite(g0).all():
+        raise AssertionError(f"fo-desync: obs_grad0 {g0.shape}")
+    print(f"path fo-desync: scan equals the loop run bitwise (losses, "
+          f"final weights, both Adam moments, obs_grad0 [{rounds}, "
+          f"{cfg.param_count()}]); loop {loop['ms_per_round']:.1f} "
+          f"ms/round, scan {scan['ms_per_round']:.1f}", flush=True)
+    release_device_memory(torch)
+
+    params = registry.init_params(cfg, prng.key(pz.seed), dev)
+    batch = pipe.batch(0)
+    kw = dict(targets=batch["targets"][0], mask=batch["mask"][0],
+              true_tokens=batch["tokens"][0])
+    g_star = g0[0]
+    del g0
+    short = pv.get("dlg")(steps=DLG_CHECK_STEPS)
+    with_kernels = short.run(cfg, params, g_star, **kw)["residuals"]
+    with plain_versions():
+        plain = short.run(cfg, params, g_star, **kw)["residuals"]
+    worst = float(np.max(np.abs(with_kernels - plain) / np.abs(plain)))
+    if not worst <= DLG_PLAIN_RTOL:
+        raise AssertionError(f"fo-desync: DLG residuals with the kernels "
+                             f"{with_kernels} vs plain {plain}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    attack = pv.get("dlg")()
+    out = attack.run(cfg, params, g_star, **kw)
+    torch.cuda.synchronize()
+    dlg_s = time.perf_counter() - t0
+    dlg_launches = read_launches()
+    dlg_peak = torch.cuda.max_memory_allocated() / (4 * cfg.param_count())
+    if not math.isfinite(out["final_residual"]) \
+            or dlg_launches["flash_attention"] != attack.steps \
+            * attention_calls(cfg):
+        raise AssertionError(f"fo-desync: DLG {out['final_residual']}, "
+                             f"launches {dlg_launches}")
+    print(f"path fo-desync: DLG ({attack.steps} steps, embed space, "
+          f"cosine) on round "
+          f"0's obs_grad0 for client 0's {list(kw['targets'].shape)} batch: "
+          f"{dlg_s:.3f} s, final_residual {out['final_residual']:.6g} (step "
+          f"0: {out['residuals'][0]:.6g}), token_accuracy "
+          f"{out['token_accuracy']:.6g} (chance {out['chance_accuracy']:.3g})"
+          f", peak {dlg_peak:.2f} x theta, flash launches "
+          f"{dlg_launches['flash_attention']}; its first {DLG_CHECK_STEPS} "
+          f"residuals with the kernels within {worst:.3g} of the plain "
+          f"versions' (rtol {DLG_PLAIN_RTOL})", flush=True)
+    return {"name": name, "launches": loop["launches"],
+            "peak_theta": loop["peak_theta"],
+            "ms_per_round": loop["ms_per_round"],
+            "scan_ms_per_round": scan["ms_per_round"],
+            "scan_peak_theta": scan["peak_theta"], "dlg_s": dlg_s,
+            "dlg_final_residual": out["final_residual"],
+            "dlg_token_accuracy": out["token_accuracy"]}
+
+
 def release_device_memory(torch) -> None:
     """Free what earlier runs keep on the card, so the next path's peak is
     its own: the cached executors' graphs and their memory pools, and
@@ -2969,6 +3364,10 @@ def main() -> int:
         release_device_memory(torch)
 
     phase("4, the training paths")
+    for run_scenario in (run_attacked_path, run_fo_desync_path):
+        paths.append(run_scenario(torch, dev, opt))
+        release_device_memory(torch)
+    phase("4, the scenario paths (attacked, fo-desync)")
     chained = next(p for p in paths if p["name"] == "chained")
     paths.append(run_resume_path(torch, dev, opt, chained))
     phase("5, the resume path")

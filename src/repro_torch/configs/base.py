@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Optional
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +220,51 @@ class TransportConfig:
 
 
 @dataclass(frozen=True)
+class ByzantineConfig:
+    """Active-adversary scenario (repro_torch.byzantine): who attacks, how
+    many, and what the server defends with.
+
+    `behavior` names a registered ClientBehavior (sign_flip | scaled_poison
+    | gaussian_noise | colluding_cohort | "none"); `fraction` is the share
+    of clients running it (0.0 disables the attack: the run is the one
+    without a ByzantineConfig, bit for bit). `defense` names a registered
+    Defense (clip | robust_decode | reweight | "none"). `scale` is the
+    behavior's parameter (λ for scaled_poison, the noise std for
+    gaussian_noise); `groups` the robust defenses' decode sub-slots;
+    `clip_factor` the transmit clip γ_d = clip_factor·γ. `seed` salts the
+    cohort draw."""
+    behavior: str = "none"
+    fraction: float = 0.0
+    scale: float = 3.0
+    defense: str = "none"
+    groups: int = 4
+    clip_factor: float = 0.5
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class DesyncConfig:
+    """Client synchronization-failure scenario (repro_torch.runtime.desync).
+
+    `fraction` is the per-round probability a client is stale (its scalar
+    rides z_{t−d}, the shared lag d uniform in [1, `max_lag`]);
+    `phase_std` the std (radians) of each client's persistent timing/phase
+    error (the scalar payload attenuated by cos θ; the conventional
+    d-symbol frame of `frame_symbols` symbols collapses along the
+    Dirichlet kernel). `seed` salts the draws. fraction 0 with phase_std 0
+    (or no DesyncConfig) is the synchronized run, bit for bit."""
+    fraction: float = 0.0
+    max_lag: int = 4
+    phase_std: float = 0.0
+    frame_symbols: int = 1
+    seed: int = 0
+
+
+@dataclass(frozen=True)
 class PairZeroConfig:
-    """Run config. `byzantine` and `desync` keep the reference's field names
-    so configs line up; this port rejects any value but None."""
+    """Run config, field for field the reference's: `byzantine` and
+    `desync` (None: the honest, synchronized run) resolve through
+    `repro_torch.byzantine` and `repro_torch.runtime.desync`."""
     variant: str = "analog"         # DEPRECATED: analog | sign | fo
     n_clients: int = 5
     rounds: int = 8000
@@ -231,7 +273,7 @@ class PairZeroConfig:
     dp: DPConfig = field(default_factory=DPConfig)
     power: PowerControlConfig = field(default_factory=PowerControlConfig)
     transport: Optional[TransportConfig] = None
-    byzantine: Optional[Any] = None
-    desync: Optional[Any] = None
+    byzantine: Optional[ByzantineConfig] = None
+    desync: Optional[DesyncConfig] = None
     seed: int = 0
     fused_perturbation: bool = False

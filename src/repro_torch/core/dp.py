@@ -55,6 +55,20 @@ def r_dp(epsilon: float, delta: float) -> float:
     return (math.sqrt(epsilon + cinv * cinv) - cinv) ** 2
 
 
+def epsilon_for_budget(spent: float, delta: float) -> float:
+    """The analytic ε of a spent Eq.-16 sum: R_dp(ε, δ) = (√(ε + c²) −
+    c)² with c = C⁻¹(1/δ) inverts to ε = R + 2c√R (the ceiling the
+    audit's ε̂ is held under, `repro_torch.privacy.audit`)."""
+    if spent < 0:
+        raise ValueError("spent budget must be >= 0")
+    if not (0 < delta < 1):
+        raise ValueError("delta must be in (0, 1)")
+    if spent == 0.0:
+        return 0.0
+    cinv = c_inverse(1.0 / delta)
+    return spent + 2.0 * cinv * math.sqrt(spent)
+
+
 def round_privacy_cost(c_t: float, gamma_t: float, m_t: float) -> float:
     """Per-round term (√2 c γ / m)² of the accountant sum (Eq. 16)."""
     if m_t <= 0:

@@ -22,7 +22,9 @@ the reference's own threefry draws (`repro_torch.prng`) from the keys the
 reference derives: round t's key is fold_in(key(seed ^ 0x5EED), t),
 direction j's fold_in(round key, j). `noise_rows` gives the OTA normals
 and `uniform_rows` the digital dither, each a pure function of (seed, t),
-so a trace does not depend on how rounds are chunked.
+so a trace does not depend on how rounds are chunked; a Byzantine
+behavior's and a defense's rows come from the same keys (`draw_rows`),
+and a desync model adds its rows (`runtime.desync`).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.byzantine.behaviors import BYZ_KEY_TAG
 from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant
@@ -60,13 +63,16 @@ class ControlTrace:
     n_leaves] (int32 holding the uint32 bits of
     leaf_seed(perturb_seed(round_seed(seed, t), j), i)) and the draws the
     transport reads (`Transport.draws`): noise [R, n_perturb, K+1] and
-    uniform [R, n_perturb, K]. `host_masks` is the host view of the mask
-    for the uplink-bit accounting."""
+    uniform [R, n_perturb, K], with a Byzantine behavior's and a defense's
+    rows beside them ([R, n_perturb, ...]) and a desync model's
+    (`runtime.desync`). `host_masks` is the host view of the mask for the
+    uplink-bit accounting; `host_stale` the stale rows under desync."""
     t0: int
     ctl: Dict
     acct_cost: np.ndarray     # [R] per-round DP cost
     charged: bool             # whether these rounds cost privacy at all
     host_masks: Optional[np.ndarray] = None
+    host_stale: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return int(len(self.ctl["seed"]))
@@ -93,11 +99,9 @@ def noise_rows(seed: int, t0: int, t1: int, n_perturb: int,
     """[R, n_perturb, K+1] f32 standard normals for rounds [t0, t1): per
     direction, the K artificial-noise draws normal(nk, (K,)), then the
     receiver-noise draw normal(zk, ()), with nk, zk = split(round key), as
-    `repro.core.ota.superpose` draws them. normal(zk, ()) is element 0 of
-    normal(zk, (K,)), so both come from one draw of the split keys."""
-    split = prng.split(direction_keys(seed, t0, t1, n_perturb))
-    z = prng.normal(split, (n_clients,))            # [R, P, 2, K]
-    return torch.cat([z[..., 0, :], z[..., 1, :1]], dim=-1).numpy()
+    `repro.core.ota.superpose` draws them (`transport.key_draws`)."""
+    return tp.key_draws(("noise",), direction_keys(seed, t0, t1, n_perturb),
+                        n_clients)["noise"].numpy()
 
 
 def uniform_rows(seed: int, t0: int, t1: int, n_perturb: int,
@@ -105,8 +109,9 @@ def uniform_rows(seed: int, t0: int, t1: int, n_perturb: int,
     """[R, n_perturb, K] f32 uniforms on [0, 1) for rounds [t0, t1):
     uniform(round key, (K,)), the digital transports' dither
     (`repro.core.transport.stochastic_quantize`)."""
-    return prng.uniform(direction_keys(seed, t0, t1, n_perturb),
-                        (n_clients,)).numpy()
+    return tp.key_draws(("uniform",), direction_keys(seed, t0, t1,
+                                                     n_perturb),
+                        n_clients)["uniform"].numpy()
 
 
 class HostBlock:
@@ -162,19 +167,31 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
-def draw_rows(transport: tp.Transport, pz, t0: int,
-              t1: int) -> Dict[str, np.ndarray]:
-    """The random rows `transport` reads (`Transport.draws`) for rounds
-    [t0, t1), by name."""
+def draw_rows(transport: tp.Transport, pz, t0: int, t1: int,
+              behavior=None, defense=None) -> Dict[str, np.ndarray]:
+    """The random rows the round reads for rounds [t0, t1), by name: the
+    transport's (`Transport.draws`), a behavior's from the attack keys
+    fold_in(round key, BYZ_KEY_TAG) and a defense's, each [R, n_perturb,
+    ...] from the direction keys."""
     draws = {"noise": noise_rows, "uniform": uniform_rows}
-    return {name: draws[name](pz.seed, t0, t1, pz.zo.n_perturb,
+    rows = {name: draws[name](pz.seed, t0, t1, pz.zo.n_perturb,
                               pz.n_clients) for name in transport.draws}
+    if behavior is None and defense is None:
+        return rows
+    keys = direction_keys(pz.seed, t0, t1, pz.zo.n_perturb)
+    if behavior is not None:
+        rows.update(behavior.draw_rows(prng.fold_in(keys, BYZ_KEY_TAG),
+                                       pz.n_clients))
+    if defense is not None:
+        rows.update(defense.draw_rows(transport, keys, pz.n_clients))
+    return rows
 
 
 def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
                 transport: Optional[tp.Transport] = None,
                 fault=None, elastic=None, channel=None,
-                draws: Optional[Dict[str, np.ndarray]] = None
+                draws: Optional[Dict[str, np.ndarray]] = None,
+                behavior=None, defense=None, desync=None
                 ) -> ControlTrace:
     """Precompute the control trace for rounds [t0, t1), shipped to
     `device` in one non-blocking copy.
@@ -193,7 +210,15 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
     transport's random rows for [t0, t1) when the caller drew them ahead
     (`draw_rows`; a run draws its whole horizon in one go, since a draw
     costs about the same few hundred small CPU ops for one round as for
-    a thousand); None draws them here."""
+    a thousand); None draws them here.
+
+    `behavior` (a `byzantine.ClientBehavior`) adds its cohort as ctl["byz"]
+    [R, K]; `defense` (a `byzantine.Defense`) prices the rounds' privacy;
+    `desync` (a `runtime.desync.DesyncModel`) adds dsync_seed (host),
+    dsync_stale, dsync_a, dsync_frame [R, K], the lagged seed's leaf seeds
+    dsync_leaf_seeds [R, n_perturb, n_leaves] and, under FO, the
+    interference keys dsync_ici_keys [R, n_leaves, 2]. None for each
+    leaves the trace as it was, bit for bit."""
     if transport is None:
         transport = tp.resolve(pz)
     device = torch.device(device)
@@ -226,8 +251,22 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
         "leaf_seeds": zo.seed_table(pz.seed, t0, t1, pz.zo.n_perturb,
                                     n_leaves).view(np.int32),
     }
-    host_ctl.update(draw_rows(transport, pz, t0, t1) if draws is None
-                    else draws)
+    host_ctl.update(draw_rows(transport, pz, t0, t1, behavior, defense)
+                    if draws is None else draws)
+    if behavior is not None:
+        host_ctl["byz"] = np.broadcast_to(
+            behavior.client_mask(k)[None, :], (rounds, k)).copy()
+    host_stale = lagged = None
+    if desync is not None:
+        from repro_torch.runtime import desync as ds
+        dsync, host_stale = ds.control_rows(desync, pz.seed, t0, t1, k)
+        lagged = dsync.pop("dsync_seed")
+        host_ctl.update(dsync)
+        host_ctl["dsync_leaf_seeds"] = zo.leaf_seed_table(
+            lagged, pz.zo.n_perturb, n_leaves).view(np.int32)
+        if transport.kind == "fo":
+            host_ctl["dsync_ici_keys"] = ds.ici_keys(pz.seed, t0, t1,
+                                                     n_leaves)
     block = HostBlock({key: (v.shape, v.dtype) for key, v in
                        host_ctl.items()}, device)
     for key, v in host_ctl.items():
@@ -235,11 +274,18 @@ def build_trace(schedule, pz, t0: int, t1: int, *, device, n_leaves: int,
     ctl = block.ship()
     ctl["seed"] = np.asarray([zo.round_seed(pz.seed, t)
                               for t in range(t0, t1)], dtype=np.uint32)
-    charged = bool(transport.charges_privacy(schedule, pz))
-    acct_cost = transport.round_dp_costs(schedule, t0, t1, pz) \
-        if charged else np.zeros(rounds)
+    if lagged is not None:
+        ctl["dsync_seed"] = lagged
+    if defense is not None:
+        charged = bool(defense.charges_privacy(transport, schedule, pz))
+        acct_cost = defense.round_dp_costs(transport, schedule, t0, t1, pz) \
+            if charged else np.zeros(rounds)
+    else:
+        charged = bool(transport.charges_privacy(schedule, pz))
+        acct_cost = transport.round_dp_costs(schedule, t0, t1, pz) \
+            if charged else np.zeros(rounds)
     return ControlTrace(t0=t0, ctl=ctl, acct_cost=acct_cost, charged=charged,
-                        host_masks=masks)
+                        host_masks=masks, host_stale=host_stale)
 
 
 def affordable_rounds(accountant: PrivacyAccountant, trace: ControlTrace,

@@ -25,8 +25,14 @@ reference's does, so a resumed FO run starts Adam afresh. `injector` arms
 the host fault-injection sites (`runtime.inject`): a dispatch retries only
 when its site is armed.
 
-Options of the reference that this port does not carry yet raise
-NotImplementedError naming their ROADMAP item; none is ignored.
+The reference's scenario axes run as its do: `adversary` (a
+`privacy.Adversary`: the round's `obs_*` metrics, which an `AttackHook`
+collects), `behavior`/`defense` (`byzantine`; default: resolved from
+`pz.byzantine`, a defense also solving the schedule and pricing the
+rounds) and `desync` (`runtime.desync`; default: resolved from
+`pz.desync`, an inert model meaning none). Options of the reference that
+this port does not carry yet raise NotImplementedError naming their
+ROADMAP item; none is ignored.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import byzantine as byz
 from repro_torch import channel, prng, resolve_device
 from repro_torch.configs.base import ModelConfig, PairZeroConfig
 from repro_torch.checkpoint import checkpoint as ckpt
@@ -50,16 +57,13 @@ from repro_torch.data.pipeline import FederatedPipeline
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.optim import fo as fo_opt
+from repro_torch.runtime import desync as dsync
 from repro_torch.runtime import inject as inj
 from repro_torch.runtime.fault import ElasticSchedule, FaultModel
 
 # reference options not ported yet → the ROADMAP item that ports them
 _UNPORTED = {
-    "adversary": "A9: privacy subsystem",
-    "behavior": "A9: byzantine subsystem",
-    "defense": "A9: byzantine subsystem",
     "telemetry": "A9: observability",
-    "desync": "A9: desync",
     "mesh": "A11: mesh engine",
 }
 _IMPL_DTYPE = "A12: kernel implementation and dtype selection"
@@ -227,6 +231,8 @@ class Experiment:
                  elastic: Optional[ElasticSchedule] = None,
                  impl: Optional[str] = None, dtype=torch.float32,
                  params: Optional[Dict] = None, overlap: bool = True,
+                 adversary=None, behavior=None, defense=None,
+                 desync: Optional[dsync.DesyncModel] = None,
                  injector: Optional[inj.FaultInjector] = None,
                  device="cuda"):
         if engine not in ("scan", "loop"):
@@ -241,11 +247,6 @@ class Experiment:
             raise NotImplementedError(
                 f"dtype={dtype!r} is not ported (ROADMAP {_IMPL_DTYPE}): "
                 "the port trains in float32")
-        for name, item in (("byzantine", "A9: byzantine subsystem"),
-                           ("desync", "A9: desync")):
-            if getattr(pz, name) is not None:
-                raise NotImplementedError(
-                    f"pz.{name} is not ported (ROADMAP {item})")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.pz = pz
@@ -259,13 +260,33 @@ class Experiment:
         # an explicit ChannelModel overrides the pz.channel config stack
         self.channel_model = channel_model if channel_model is not None \
             else channel.from_config(pz.channel)
+        self.adversary = adversary
+        # explicit instances override the pz.byzantine / pz.desync configs
+        self.behavior = behavior if behavior is not None \
+            else byz.resolve_behavior(pz)
+        self.defense = defense if defense is not None \
+            else byz.resolve_defense(pz)
+        self.desync = desync if desync is not None else dsync.resolve(pz)
+        if self.desync is not None and not self.desync.active:
+            self.desync = None     # an inert model is the synchronized run
+        if self.transport.kind == "fo" and (self.behavior is not None
+                                            or self.defense is not None):
+            raise ValueError(
+                "Byzantine behaviors/defenses act on the scalar ZO payload "
+                "vector; the FO baseline has no scalar uplink to attack or "
+                "defend — run it without a ByzantineConfig")
         if self.transport.kind == "fo":
             # the reference's FO baseline: FO-Adam at the ZO learning rate
             self.optimizer = fo_opt.make("adam", pz.zo.lr)
-            self.step = pairzero.make_fo_step(model_cfg, self.optimizer)
+            self.step = pairzero.make_fo_step(
+                model_cfg, self.optimizer, adversary=self.adversary,
+                desync=self.desync)
         else:
             self.optimizer = None
-            self.step = pairzero.make_zo_step(model_cfg, pz, self.transport)
+            self.step = pairzero.make_zo_step(
+                model_cfg, pz, self.transport, adversary=self.adversary,
+                behavior=self.behavior, defense=self.defense,
+                desync=self.desync)
         self.hooks = list(hooks)
         self.fault = fault
         self.elastic = elastic
@@ -288,7 +309,10 @@ class Experiment:
         horizon = max(pz.rounds, self.rounds)
         ctrace = self.channel_model.realize(pz.seed ^ 0xC4A7, horizon,
                                             pz.n_clients)
-        schedule = self.transport.make_schedule(ctrace, pz)
+        # a defense may fold its PHY constraint into the solve
+        schedule = self.transport.make_schedule(ctrace, pz) \
+            if self.defense is None \
+            else self.defense.make_schedule(self.transport, ctrace, pz)
         result.schedule, result.transport = schedule, self.transport
         if self.params is None:
             self.params = registry.init_params(self.model_cfg,
@@ -317,8 +341,9 @@ class Experiment:
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
             else None
 
-        # the transport's random rows for every round left, in one draw
-        draws = eng.draw_rows(self.transport, pz, start, self.rounds) \
+        # the round's random rows for every round left, in one draw
+        draws = eng.draw_rows(self.transport, pz, start, self.rounds,
+                              self.behavior, self.defense) \
             if bounds else {}
 
         def prepare(a: int, b: int):
@@ -332,7 +357,10 @@ class Experiment:
                                         elastic=self.elastic,
                                         channel=ctrace,
                                         draws={k: v[a - start:b - start]
-                                               for k, v in draws.items()})
+                                               for k, v in draws.items()},
+                                        behavior=self.behavior,
+                                        defense=self.defense,
+                                        desync=self.desync)
                 return trace, stager.stage(a, b)
 
         prefetch = eng.ChunkPrefetcher(prepare, bounds, overlap=self.overlap,
@@ -378,7 +406,9 @@ class Experiment:
                     injector=self.injector, retries=self._retries)
                 self.params = carry if self.optimizer is None else carry[0]
                 flush()                   # sync chunk i-1 while chunk i runs
-                pending = (a, n_ok, metrics)
+                # pending holds the chunk's metrics alone, so they are
+                # freed once flushed (an FO capture's are θ-sized)
+                pending, metrics = (a, n_ok, metrics), None
                 if self.engine == "loop":
                     flush()               # per-round dispatch: deliver now
                 # chunk i-1 is synced, so its stager slot (shared with
@@ -410,7 +440,7 @@ class Experiment:
         result.privacy_spent_per_round = cumulative_spend(
             costs, initial=self.spent_at_start)
         result.uplink_bits = tp.uplink_bits_total(
-            self.transport, None, pz, self.model_cfg.param_count(),
+            self.transport, self.defense, pz, self.model_cfg.param_count(),
             client_rounds, result.steps)
         result.prep_stall_s = prefetch.stall_s
         savers = [hk._saver for hk in self.hooks
@@ -447,7 +477,9 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
         on_round: Optional[Callable[[int, Dict], None]] = None,
         transport: Optional[tp.Transport] = None,
         channel_model: Optional[channel.ChannelModel] = None,
-        overlap: bool = True, hooks: Sequence[RoundHook] = (),
+        overlap: bool = True, adversary=None, behavior=None, defense=None,
+        hooks: Sequence[RoundHook] = (),
+        desync: Optional[dsync.DesyncModel] = None,
         injector: Optional[inj.FaultInjector] = None,
         variant: Optional[str] = None, scheme: Optional[str] = None,
         device="cuda", **unported) -> RunResult:
@@ -460,11 +492,14 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
     valid checkpoint there, save every `checkpoint_every` rounds), `fault`
     and `elastic` mask clients out of rounds, `injector` arms the host
     fault-injection sites, `overlap=False` prepares each chunk inline
-    instead of on the prefetch thread. `variant=`/`scheme=` are the
-    reference's deprecated string spellings, routed through the transport
-    registry with its DeprecationWarning. `device="cpu"` runs the plain
-    PyTorch versions of the kernels (the tests' path); "cuda" raises when
-    no GPU is present."""
+    instead of on the prefetch thread. `adversary=` (a
+    `privacy.Adversary`) switches on the eavesdropper's capture (collect
+    it with a `privacy.AttackHook` in `hooks=`); `behavior=`/`defense=`
+    and `desync=` override `pz.byzantine` and `pz.desync`.
+    `variant=`/`scheme=` are the reference's deprecated string spellings,
+    routed through the transport registry with its DeprecationWarning.
+    `device="cpu"` runs the plain PyTorch versions of the kernels (the
+    tests' path); "cuda" raises when no GPU is present."""
     for option, value in unported.items():
         if option not in _UNPORTED:
             raise TypeError(f"run() got an unexpected keyword argument "
@@ -489,8 +524,9 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
                       chunk_rounds=chunk_rounds, transport=transport,
                       channel_model=channel_model, hooks=all_hooks,
                       fault=fault, elastic=elastic, impl=impl, dtype=dtype,
-                      params=params, overlap=overlap, injector=injector,
-                      device=device).run()
+                      params=params, overlap=overlap, adversary=adversary,
+                      behavior=behavior, defense=defense, desync=desync,
+                      injector=injector, device=device).run()
 
 
 def _is_f32(dtype) -> bool:

@@ -1,7 +1,8 @@
 """Power control for analog and Sign-pAirZero (paper Sec. VI, Theorems 3
 and 4), copied from `repro.core.power_control`: the `solution` schedules,
-the Static and Reversed baselines, the `make_schedule` dispatcher and
-`transmit_power`.
+the Static and Reversed baselines, the `make_schedule` dispatcher,
+`transmit_power` and `defended_config` (a transmit clip folded into the
+solve).
 
 Host-side numpy: the schedule is a base-station decision made between
 rounds. Both theorems give σ_k* = 0, so every solver returns the c⁽ᵗ⁾
@@ -9,12 +10,25 @@ schedule with σ ≡ 0. A c(t) of 0 is a silent round.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import numpy as np
 
 from repro_torch.core.dp import r_dp
+
+
+def defended_config(pz, clip: float):
+    """The run config with `zo.clip_gamma = min(γ, γ_d)`: a PHY clip at
+    ±γ_d tightens Assumption 3's payload bound, which enters both the
+    power-cap min and the Lemma-1 sensitivity of the Theorem-3/4 solve
+    (and the audit's canary). Unchanged when γ_d ≥ γ."""
+    g = min(float(pz.zo.clip_gamma), float(clip))
+    if g == float(pz.zo.clip_gamma):
+        return pz
+    return dataclasses.replace(
+        pz, zo=dataclasses.replace(pz.zo, clip_gamma=g))
 
 
 @dataclass

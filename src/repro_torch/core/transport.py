@@ -5,12 +5,14 @@ and the first-order baseline (fo).
 
 A Transport owns (a) the device-side `aggregate(p_k, ctl) -> p̂`, (b) the
 host-side schedule solve, (c) the per-round DP cost charged to the
-accountant and (d) the uplink bits per round. Where the reference's
-`aggregate` takes the round key, the port's reads the draws it needs from
-the control block: `draws` names the per-direction rows (`noise`, the OTA
-normals; `uniform`, the digital dither) that `engine.build_trace` makes
-for it from that key. The eavesdropper's `observe` and the defenses
-wait for ROADMAP A9.
+accountant, (d) the uplink bits per round and (e) what an eavesdropper at
+the receiver sees (`observe`, `observation_spec`, `transmitted`,
+`canary_payload`; `repro_torch.privacy`). Where the reference's
+`aggregate` and `observe` take the round key, the port's read the draws
+they need from the control block: `draws` names the per-direction rows
+(`noise`, the OTA normals; `uniform`, the digital dither) that
+`engine.build_trace` makes for it from that key, so `observe` reads the
+very row the decode read.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Dict, Type
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core import ota
 from repro_torch.core.dp import round_privacy_cost
 
@@ -58,6 +61,26 @@ class Transport:
     def round_dp_costs(self, schedule, t0: int, t1: int, pz) -> np.ndarray:
         return np.zeros(t1 - t0)
 
+    def observe(self, p: torch.Tensor, ctl: Dict) -> Dict[str, torch.Tensor]:
+        """What an over-the-air listener at the receiver front-end sees when
+        the [K] payloads `p` go out under this round's control block, from
+        the same draw rows as the decode. Default: nothing observable."""
+        return {}
+
+    def observation_spec(self, n_clients: int) -> Dict[str, torch.Tensor]:
+        """Shapes of the `observe` dict, as tensors on the meta device."""
+        return {}
+
+    def transmitted(self, p):
+        """The payload actually radiated for clipped projections `p` (the
+        ground truth the attacks score against): identity here."""
+        return p
+
+    def canary_payload(self, pz):
+        """The worst-case payload one client contributes (the audit's
+        canary); None: no DP guarantee to audit."""
+        return None
+
     def payload_bits(self, pz, d: int) -> int:
         """Uplink bits one client sends per round (d = model dimension)."""
         raise NotImplementedError
@@ -71,12 +94,48 @@ def uplink_bits_total(transport: Transport, defense, pz, d: int,
                       client_rounds: float, rounds: int) -> int:
     """Total uplink spend for `rounds` executed rounds with Σ_t K_eff(t) =
     `client_rounds` transmitting client-rounds: the payload per
-    transmitting client times client-rounds, in the reference's operation
-    order. Defenses (which bill extra bits) are not ported (ROADMAP A9)."""
+    transmitting client times client-rounds, with a defense's payload
+    factor and side-channel bits a round billed on top, in the reference's
+    operation order."""
+    bits = transport.payload_bits(pz, d) * client_rounds
     if defense is not None:
-        raise NotImplementedError("defenses are not ported (ROADMAP A9: "
-                                  "byzantine subsystem)")
-    return int(round(transport.payload_bits(pz, d) * client_rounds))
+        bits = bits * defense.payload_bits_factor(pz) \
+            + defense.extra_bits_per_round(pz, d) * rounds
+    return int(round(bits))
+
+
+def masked_ctl(ctl: Dict, mask: torch.Tensor) -> Dict:
+    """The control block with its survival mask replaced: a robust
+    defense decodes each sub-slot by the mechanism's own `aggregate` with
+    the mask restricted to that sub-slot's clients."""
+    out = dict(ctl)
+    out["mask"] = mask
+    return out
+
+
+def _obs_spec(*shape: int) -> torch.Tensor:
+    # the port's jax.ShapeDtypeStruct: a tensor with no storage
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+def key_draws(names, keys: torch.Tensor,
+              n_clients: int) -> Dict[str, torch.Tensor]:
+    """The transport draw rows `names` from threefry keys [..., 2], on the
+    keys' device, as the reference draws them in its step from each key:
+    `noise` [..., K+1], normal(nk, (K,)) then normal(zk, ()) with nk, zk =
+    split(key) (`ota.superpose`; normal(zk, ()) is element 0 of normal(zk,
+    (K,))); `uniform` [..., K], uniform(key, (K,))
+    (`stochastic_quantize`)."""
+    out = {}
+    for name in names:
+        if name == "noise":
+            z = prng.normal(prng.split(keys), (n_clients,))   # [..., 2, K]
+            out[name] = torch.cat([z[..., 0, :], z[..., 1, :1]], dim=-1)
+        elif name == "uniform":
+            out[name] = prng.uniform(keys, (n_clients,))
+        else:
+            raise ValueError(f"unknown draw row {name!r}")
+    return out
 
 
 def trace_magnitudes(trace) -> np.ndarray:
@@ -167,7 +226,26 @@ class AnalogOTA(Transport):
         if self.scheme == "perfect":
             return ota.perfect_analog(p, ctl["mask"])
         return ota.analog_ota(p, ctl["c"], ctl["sigma"], ctl["n0"],
-                              ctl["noise"], ctl["mask"], ctl["g"])[0]
+                              ctl["noise"], ctl["mask"], ctl.get("g"),
+                              ctl.get("dsync_a"))[0]
+
+    def observe(self, p, ctl):
+        """The superposed noisy scalar y of Eq. 4 from the decode's own
+        noise row (the bare masked sum under "perfect")."""
+        if self.scheme == "perfect":
+            w = ctl["mask"].to(p.dtype)
+            return {"y": torch.sum(w * p, dim=-1)}
+        y, _ = ota.superpose(p, ctl["c"], ctl["sigma"], ctl["n0"],
+                             ctl["noise"], ctl["mask"], ctl.get("g"),
+                             ctl.get("dsync_a"))
+        return {"y": y}
+
+    def observation_spec(self, n_clients):
+        return {"y": _obs_spec()}
+
+    def canary_payload(self, pz):
+        """The clip boundary γ (projections are clipped to ±γ)."""
+        return None if self.scheme == "perfect" else float(pz.zo.clip_gamma)
 
     variant = "analog"   # the power-control family of the schedule solve
 
@@ -203,7 +281,20 @@ class SignOTA(AnalogOTA):
         if self.scheme == "perfect":
             return ota.perfect_sign(p, ctl["mask"])
         return ota.sign_ota(p, ctl["c"], ctl["sigma"], ctl["n0"],
-                            ctl["noise"], ctl["mask"], ctl["g"])[0]
+                            ctl["noise"], ctl["mask"], ctl.get("g"),
+                            ctl.get("dsync_a"))[0]
+
+    def observe(self, p, ctl):
+        """The superposed noisy vote count of the ±1 ballots."""
+        return super().observe(torch.sign(p), ctl)
+
+    def transmitted(self, p):
+        """The on-air payload: the sign of the clipped projection."""
+        return np.sign(p) if isinstance(p, np.ndarray) else torch.sign(p)
+
+    def canary_payload(self, pz):
+        """A ±1 ballot."""
+        return None if self.scheme == "perfect" else 1.0
 
     def round_dp_costs(self, schedule, t0, t1, pz):
         return ota_dp_costs(schedule, t0, t1, 1.0)
@@ -280,6 +371,17 @@ class DigitalTDMA(Transport):
         q = stochastic_quantize(p, ctl["uniform"], bits=self.quant_bits,
                                 clip=self.clip)
         return torch.sum(mask * q) / torch.clamp_min(torch.sum(mask), 1.0)
+
+    def observe(self, p, ctl):
+        """Every scheduled slot's quantized payload, decoded individually
+        from the decode's own dither row (unscheduled slots: 0)."""
+        mask = ctl["mask"].to(p.dtype)
+        q = stochastic_quantize(p, ctl["uniform"], bits=self.quant_bits,
+                                clip=self.clip)
+        return {"q": mask * q}
+
+    def observation_spec(self, n_clients):
+        return {"q": _obs_spec(n_clients)}
 
     def make_schedule(self, trace, pz):
         """No power control to solve: TDMA slots run at scheduled SNR."""

@@ -72,10 +72,19 @@ def seed_table(base_seed: int, t0: int, t1: int, n_perturb: int,
     """[R, n_perturb, n_leaves] uint32: leaf_seed(perturb_seed(round_seed(
     base_seed, t), j), i) for rounds t in [t0, t1), vectorized over int64
     arrays with the same uint32 arithmetic as the scalar functions."""
-    t = np.arange(t0, t1, dtype=np.int64)[:, None, None]
+    t = np.arange(t0, t1, dtype=np.int64)
+    rs = fmix32((int(base_seed) & MASK32) ^ mul32(t & MASK32, 0x85EBCA6B))
+    return leaf_seed_table(rs, n_perturb, n_leaves)
+
+
+def leaf_seed_table(round_seeds, n_perturb: int,
+                    n_leaves: int) -> np.ndarray:
+    """[R, n_perturb, n_leaves] uint32: leaf_seed(perturb_seed(s, j), i)
+    for each round seed s of `round_seeds` [R] (the desync trace's lagged
+    seeds take this path)."""
+    rs = np.asarray(round_seeds, dtype=np.int64)[:, None, None] & MASK32
     j = np.arange(n_perturb, dtype=np.int64)[None, :, None]
     i = np.arange(n_leaves, dtype=np.int64)[None, None, :]
-    rs = fmix32((int(base_seed) & MASK32) ^ mul32(t & MASK32, 0x85EBCA6B))
     ps = fmix32((rs + mul32(j + 1, GOLDEN)) & MASK32)
     return fmix32((mul32(ps, GOLDEN) + i) & MASK32).astype(np.uint32)
 

@@ -85,7 +85,12 @@ class _KernelWithPlainVjp(torch.autograd.Function):
     """forward: `kernel(*tensors, *args)`; backward: the vjp of
     `plain(*tensors, *args)`, recomputed under autograd from the saved
     inputs. Both return a tensor or a tuple of tensors (None allowed);
-    `tensors` may hold None (an absent optional input)."""
+    `tensors` may hold None (an absent optional input). A backward run
+    with `create_graph` (grad mode on inside it) recomputes the plain
+    version on the saved inputs themselves and builds the vjp's graph, so
+    the vjp is differentiable back to them (DLG differentiates a
+    gradient); otherwise it recomputes on detached copies and builds
+    none."""
 
     @staticmethod
     def forward(ctx, kernel, plain, n_tensors, *inputs):
@@ -97,9 +102,15 @@ class _KernelWithPlainVjp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grad_outputs):
+        create = torch.is_grad_enabled()
         saved = iter(ctx.saved_tensors)
-        tensors = [next(saved).detach().requires_grad_(True) if here
-                   else None for here in ctx.present]
+
+        def tracked(t):
+            return t if create and t.requires_grad \
+                else t.detach().requires_grad_(True)
+
+        tensors = [tracked(next(saved)) if here else None
+                   for here in ctx.present]
         with torch.enable_grad():
             out = ctx.plain(*tensors, *ctx.args)
         outs = out if isinstance(out, tuple) else (out,)
@@ -108,7 +119,7 @@ class _KernelWithPlainVjp(torch.autograd.Function):
         wrt = [t for t in tensors if t is not None]
         grads = iter(torch.autograd.grad(
             [o for o, _ in pairs], wrt, [g for _, g in pairs],
-            allow_unused=True))
+            allow_unused=True, create_graph=create))
         return (None, None, None) + tuple(
             next(grads) if here else None for here in ctx.present) + (
             None,) * len(ctx.args)

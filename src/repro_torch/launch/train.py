@@ -19,7 +19,15 @@ the loop and scan engines and the eval hook, checkpoints and resume
 (re-running the same command resumes from the newest valid checkpoint;
 resuming a completed run executes no round), client faults and elastic
 membership (--dropout-p, --straggler-p, --elastic 'round:K,...'), host
-fault injection (--inject site:mode[:selector], --inject-seed), plus
+fault injection (--inject site:mode[:selector], --inject-seed), the
+active adversary and its defenses
+
+    --byzantine sign_flip --byzantine-frac 0.25 --defense robust_decode
+
+client desync (--desync-frac, --desync-max-lag, --desync-phase-std,
+--desync-frame-symbols), and `--audit`: the eavesdropper's capture, the
+seed-replay attack on it and, on DP transports, the Clopper-Pearson ε̂
+audit held under the analytic accountant (exit 1 if ε̂ exceeds it), plus
 --device. Prints the reference's JSON summary keys that the port fills.
 """
 from __future__ import annotations
@@ -27,8 +35,12 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
+
+from repro_torch import byzantine as byz
 from repro_torch.configs import get_arch, list_archs
-from repro_torch.configs.base import (ChannelConfig, DPConfig, PairZeroConfig,
+from repro_torch.configs.base import (ByzantineConfig, ChannelConfig,
+                                      DesyncConfig, DPConfig, PairZeroConfig,
                                       PowerControlConfig, TransportConfig,
                                       ZOConfig)
 from repro_torch.core import fedsim, transport
@@ -122,6 +134,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--elastic", default=None,
                     help="membership events: 'round:K,round:K' e.g. "
                          "'200:3,400:5'")
+    ap.add_argument("--byzantine", default="none",
+                    help="active-adversary client behavior from the "
+                         f"byzantine registry {byz.available_behaviors()}; "
+                         "'none' (default) runs the honest cohort")
+    ap.add_argument("--byzantine-frac", type=float, default=0.25,
+                    help="fraction of clients running --byzantine (0 "
+                         "disables the attack)")
+    ap.add_argument("--byzantine-scale", type=float, default=3.0,
+                    help="lambda for scaled_poison, the noise std for "
+                         "gaussian_noise")
+    ap.add_argument("--defense", default="none",
+                    help="server/PHY-side countermeasure from the byzantine "
+                         f"registry {byz.available_defenses()}")
+    ap.add_argument("--defense-groups", type=int, default=4,
+                    help="orthogonal decode sub-slots for robust_decode/"
+                         "reweight")
+    ap.add_argument("--defense-clip-factor", type=float, default=0.5,
+                    help="transmit-clip bound for --defense clip: gamma_d = "
+                         "factor * gamma")
+    ap.add_argument("--desync-frac", type=float, default=0.0,
+                    help="per-round probability a client is a stale "
+                         "straggler riding a lagged round seed (0: off)")
+    ap.add_argument("--desync-max-lag", type=int, default=4,
+                    help="max staleness (rounds) for --desync-frac")
+    ap.add_argument("--desync-phase-std", type=float, default=0.0,
+                    help="timing/phase-error std (radians): each client's "
+                         "OTA contribution is attenuated by cos(theta)")
+    ap.add_argument("--desync-frame-symbols", type=int, default=1,
+                    help="symbols per frame of the conventional "
+                         "d-dimensional baseline (--transport fo only)")
     ap.add_argument("--inject", action="append", default=[],
                     metavar="SITE:MODE[:SEL]",
                     help="arm a deterministic host fault (repeatable): "
@@ -133,6 +175,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "under retry_attempts")
     ap.add_argument("--inject-seed", type=int, default=0,
                     help="seed for probabilistic --inject selectors")
+    ap.add_argument("--audit", action="store_true",
+                    help="eavesdropper capture + the seed-replay attack and, "
+                         "for DP transports, the Clopper-Pearson eps_hat "
+                         "audit against the analytic accountant (exit 1 if "
+                         "eps_hat exceeds it)")
+    ap.add_argument("--audit-trials", type=int, default=1500,
+                    help="paired canary traces for the eps_hat audit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--out", default=None, help="write result JSON here")
@@ -145,6 +194,19 @@ def main(argv=None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     mechanism = args.transport or args.variant
+    byzcfg = None
+    if args.byzantine != "none" or args.defense != "none":
+        byzcfg = ByzantineConfig(
+            behavior=args.byzantine, fraction=args.byzantine_frac,
+            scale=args.byzantine_scale, defense=args.defense,
+            groups=args.defense_groups,
+            clip_factor=args.defense_clip_factor, seed=args.seed)
+    desynccfg = None
+    if args.desync_frac or args.desync_phase_std:
+        desynccfg = DesyncConfig(
+            fraction=args.desync_frac, max_lag=args.desync_max_lag,
+            phase_std=args.desync_phase_std,
+            frame_symbols=args.desync_frame_symbols, seed=args.seed)
     pz = PairZeroConfig(
         variant=args.variant, n_clients=args.clients, rounds=args.rounds,
         zo=ZOConfig(mu=args.mu, lr=args.lr, clip_gamma=args.gamma,
@@ -163,7 +225,7 @@ def main(argv=None) -> dict:
         power=PowerControlConfig(scheme=args.scheme),
         transport=TransportConfig(mechanism=mechanism, scheme=args.scheme,
                                   quant_bits=args.quant_bits),
-        seed=args.seed)
+        byzantine=byzcfg, desync=desynccfg, seed=args.seed)
     pipe = FederatedPipeline(
         task=args.task, spec=TaskSpec(args.task, cfg.vocab_size, args.seq_len),
         n_clients=args.clients, per_client_batch=args.batch, seed=args.seed,
@@ -185,6 +247,15 @@ def main(argv=None) -> dict:
         if t % 50 == 0:
             print(f"round {t:5d} loss {metrics['loss']:.4f}", flush=True)
 
+    adversary, attack_hook, hooks = None, None, []
+    if args.audit:
+        from repro_torch import privacy as pv
+        adversary = pv.Adversary()
+        # FO's observation is a whole [d] gradient a round: keep 8 rounds
+        attack_hook = pv.AttackHook(max_rounds=8 if mechanism == "fo"
+                                    else None)
+        hooks = [attack_hook]
+
     res = fedsim.run(cfg, pz, pipe, rounds=args.rounds, engine=args.engine,
                      chunk_rounds=args.chunk_rounds,
                      eval_every=args.eval_every,
@@ -192,11 +263,22 @@ def main(argv=None) -> dict:
                      checkpoint_every=args.checkpoint_every,
                      fault=fault, elastic=elastic, injector=injector,
                      on_round=log, overlap=not args.no_overlap,
-                     device=args.device)
+                     adversary=adversary, hooks=hooks, device=args.device)
+    audit_summary = None
+    if args.audit:
+        audit_summary = run_audit(pz, res, attack_hook, args)
     summary = {
         "arch": cfg.name, "transport": mechanism, "scheme": args.scheme,
         "channel": args.channel or "rayleigh", "engine": args.engine,
         "device": args.device,
+        "byzantine": ({"behavior": args.byzantine,
+                       "fraction": args.byzantine_frac,
+                       "defense": args.defense}
+                      if byzcfg is not None else None),
+        "desync": ({"fraction": args.desync_frac,
+                    "max_lag": args.desync_max_lag,
+                    "phase_std": args.desync_phase_std}
+                   if desynccfg is not None else None),
         "retry_attempts": res.retry_attempts,
         "injected": injector.fired if injector is not None else {},
         "rounds": res.steps,
@@ -210,11 +292,60 @@ def main(argv=None) -> dict:
         "wall_time_s": round(res.wall_time_s, 1),
         "resumed_from": res.resumed_from,
     }
+    if audit_summary is not None:
+        summary["audit"] = audit_summary
     print(json.dumps(summary, indent=2))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**summary, "losses": res.losses}, f)
+    if audit_summary is not None and not audit_summary.get("dominated", True):
+        raise SystemExit("AUDIT FAILURE: empirical eps_hat "
+                         f"{audit_summary['eps_hat']:.4f} exceeds the "
+                         "analytic accountant's "
+                         f"{audit_summary['eps_analytic']:.4f}")
     return summary
+
+
+def run_audit(pz, res, attack_hook, args) -> dict:
+    """The post-run privacy audit: seed replay on the captured
+    observations, and on DP transports the paired-trace ε̂ (on
+    `args.device`) against the run's own accountant ledger. An active
+    defense adjusts the audited config (a transmit clip shrinks the
+    canary to γ_d)."""
+    from repro_torch import privacy as pv
+    defense = byz.resolve_defense(pz)
+    if defense is not None:
+        pz = defense.audited_pz(pz)
+    out: dict = {}
+    obs = attack_hook.observations()
+    payloads = attack_hook.payloads()
+    if payloads is not None and ("obs_y" in obs or "obs_q" in obs):
+        # scored against what was radiated (±1 ballots for sign)
+        payloads = np.asarray(res.transport.transmitted(payloads))
+        replay = pv.get("seed_replay")().run(
+            obs, payloads, res.schedule.c, attack_hook.k_eff())
+        out["seed_replay"] = {
+            "victim_rmse": replay["victim_rmse"],
+            "mean_rmse": replay["mean_rmse"],
+            "per_client_exposed": replay["per_client_exposed"],
+        }
+    if res.transport.canary_payload(pz) is not None:
+        audit = pv.audit_transport(
+            res.transport, res.schedule, pz,
+            rounds=max(res.steps, 1), trials=args.audit_trials,
+            spent=res.privacy_spent, device=args.device)
+        out.update(audit.to_dict())
+        verdict = "OK (eps_hat <= analytic)" if audit.dominated \
+            else "VIOLATED"
+        print(f"privacy audit: eps_hat={audit.eps_hat:.4f} <= "
+              f"analytic eps={audit.eps_analytic:.4f}? {verdict}",
+              flush=True)
+    else:
+        out["auditable"] = False
+        print(f"privacy audit: transport {res.transport.name!r} provides "
+              "no DP guarantee (payloads individually exposed; see "
+              "seed_replay metrics)", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -15,7 +15,11 @@ from the same seed start from the same weights and see the same noise:
   are the flat element index as (hi, lo) words (`iota_2x32_shape`);
 * `uniform` (jax/_src/random.py `_uniform`: the mantissa trick, then
   `· (max − min) + min`, then `max(min, ·)`) and `normal` (`_normal_real`:
-  `sqrt(2) · erf_inv(u)` with u uniform on [nextafter(−1, 0), 1)).
+  `sqrt(2) · erf_inv(u)` with u uniform on [nextafter(−1, 0), 1));
+* `bernoulli` (`_bernoulli`, mode "low": `uniform(key, shape) < p`) and
+  `permutation` (`_shuffle`: ceil(3·ln n / ln(2³² − 1)) rounds, each
+  splitting the key, drawing 32 random bits of the subkey per element
+  and stable-sorting by them).
 
 A key is an int64 tensor [..., 2] holding the two uint32 words (hi, lo),
 as `jax.random.key_data` gives them; leading dims are a batch of keys, and
@@ -219,3 +223,26 @@ def normal(k: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     return _draw(k, shape, lambda bits: _SQRT2 * erf_inv(
         _scaled(bits, _NORMAL_LO, 1.0)), torch.float32)
 
+
+
+def bernoulli(k: torch.Tensor, p: float = 0.5,
+              shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.bernoulli(k, p, shape)` (f32 p): uniform(k, shape) < p,
+    as a bool tensor."""
+    return uniform(k, shape) < float(np.float32(p))
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(k, n)`: arange(n) shuffled by jax's
+    `_shuffle`, as int64 [..., n] for keys [..., 2]. Each round takes
+    key, subkey = split(key) and stable-sorts the current order by
+    random_bits(subkey, (n,)); n = 1 (or 0) takes no round."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device).expand(
+        tuple(k.shape[:-1]) + (n,))
+    for _ in range(rounds):
+        pair = split(k)
+        k, sub = pair[..., 0, :], pair[..., 1, :]
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True)[1]
+        x = torch.gather(x, -1, order)
+    return x.contiguous()

@@ -102,9 +102,9 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(impl="pallas"), dict(adversary=object()),
+    dict(impl="pallas"), dict(dtype=torch.float16),
     dict(dtype=torch.bfloat16),
-    dict(mesh="8"), dict(defense=object()), dict(telemetry=object())])
+    dict(mesh="8"), dict(impl="xla"), dict(telemetry=object())])
 def test_unported_options_raise(kwargs):
     cfg, pz = configs(base, n_perturb=1)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
@@ -113,12 +113,18 @@ def test_unported_options_raise(kwargs):
 
 
 @pytest.mark.parametrize("pz_kw,run_kw", [
-    (dict(desync=object()), {}), (dict(byzantine=object()), {}),
-    ({}, dict(desync=object())), ({}, dict(behavior=object())),
+    (dict(desync=base.DesyncConfig(fraction=0.5)),
+     dict(telemetry=object())),
+    (dict(byzantine=base.ByzantineConfig(behavior="sign_flip",
+                                         fraction=0.4)), dict(mesh="8")),
+    ({}, dict(desync=object(), impl="pallas")),
+    ({}, dict(behavior=object(), dtype=torch.float64)),
     ({}, dict(dtype="bfloat16"))])
 def test_unported_config_fields_raise(pz_kw, run_kw):
-    """The config's scenario fields, and the run options beside them that
-    no other test names, raise naming their ROADMAP item."""
+    """The config's scenario fields and the run's scenario options are
+    ported; beside them, the options that are not (telemetry, mesh, impl,
+    a non-f32 dtype, also as a string) still raise naming their ROADMAP
+    item."""
     cfg, pz = configs(base, n_perturb=1)
     pz = base.PairZeroConfig(**{**pz.__dict__, **pz_kw})
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)

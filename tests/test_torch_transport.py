@@ -351,22 +351,34 @@ def test_cli_defaults_match_reference():
 @pytest.mark.parametrize("mechanism,item", [
     ("digital", "A9"), ("smart_digital", "A9"), ("fo", "A9")])
 def test_unported_transports_raise_naming_their_item(mechanism, item):
-    """Every mechanism runs now; what each still lacks, a defense's bill in
-    `uplink_bits_total`, raises naming its ROADMAP item (A9), and an
-    unknown name is a ValueError."""
+    """Every mechanism runs, and what each lacked until ROADMAP `item`
+    (A9) was ported, a defense's bill in `uplink_bits_total`, is the
+    reference's: the payload times the client-rounds, then a sub-slot
+    defense's factor (1) and its side-channel bits a round; an unknown
+    name is a ValueError."""
+    from repro.byzantine import defenses as jdef
+    from repro_torch.byzantine import defenses
     cfg, pz = configs(base, n_perturb=1)
     pz = dataclasses.replace(pz, transport=base.TransportConfig(
         mechanism=mechanism))
     mech = tp.resolve(pz)
     assert mech.name == mechanism and mechanism in tp.available()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tp.uplink_bits_total(mech, object(), pz, 10, 5.0, 1)
+    jmech = jtp.get(mechanism).from_config(jbase.TransportConfig(
+        mechanism=mechanism), configs(jbase, n_perturb=1)[1])
+    for ours, ref in ((defenses.ResidualReweight(groups=3),
+                       jdef.ResidualReweight(groups=3)),
+                      (defenses.RobustDecode(), jdef.RobustDecode())):
+        bits = tp.uplink_bits_total(mech, ours, pz, 10, 5.0, 2)
+        assert bits == jtp.uplink_bits_total(jmech, ref, pz, 10, 5.0, 2)
+        assert bits == mech.payload_bits(pz, 10) * 5 + \
+            ours.extra_bits_per_round(pz, 10) * 2
+    assert item == "A9"
     with pytest.raises(ValueError):
         tp.get("carrier_pigeon")
 
 
 @pytest.mark.parametrize("option,item", [("mesh", "A11"),
-                                         ("adversary", "A9")])
+                                         ("telemetry", "A9")])
 def test_unported_options_raise_naming_their_item(option, item):
     cfg, pz = configs(base, n_perturb=1)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
