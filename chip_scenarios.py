@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's scenario paths alone on one GPU, and with
-`--profile` show where their time goes.
+"""Run chip_smoke.py's phase-4 paths alone on one GPU, and with
+`--profile` show where the scenario paths' time goes.
 
-    python3 chip_scenarios.py [--profile] [attacked] [fo-desync]
+    python3 chip_scenarios.py [--profile] [attacked] [fo-desync] [observed]
 
-Builds the kernels, then runs the named paths (default: both) exactly as
-chip_smoke.py's phase 4 does (`run_attacked_path`, `run_fo_desync_path`:
-the same runs, gates and prints). `--profile` then takes, under
+Builds the kernels, then runs the named paths (default: attacked and
+fo-desync) exactly as chip_smoke.py's phase 4 does (`run_attacked_path`,
+`run_fo_desync_path`, `run_observed_path`: the same runs, gates and
+prints). `--profile` then takes, for the scenario paths named, under
 torch.profiler on full-width OPT-125M from the seed-0 init: one loop
 round of each path (the attacked path's, and fo-desync's with the
 captured gradient's copy to the host), and DLG_PROFILED steps of DLG on a
@@ -95,7 +96,8 @@ def main() -> int:
     names = [a for a in args if not a.startswith("--")] \
         or ["attacked", "fo-desync"]
     runs = {"attacked": cs.run_attacked_path,
-            "fo-desync": cs.run_fo_desync_path}
+            "fo-desync": cs.run_fo_desync_path,
+            "observed": cs.run_observed_path}
     dev = torch.device("cuda")
     print(cs.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,7 +111,8 @@ def main() -> int:
         cs.release_device_memory(torch)
         print(f"path {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     if "--profile" in args:
-        profile_paths(torch, dev, opt, names)
+        profile_paths(torch, dev, opt,
+                      [n for n in names if n in ("attacked", "fo-desync")])
     return 0
 
 

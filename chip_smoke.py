@@ -141,6 +141,26 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   DLG_CHECK_STEPS = 5 residuals with the kernels within
                   DLG_PLAIN_RTOL = 1e-4 of the plain versions' on the
                   card, its seconds, final residual and token accuracy;
+     then the `observed` path (ROADMAP A9's obs/), OPT-125M chained at the
+     CLI's defaults, OBSERVED_ROUNDS = 8 rounds on the loop engine and on
+     the scan engine (chunks of 4), each with telemetry off and on
+     (`cost=True`, memory samples, a MetricsSink, a warn HealthMonitor
+     and a torch.profiler session): on ≡ off bitwise (losses, p̂, the
+     final weights' fingerprint), exact launches, `peak_bytes` ==
+     `max_memory_allocated`, the ledger's last row == the run's accounting,
+     the merged profile holding the axpy and flash kernels, and the first
+     round's counted operations within COST_RTOL = 2% of `round_flops`,
+     the kernels' own part of them within KERNEL_FLOPS_RTOL = 1e-9 of its
+     attention and axpy terms; a guarded run (an abort-policy monitor and
+     a saver, so each boundary takes the checkpoint-then-abort copy)
+     bitwise off too; the overheads in ms/round and the TFLOP/s; the
+     copy's cost per boundary alone; on each engine an abort at ABORT_LR
+     whose checkpoint is bitwise the weights of a run to its boundary;
+     and two CLI runs in
+     subprocesses: every artifact, passing `tools/check_trace.py --ledger
+     --summary --expect-chunk-traces 1 --expect-step-builds 1` (the merged
+     profile also `--require-device-lane`), and an abort that exits 3 and
+     leaves a CRC-valid checkpoint at its last boundary;
   5. the `resume` path (OPT-125M chained, the CLI's defaults, checkpoints
      every RESUME_EVERY = 4 rounds into temporary directories removed
      after use): 8 rounds on the loop with an elastic event at round 4
@@ -181,7 +201,8 @@ Needs one CUDA device and the repository checkout (it imports the port
 from src/); exits non-zero without either. `--profile` adds one more loop
 round and one more scan chunk of each path under torch.profiler and
 prints where their device time goes (top kernels by device time, and the
-device's busy share).
+device's busy share). `chip_scenarios.py` runs the named phase-4 paths
+alone.
 """
 from __future__ import annotations
 
@@ -197,6 +218,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
@@ -256,6 +279,27 @@ AUDIT_RTOL = 1e-5
 # DLG's first steps with the kernels against the plain versions
 DLG_CHECK_STEPS = 5
 DLG_PLAIN_RTOL = 1e-4
+# the observed path: rounds and scan chunk; its first round's counted
+# operations against `round_flops` (the counted ones are the analytic
+# count's terms, each counted once: only a term the count misses parts
+# them); the lr whose first update sends the loss past 10x its best, with
+# one direction a round (on the CPU at opt-125m's reduced config, 6.3 to
+# 8357 at lr 2), and the aborted run's planned rounds
+OBSERVED_ROUNDS = 8
+OBSERVED_CHUNK = 4
+# how far a telemetry run's peak may exceed the plain run's, in θ
+OBSERVED_PEAK_SLACK = 0.01
+# kernels the merged profile must hold (substrings of their names)
+PROFILED_KERNELS = ("axpy_kernel", "flash_fwd")
+COST_RTOL = 0.02
+# the kernels' own counted operations against the analytic count's
+# attention and axpy terms: the same integers summed in another order
+KERNEL_FLOPS_RTOL = 1e-9
+# the guarded runs' checkpoint cadence: a saver that never saves in
+# OBSERVED_ROUNDS rounds, so they time the boundary copy alone
+GUARD_EVERY = 1000
+ABORT_LR = 2.0
+ABORT_ROUNDS = 12
 # the resume path's checkpoint, eval and scan-chunk cadence
 RESUME_EVERY = 4
 N_PERTURB = 4                  # the training CLI's default
@@ -814,9 +858,8 @@ def check_flash_attention(torch, dev) -> dict:
     library_ms = time_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
     dev_ms = device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, True))
     lib_dev_ms = device_ms(torch, lambda: sdpa(q, k, v, is_causal=True))
-    visible = s * (s + 1) // 2                 # causal pairs per head
     # per visible pair: q·k (2d), p·v (2d), exp and the sum (≈3)
-    flops = b * h * visible * (4 * d + 3)
+    flops = b * h * fa.visible_pairs(s, s) * (4 * d + 3)
     b_ms, b_by = bound_ms(4.0 * 4 * b * h * s * d, flops)
 
     # recurrentgemma-2b's attention: 10 q heads on one kv head, head_dim
@@ -955,7 +998,7 @@ def flash_attention_128(torch, dev, gen) -> dict:
             q, k, v))
         row["library_device_ms"] = device_ms(torch, lambda: sdpa(
             q, k, v, is_causal=True, enable_gqa=True))
-        pairs = b * h * (s * (s + 1) // 2)          # visible, Sq = Skv
+        pairs = b * h * fa.visible_pairs(s, s)
         row["bound_bytes_ms"] = (4.0 * (2 * q.numel() + 2 * k.numel())
                                  / HBM_BYTES_PER_S * 1e3)
         # per pair: q·k and p·v, 2d flops each (and the softmax's ≈ 3 in
@@ -1037,8 +1080,7 @@ def flash_attention_frontends(torch, dev, gen) -> dict:
         row["library_ms"] = time_ms(torch, lib)
         row["device_ms"] = device_ms(torch, flash)
         row["library_device_ms"] = device_ms(torch, lib)
-        # visible (query, key) pairs: Sq = Skv where causal
-        pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * skv)
+        pairs = b * h * fa.visible_pairs(sq, skv, causal)
         row["bound_bytes_ms"] = (4.0 * (2 * q.numel() + 2 * k.numel())
                                  / HBM_BYTES_PER_S * 1e3)
         row["bound_f32_ms"] = pairs * (4 * d + 3) / F32_FLOPS_PER_S * 1e3
@@ -1111,7 +1153,7 @@ def flash_attention_mla(torch, dev, gen) -> dict:
                 q, k, v))
             row["library_device_ms"] = device_ms(torch, lambda: sdpa(
                 q, k, v, is_causal=True))
-            flops = b * h * (s * (s + 1) // 2) * (4 * d + 3)
+            flops = b * h * fa.visible_pairs(s, s) * (4 * d + 3)
             row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 4 * q.numel(),
                                                         flops)
             # a fixed order of sums and no atomics: two calls agree bitwise
@@ -1253,24 +1295,6 @@ def ssd_inputs(torch, dev, gen, bsz, s, h, p, n, with_state):
     return x, dt, a, b, c, s0
 
 
-def ssd_work(bsz, s, h, p, n, q, with_state0, want_state) -> tuple:
-    """Bytes and f32 operations one ssd_scan call needs: each input read
-    and each output written once; C·Bᵀ once per (batch row, chunk) and
-    M·(x·dt) per head, both over their causal half; C·S_prev for each chunk
-    with a carried state, and the state update for each chunk whose state
-    is used (by the next chunk, or returned). Exps and scalings are not
-    counted."""
-    nc = s // q
-    tri = q * (q + 1) // 2
-    carried = nc - 1 + int(with_state0)
-    updates = nc - 1 + int(want_state)
-    flops = (2.0 * bsz * nc * n * tri + 2.0 * bsz * h * nc * p * tri
-             + 2.0 * bsz * h * q * n * p * (carried + updates))
-    n_bytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + h + 2 * bsz * s * n
-                     + bsz * h * p * n * (int(with_state0) + int(want_state)))
-    return n_bytes, flops
-
-
 def time_cold_ms(torch, fn, reps: int = 15) -> float:
     """Median CUDA-event time of one call of fn with the L2 flushed before
     each (a 256 MB write, outside the timed span; it also hides the host's
@@ -1335,8 +1359,8 @@ def check_ssd_scan(torch, dev) -> dict:
                "stateful": lambda: ssd_scan.ssd_scan_cuda(*args, chunk)}
     out = {}
     for name, fn in entries.items():
-        b_ms, b_by = bound_ms(*ssd_work(bsz, s, h, p, n, chunk, False,
-                                        name == "stateful"))
+        b_ms, b_by = bound_ms(*ssd_scan.work(
+            bsz, s, h, p, n, chunk, False, name == "stateful"))
         out[name] = {"ms": time_ms(torch, fn), "cold_ms": time_cold_ms(
             torch, fn), "device_span_ms": device_span_ms(torch, fn),
             "bound_ms": b_ms, "bound_by": b_by}
@@ -1390,7 +1414,7 @@ def ssd_scan_serve_shapes(torch, dev, gen) -> tuple:
                                      f"{ref}")
             max_err = max(max_err, err)
         fn = lambda: ssd_scan.ssd_scan_cuda(*args, s)  # noqa: E731
-        b_ms, b_by = bound_ms(*ssd_work(bsz, s, h, p, n, s, False, True))
+        b_ms, b_by = bound_ms(*ssd_scan.work(bsz, s, h, p, n, s, False, True))
         row = {"ms": time_ms(torch, fn), "device_span_ms": device_span_ms(
             torch, fn), "plain_ms": time_ms(
             torch, lambda: ssd_scan.ssd_plain(*args, s)),
@@ -3235,6 +3259,413 @@ def run_fo_desync_path(torch, dev, cfg) -> dict:
             "dlg_token_accuracy": out["token_accuracy"]}
 
 
+def round_flops(cfg, pz, clients: int, batch: int, seq: int) -> dict:
+    """The operations of one chained round of a dense transformer, from its
+    shapes (the gate `cost_stats["flops"]` is held to).
+
+    A chained round runs 2·n_perturb forwards (w + μz and w − μz for each
+    direction), each over T = clients · batch · seq tokens, and walks every
+    leaf 3 times a direction with `seeded_axpy` (perturb, flip, restore
+    and update), 12 f32 operations an element (`seeded_axpy.flops`). A
+    forward, per token: in each layer the attention's projections 2·d·(Hq
+    + 2·Hkv + Hq)·hd and the gated MLP's three matmuls 2·3·d·d_ff, then
+    the untied lm head 2·d·V; and in each layer flash_attention over the
+    clients · batch sequences, each head's seq·(seq+1)/2 causal pairs at
+    4·hd + 3 operations (`flash_attention.flops`). The loss's log-softmax,
+    the norms and the activations are elementwise and not counted (as
+    `FlopCounterMode` counts none of them).
+
+    OPT-125M at the training CLI's defaults (5 clients, batch 8, seq 64,
+    n_perturb 4; d 768, 12 heads of 64, d_ff 3072, V 50272, 12 layers,
+    θ = 190,474,752 parameters): 303.7 MFLOP a token, 777.5 GFLOP of
+    matmuls and 3.1 GFLOP of attention a forward, 27.4 GFLOP of axpys, so
+    6.27 TFLOP a round."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    tokens = clients * batch * seq
+    per_token = cfg.n_layers * (2 * d * (2 * hq + 2 * hkv) * hd
+                                + 2 * 3 * d * cfg.d_ff) \
+        + 2 * d * cfg.vocab_size
+    attention = cfg.n_layers * clients * batch * hq * (
+        seq * (seq + 1) // 2) * (4 * hd + 3)
+    n_perturb = pz.zo.n_perturb
+    forwards = 2 * n_perturb
+    axpy = 3 * n_perturb * cfg.param_count() * 12
+    return {"matmul": float(forwards * per_token * tokens),
+            "attention": float(forwards * attention),
+            "axpy": float(axpy),
+            "total": float(forwards * (per_token * tokens + attention)
+                           + axpy)}
+
+
+def observed_run(torch, dev, cfg, pz, pipe, rounds: int, mode: str,
+                 logdir=None, **kw) -> dict:
+    """One chained OPT-125M run from the seed init, `mode` "off",
+    "telemetry" (`cost=True`, memory every 4 rounds, a `MetricsSink` and a
+    warn-policy `HealthMonitor`), "profiled" (those and a
+    `ProfilerSession` around the run) or "guarded" (no telemetry; an
+    abort-policy `HealthMonitor` and a `CheckpointHook` whose saver never
+    saves, so every boundary takes the checkpoint-then-abort copy, as a
+    guarded run's does); the cached executors freed first
+    (a graph kept from an earlier run holds its memory pool), launch
+    counts set to 0 just before and read just after, the allocator's peak
+    reset before and read right after the run returns, before the
+    profiler stops. ms/round: the median over chunks 2 onward of the time
+    between synchronized boundary stamps, over their rounds."""
+    from repro_torch import obs
+    from repro_torch.core import engine, fedsim
+    stamp = Stamp(torch)
+    hooks = [stamp]
+    telemetry = sink = profiler = None
+    if mode != "off":
+        telemetry = obs.Telemetry.on(memory_sample_every=4, cost=True)
+        sink = obs.MetricsSink(os.path.join(logdir, f"{mode}.jsonl"))
+        hooks += [sink, obs.HealthMonitor("warn")]
+    if mode == "profiled":
+        profiler = obs.ProfilerSession(logdir=os.path.join(logdir, "prof"))
+    if mode == "guarded":
+        hooks.append(obs.HealthMonitor("abort"))
+        kw = dict(kw, checkpoint_dir=os.path.join(logdir, "guard"),
+                  checkpoint_every=GUARD_EVERY)
+    release_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    if profiler is not None:
+        profiler.start()
+    t0 = time.perf_counter()
+    res = fedsim.run(cfg, pz, pipe, rounds, device=dev, hooks=hooks,
+                     telemetry=telemetry, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    if profiler is not None:
+        profiler.stop()
+    bounds = engine.chunk_boundaries(0, rounds, kw.get("chunk_rounds", 1)
+                                     if kw.get("engine") == "scan" else 1)
+    per_round = [(stamp.times[c] - stamp.times[c - 1]) / (b - a)
+                 for c, (a, b) in enumerate(bounds) if c > 0]
+    return {"res": res, "wall": wall, "peak": peak, "launches": launches,
+            "ms_per_round": statistics.median(per_round) * 1e3,
+            "telemetry": telemetry, "sink": sink, "profiler": profiler}
+
+
+def boundary_copy_ms(torch, params, reps: int = 5) -> tuple:
+    """The checkpoint-then-abort copy of one boundary
+    (`fedsim._BoundaryCopy.take`, every leaf into pinned host buffers, on
+    the stream): the median of `reps` synchronized copies after one that
+    allocates the buffers, and the host's share (the enqueue alone)."""
+    from repro_torch.core import fedsim
+    copy = fedsim._BoundaryCopy()
+    copy.take(params)
+    torch.cuda.synchronize()
+    whole, enqueue = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        copy.take(params)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        whole.append(time.perf_counter() - t0)
+        enqueue.append(t1 - t0)
+    return statistics.median(whole) * 1e3, statistics.median(enqueue) * 1e3
+
+
+def cli_run(argv: list) -> subprocess.CompletedProcess:
+    """`python -m repro_torch.launch.train` at full width in a subprocess
+    (on the card), from the repository root."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *argv], capture_output=True, text=True, cwd=REPO,
+                          env=env, timeout=600)
+
+
+def check_trace_run(*args) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, str(REPO / "tools" /
+                                                "check_trace.py"),
+                           *map(str, args)], capture_output=True, text=True,
+                          cwd=REPO, timeout=300)
+
+
+def run_observed_path(torch, dev, cfg) -> dict:
+    """The `observed` path: chained OPT-125M at the CLI's defaults,
+    OBSERVED_ROUNDS rounds on the loop engine and then on the scan engine
+    (chunks of OBSERVED_CHUNK), each with telemetry off and on: on must be
+    bitwise off (losses, p̂, the final weights' fingerprint), with exact
+    launches, `peak_bytes` equal to `max_memory_allocated`, the ledger's
+    last row equal to the run's accounting, the merged profile holding the
+    kernels, and the first round's `cost_stats` flops within COST_RTOL of
+    `round_flops` (the kernels' part within KERNEL_FLOPS_RTOL of its
+    attention and axpy terms), and a guarded run bitwise off with its
+    overhead; then the checkpoint-then-abort copy's cost per boundary
+    alone, an abort at ABORT_LR in process on each engine (its checkpoint
+    bitwise the weights of a run of the same rounds), and two CLI runs in
+    subprocesses: one with
+    every artifact, held to `tools/check_trace.py`, and one that aborts
+    (exit 3, a CRC-valid checkpoint at its last boundary)."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import fedsim
+    name = "observed"
+    pz, pipe = path_setup("chained", cfg, False)
+    rounds, chunk = OBSERVED_ROUNDS, OBSERVED_CHUNK
+    want_flops = round_flops(cfg, pz, 5, 8, 64)
+    expected = expected_launches(cfg, rounds, False)
+    theta_bytes = 4 * cfg.param_count()
+    out = {"name": name}
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="observed_") as tmp:
+        for engine_name, kw in (("loop", {}),
+                                ("scan", dict(engine="scan",
+                                              chunk_rounds=chunk))):
+            t_engine = time.perf_counter()
+            logdir = os.path.join(tmp, engine_name)
+            os.makedirs(logdir)
+            runs = {}
+            # the guarded run next to the plain run it is timed against
+            for mode in ("off", "guarded", "telemetry", "profiled"):
+                run = runs[mode] = observed_run(torch, dev, cfg, pz, pipe,
+                                                rounds, mode, logdir=logdir,
+                                                **kw)
+                run["final"] = fingerprint(torch, run["res"].params)
+                run["res"].params = None
+            off = runs["off"]
+            what = f"{name} {engine_name}"
+            for mode in ("telemetry", "profiled"):
+                res, ref, on = runs[mode]["res"], off["res"], runs[mode]
+                if res.losses != ref.losses or res.p_hats != ref.p_hats \
+                        or on["final"] != off["final"]:
+                    raise AssertionError(f"{what} {mode}: telemetry on "
+                                         f"differs from off: losses "
+                                         f"{res.losses} vs {ref.losses}")
+                if res.peak_bytes != on["peak"] or on["peak"] <= 0:
+                    raise AssertionError(f"{what} {mode}: peak_bytes "
+                                         f"{res.peak_bytes} != "
+                                         f"max_memory_allocated "
+                                         f"{on['peak']}")
+                # telemetry keeps nothing on the card: a run it kept alive
+                # (a reference cycle through a hook) would add a θ
+                if not on["peak"] - off["peak"] <= OBSERVED_PEAK_SLACK \
+                        * theta_bytes:
+                    raise AssertionError(f"{what} {mode}: peak "
+                                         f"{on['peak']} vs off "
+                                         f"{off['peak']}")
+                final_row = obs.final_row(on["sink"].path)
+                if (final_row["bits_cum"], final_row["dp_spent_cum"],
+                        final_row["peak_bytes"]) != (res.uplink_bits,
+                                                     res.privacy_spent,
+                                                     res.peak_bytes):
+                    raise AssertionError(f"{what} {mode}: ledger "
+                                         f"{final_row} vs the run's "
+                                         "accounting")
+                cost = res.cost_stats
+                err = abs(cost["flops"] - want_flops["total"]) \
+                    / want_flops["total"]
+                if not err <= COST_RTOL:
+                    raise AssertionError(f"{what} {mode}: cost_stats flops "
+                                         f"{cost['flops']:.6g}, analytic "
+                                         f"{want_flops}")
+                # the kernels count their own work: the attention and axpy
+                # terms, which are under 1% of the total
+                want_kernel = want_flops["attention"] + want_flops["axpy"]
+                if not abs(cost["kernel_flops"] - want_kernel) \
+                        <= KERNEL_FLOPS_RTOL * want_kernel:
+                    raise AssertionError(f"{what} {mode}: the kernels' "
+                                         f"flops {cost['kernel_flops']!r}, "
+                                         f"analytic {want_kernel!r}")
+            guarded = runs["guarded"]
+            if guarded["res"].losses != off["res"].losses \
+                    or guarded["res"].p_hats != off["res"].p_hats \
+                    or guarded["final"] != off["final"]:
+                raise AssertionError(f"{what} guarded: the run with the "
+                                     f"abort snapshot differs from off: "
+                                     f"{guarded['res'].losses}")
+            for mode, run in runs.items():
+                if run["launches"] != expected:
+                    raise AssertionError(f"{what} {mode}: launches "
+                                         f"{run['launches']}, expected "
+                                         f"{expected}")
+            prof = runs["profiled"]
+            events, meta = prof["profiler"].device_events(
+                prof["telemetry"].tracer.epoch)
+            kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+            ours = [k for k in PROFILED_KERNELS if
+                    not any(k in n for n in kernels)]
+            if "error" in meta or not meta["anchor"] or ours:
+                raise AssertionError(f"{what}: profile {meta}; kernels "
+                                     f"missing {ours}")
+            res = prof["res"]
+            cost = res.cost_stats
+            tel_ms = runs["telemetry"]["ms_per_round"] - off["ms_per_round"]
+            prof_ms = prof["ms_per_round"] - off["ms_per_round"]
+            guard_ms = guarded["ms_per_round"] - off["ms_per_round"]
+            tflops = cost["flops"] / (off["ms_per_round"] * 1e-3) / 1e12
+            modes = ("off", "telemetry", "profiled", "guarded")
+            peaks = " / ".join(f"{runs[m]['peak'] / theta_bytes:.2f}"
+                               for m in modes)
+            extra = " / ".join(str(runs[m]["peak"] - off["peak"])
+                               for m in ("telemetry", "profiled", "guarded"))
+            # the first round's dispatch (counted) against the second's
+            first = [s["dur"] * 1e3 for s in
+                     runs["telemetry"]["telemetry"].tracer.spans("dispatch")
+                     [:2]]
+            print(f"path {what}: telemetry (cost, memory, ledger, health "
+                  f"warn) and telemetry with the profiler equal off "
+                  f"bitwise (losses {res.losses}, p_hat, final weights); "
+                  f"ms/round off {off['ms_per_round']:.1f}, telemetry "
+                  f"{runs['telemetry']['ms_per_round']:.1f} (overhead "
+                  f"{tel_ms:.1f}), profiled {prof['ms_per_round']:.1f} "
+                  f"(overhead {prof_ms:.1f}), guarded (abort monitor and "
+                  f"saver, the boundary copy each chunk, bitwise off) "
+                  f"{guarded['ms_per_round']:.1f} (overhead "
+                  f"{guard_ms:.1f}); wall "
+                  + " / ".join(f"{runs[m]['wall']:.3f}" for m in modes)
+                  + f" s; the telemetry run's first dispatch (counted) "
+                  f"{first[0]:.1f} ms, its second {first[1]:.1f}; peak off "
+                  f"/ telemetry / profiled / guarded {peaks} x theta "
+                  f"(+{extra} bytes),"
+                  f" each run's peak_bytes = max_memory_allocated; cost_stats "
+                  f"flops {cost['flops']:.6g} vs analytic "
+                  f"{want_flops['total']:.6g} (err {err:.2e}; matmul "
+                  f"{want_flops['matmul']:.6g}, attention "
+                  f"{want_flops['attention']:.6g}, axpy "
+                  f"{want_flops['axpy']:.6g}; kernels "
+                  f"{cost['kernel_flops']:.6g}), bytes "
+                  f"{cost['bytes_accessed']:.6g} (kernels "
+                  f"{cost['kernel_bytes']:.6g}), {tflops:.1f} TFLOP/s at "
+                  f"the off run's ms/round; compile_stats "
+                  f"{res.compile_stats}; profile {meta['events']} events, "
+                  f"{meta['kernels']} kernels; "
+                  f"{len(prof['telemetry'].tracer.events())} host events; "
+                  f"{time.perf_counter() - t_engine:.1f} s", flush=True)
+            out[f"{engine_name}_telemetry_ms"] = tel_ms
+            out[f"{engine_name}_profiled_ms"] = prof_ms
+            out[f"{engine_name}_guarded_ms"] = guard_ms
+            out[f"{engine_name}_ms_per_round"] = off["ms_per_round"]
+            out["tflops"] = tflops
+            if engine_name == "loop":
+                out["launches"] = off["launches"]
+                out["cost_flops"] = cost["flops"]
+            del runs, off, prof, res, events
+            release_device_memory(torch)
+
+        # the checkpoint-then-abort copy of one boundary
+        from repro_torch import prng
+        from repro_torch.models import registry
+        params = registry.init_params(cfg, prng.key(pz.seed), dev)
+        copy_ms, enqueue_ms = boundary_copy_ms(torch, params)
+        del params
+        out["abort_copy_ms"] = copy_ms
+        print(f"path {name}: checkpoint-then-abort copy {copy_ms:.2f} ms a "
+              f"boundary ({theta_bytes / copy_ms / 1e6:.1f} GB/s for "
+              f"{theta_bytes / 1e6:.1f} MB; the host's enqueue "
+              f"{enqueue_ms:.3f} ms); end to end, the guarded runs' "
+              f"overhead {out['loop_guarded_ms']:.1f} ms/round on loop (a "
+              f"copy every round), {out['scan_guarded_ms']:.1f} on scan "
+              f"(one every {chunk} rounds)", flush=True)
+
+        # an abort in process on each engine: its checkpoint holds the
+        # boundary's weights (on the loop engine every round is one)
+        diverging = dataclasses.replace(
+            pz, rounds=ABORT_ROUNDS,
+            zo=dataclasses.replace(pz.zo, lr=ABORT_LR, n_perturb=1))
+        for engine_name, kw in (("loop", {}),
+                                ("scan", dict(engine="scan",
+                                              chunk_rounds=chunk))):
+            t_abort = time.perf_counter()
+            directory = os.path.join(tmp, f"abort_{engine_name}")
+            res = fedsim.run(cfg, diverging, pipe, ABORT_ROUNDS, device=dev,
+                             hooks=[obs.HealthMonitor("abort")],
+                             checkpoint_dir=directory,
+                             checkpoint_every=2 * chunk, **kw)
+            abort_round, steps = res.health_abort_round, res.steps
+            res.params = None
+            path = ckpt.latest_valid(directory)
+            if abort_round < 0 or path is None:
+                raise AssertionError(f"{name} {engine_name}: no abort "
+                                     f"({res.losses}) or no checkpoint in "
+                                     f"{os.listdir(directory)}")
+            boundary = int(path.rsplit("_", 1)[1])
+            at = fedsim.run(cfg, diverging, pipe, boundary, device=dev,
+                            **kw)
+            restored, step, extra = ckpt.restore(path, at.params)
+            if step != extra["round"] or fingerprint(torch, restored) \
+                    != fingerprint(torch, at.params):
+                raise AssertionError(f"{name} {engine_name}: the abort's "
+                                     f"checkpoint at {path} is not the "
+                                     f"weights after {boundary} rounds")
+            print(f"path {name} {engine_name}: lr {ABORT_LR} aborts at "
+                  f"round {abort_round} ({res.health_abort_reason}; losses "
+                  f"{res.losses}); {steps} rounds executed, the checkpoint "
+                  f"at step {step} equals the weights of a {boundary}-round"
+                  f" run bitwise; {time.perf_counter() - t_abort:.1f} s",
+                  flush=True)
+            del at, restored
+            release_device_memory(torch)
+
+        # the CLI with every artifact, and the CLI's abort
+        art = {k: os.path.join(tmp, f"cli.{k}") for k in
+               ("trace.json", "metrics.jsonl", "profile.json", "out.json")}
+        t0 = time.perf_counter()
+        proc = cli_run(["--rounds", str(rounds), "--engine", "scan",
+                        "--chunk-rounds", str(chunk),
+                        "--trace-out", art["trace.json"],
+                        "--metrics-out", art["metrics.jsonl"],
+                        "--profile-out", art["profile.json"],
+                        "--out", art["out.json"]])
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: CLI exit {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        gates = ["--ledger", art["metrics.jsonl"], "--summary",
+                 art["out.json"], "--expect-chunk-traces", "1",
+                 "--expect-step-builds", "1"]
+        t_check = time.perf_counter()
+        for trace, extra_gate in ((art["trace.json"], []),
+                                  (art["profile.json"],
+                                   ["--require-device-lane"])):
+            check = check_trace_run(trace, *gates, *extra_gate)
+            if check.returncode != 0:
+                raise AssertionError(f"{name}: check_trace {trace}: "
+                                     f"{check.stdout[-3000:]}")
+            print(f"path {name} CLI: {check.stdout.strip()}", flush=True)
+        with open(art["profile.json"]) as f:
+            meta = json.load(f)["otherData"]
+        summary = json.loads(open(art["out.json"]).read())
+        print(f"path {name} CLI: {rounds} rounds scan chunk {chunk} with "
+              f"--trace-out --metrics-out --profile-out in {cli_s:.1f} s "
+              f"(the run {summary['wall_time_s']} s); "
+              f"profile {meta['profile']['events']} events, "
+              f"{meta['profile']['kernels']} kernels; compile_stats "
+              f"{meta['compile_stats']}; peak_bytes {summary['peak_bytes']}"
+              f"; check_trace {time.perf_counter() - t_check:.1f} s",
+              flush=True)
+        t_cli = time.perf_counter()
+        directory = os.path.join(tmp, "cli_abort")
+        proc = cli_run(["--rounds", str(ABORT_ROUNDS), "--engine", "scan",
+                        "--chunk-rounds", str(chunk), "--lr", str(ABORT_LR),
+                        "--n-perturb", "1", "--health-policy", "abort",
+                        "--checkpoint-dir", directory,
+                        "--checkpoint-every", str(2 * chunk)])
+        path = ckpt.latest_valid(directory)
+        if proc.returncode != 3 or path is None \
+                or not ckpt.valid_checkpoint(path):
+            raise AssertionError(f"{name}: the CLI's abort exited "
+                                 f"{proc.returncode}, checkpoint {path}: "
+                                 f"{proc.stdout[-2000:]}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest["step"] != boundary or manifest["extra"]["round"] \
+                != boundary:
+            raise AssertionError(f"{name}: the CLI's abort checkpoint "
+                                 f"{manifest['step']}, want {boundary}")
+        print(f"path {name} CLI abort: exit 3, a CRC-valid checkpoint at "
+              f"step {manifest['step']} (its last boundary); "
+              f"{time.perf_counter() - t_cli:.1f} s; the path "
+              f"{time.perf_counter() - t_path:.1f} s", flush=True)
+    return out
+
+
 def release_device_memory(torch) -> None:
     """Free what earlier runs keep on the card, so the next path's peak is
     its own: the cached executors' graphs and their memory pools, and
@@ -3298,7 +3729,6 @@ def main() -> int:
               "since the build began", flush=True)
 
     print(f"kernel build: {build.build():.1f} s", flush=True)
-
     prng_row = check_prng(torch, dev)
     rows = check_seeded_axpy(torch, dev)
     rows += [check_flash_attention(torch, dev),
@@ -3368,6 +3798,9 @@ def main() -> int:
         paths.append(run_scenario(torch, dev, opt))
         release_device_memory(torch)
     phase("4, the scenario paths (attacked, fo-desync)")
+    paths.append(run_observed_path(torch, dev, opt))
+    release_device_memory(torch)
+    phase("4, the observed path")
     chained = next(p for p in paths if p["name"] == "chained")
     paths.append(run_resume_path(torch, dev, opt, chained))
     phase("5, the resume path")

@@ -28,6 +28,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import spans
 from repro_torch.runtime import inject as inj
 
 PyTree = Any
@@ -144,10 +145,18 @@ class AsyncCheckpointer:
     last good checkpoint (resume finds it through `latest_valid`). A
     failing snapshot skips the boundary (`snapshot_failures`). `injector`
     arms the `ckpt_snapshot` and `ckpt_write` sites; its `torn_write` mode
-    truncates the just-written `arrays.npz`."""
+    truncates the just-written `arrays.npz`.
+
+    Telemetry (`tracer`): each write runs in a ``ckpt_write`` span on the
+    writer thread (its retries in ``retry`` spans), a torn write, a failed
+    write and a skipped boundary drop ``ckpt_torn``, ``ckpt_write_failed``
+    and ``ckpt_skipped`` instants, and each `save` records a
+    ``ckpt_snapshot`` span from the same perf_counter endpoints that
+    `stall_s` adds, so the spans' sum is `stall_s`."""
 
     def __init__(self, directory: str, keep: int = 3,
                  double_buffer: bool = True,
+                 tracer: spans.Tracer = spans.NULL_TRACER,
                  injector: Optional[inj.FaultInjector] = None,
                  write_retries: int = 3):
         self.directory = directory
@@ -159,6 +168,7 @@ class AsyncCheckpointer:
         self.retries: Dict[str, int] = {}
         self.write_retries = write_retries
         self._thread: Optional[threading.Thread] = None
+        self._tracer = tracer
         self._injector = injector
         self._buffers: Optional[Tuple[tuple, List[torch.Tensor]]] = None
 
@@ -173,21 +183,30 @@ class AsyncCheckpointer:
                         keep=self.keep)
             if torn == "torn_write":
                 tear_checkpoint(path)
+                self._tracer.instant("ckpt_torn", step=step)
 
         try:
             inj.with_retries(attempt, site="ckpt_write",
                              attempts=self.write_retries,
-                             retries=self.retries)
-        except Exception:  # noqa: BLE001 - keep the last good checkpoint
+                             tracer=self._tracer, retries=self.retries)
+        except Exception as exc:  # noqa: BLE001 - keep the last good one
             self.write_failures += 1
+            self._tracer.instant("ckpt_write_failed", step=step,
+                                 error=type(exc).__name__)
 
     def _write(self, step: int, params: PyTree, buffers: List[torch.Tensor],
                copied: Optional[torch.cuda.Event],
                extra: Optional[Dict]) -> None:
-        if copied is not None:
-            copied.synchronize()
-        host = _unflatten(params, [b.numpy() for b in buffers])
-        self._save_retrying(step, host, extra)
+        with self._tracer.span("ckpt_write", step=step):
+            if copied is not None:
+                copied.synchronize()
+            host = _unflatten(params, [b.numpy() for b in buffers])
+            self._save_retrying(step, host, extra)
+
+    def _write_host(self, step: int, host: PyTree,
+                    extra: Optional[Dict]) -> None:
+        with self._tracer.span("ckpt_write", step=step):
+            self._save_retrying(step, host, extra)
 
     def _snapshot_buffers(self, leaves: List[torch.Tensor]
                           ) -> List[torch.Tensor]:
@@ -226,12 +245,17 @@ class AsyncCheckpointer:
                     if isinstance(t, torch.Tensor) else np.array(t)
                     for t in leaves])
                 self._thread = threading.Thread(
-                    target=self._save_retrying, args=(step, host, extra),
+                    target=self._write_host, args=(step, host, extra),
                     daemon=True)
             self._thread.start()
-        except Exception:  # noqa: BLE001 - skip the boundary, keep training
+        except Exception as exc:  # noqa: BLE001 - skip the boundary
             self.snapshot_failures += 1
-        self.stall_s += time.perf_counter() - t0
+            self._tracer.instant("ckpt_skipped", step=step,
+                                 error=type(exc).__name__)
+        t1 = time.perf_counter()
+        self.stall_s += t1 - t0
+        # the span is the exact stall_s increment (the same endpoints)
+        self._tracer.add_span("ckpt_snapshot", t0, t1, step=step)
 
     def wait(self) -> None:
         """Join the writer in flight (writes never interleave)."""

@@ -28,6 +28,7 @@ and a desync model adds its rows (`runtime.desync`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import time
@@ -44,6 +45,8 @@ from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import retrace
+from repro_torch.obs import spans as ob
 from repro_torch.runtime.fault import combined_mask
 
 Params = Dict
@@ -325,17 +328,24 @@ class BatchStager:
     slot is rewritten (two `stage` calls later), and the driver kicks chunk
     i+1's preparation only after chunk i-1 has been synced
     (`ChunkPrefetcher.kick`); on the card a slot is also rewritten only
-    after its last copy has completed."""
+    after its last copy has completed. Each `stage` runs in a
+    ``batch_stage`` span on `tracer`."""
 
-    def __init__(self, pipeline, device, slots: int = 2):
+    def __init__(self, pipeline, device, slots: int = 2,
+                 tracer: ob.Tracer = ob.NULL_TRACER):
         self._pipeline = pipeline
         self._device = torch.device(device)
         self._slots: List[Optional[HostBlock]] = [None] * max(1, slots)
         self._next = 0
+        self._tracer = tracer
 
     def stage(self, t0: int, t1: int) -> Dict[str, torch.Tensor]:
         """Stacked round batches [R, ...] for rounds [t0, t1) on the
         device."""
+        with self._tracer.span("batch_stage", t0=t0, t1=t1):
+            return self._stage(t0, t1)
+
+    def _stage(self, t0: int, t1: int) -> Dict[str, torch.Tensor]:
         i = self._next
         self._next = (self._next + 1) % len(self._slots)
         per_round = [self._pipeline.batch(int(t)) for t in range(t0, t1)]
@@ -384,11 +394,18 @@ class ChunkPrefetcher:
     inline once (counted in `degraded`); a second failure propagates. The
     re-run is deterministic: chunks are prepared in round order, and an
     injected fault (`injector`, site "chunk_prep") fires at the
-    preparation's entry, before the stateful FaultModel RNG is drawn."""
+    preparation's entry, before the stateful FaultModel RNG is drawn.
+
+    Telemetry (`tracer`): each preparation runs in a ``chunk_prep`` span
+    (on the worker thread when kicked, `kicked` in its args), every kick
+    drops a ``prefetch_kick`` instant, an inline re-run runs in a
+    ``prefetch_degraded`` span, and each `get` records a ``prep_stall``
+    span from the same perf_counter endpoints that `stall_s` adds, so the
+    spans' sum is `stall_s`."""
 
     def __init__(self, prepare: Callable[[int, int], Any],
                  bounds: Sequence[Tuple[int, int]], overlap: bool = True,
-                 injector=None):
+                 injector=None, tracer: ob.Tracer = ob.NULL_TRACER):
         self._prepare = prepare
         self._bounds = list(bounds)
         self._overlap = overlap and len(self._bounds) > 0
@@ -401,12 +418,15 @@ class ChunkPrefetcher:
         self.stall_s = 0.0
         self.degraded = 0         # kicked preparations re-run inline
         self._injector = injector
+        self._tracer = tracer
 
-    def _run_prepare(self, i: int) -> Any:
+    def _run_prepare(self, i: int, kicked: bool) -> Any:
         a, b = self._bounds[i]
-        if self._injector is not None:
-            self._injector.fire("chunk_prep")
-        return self._prepare(a, b)
+        with self._tracer.span("chunk_prep", chunk=i, t0=a, t1=b,
+                               kicked=kicked):
+            if self._injector is not None:
+                self._injector.fire("chunk_prep")
+            return self._prepare(a, b)
 
     def kick(self, i: int) -> None:
         """Start chunk i's preparation on the worker thread (no-op when
@@ -415,7 +435,8 @@ class ChunkPrefetcher:
         if (self._overlap and self._fut is None and i == self._next
                 and i < len(self._bounds)):
             self._fut_i = i
-            self._fut = self._pool.submit(self._run_prepare, i)
+            self._tracer.instant("prefetch_kick", chunk=i)
+            self._fut = self._pool.submit(self._run_prepare, i, True)
 
     def get(self, i: int) -> Any:
         """The prepared payload for chunk i (blocks; stall time recorded)."""
@@ -428,12 +449,16 @@ class ChunkPrefetcher:
             fut, self._fut = self._fut, None
             try:
                 out = fut.result()
-            except Exception:  # noqa: BLE001 - re-run once, inline
+            except Exception as exc:  # noqa: BLE001 - re-run once, inline
                 self.degraded += 1
-                out = self._run_prepare(i)
+                with self._tracer.span("prefetch_degraded", chunk=i,
+                                       error=type(exc).__name__):
+                    out = self._run_prepare(i, False)
         else:
-            out = self._run_prepare(i)
-        self.stall_s += time.perf_counter() - t0
+            out = self._run_prepare(i, False)
+        t1 = time.perf_counter()
+        self.stall_s += t1 - t0
+        self._tracer.add_span("prep_stall", t0, t1, chunk=i)
         return out
 
     def close(self) -> None:
@@ -457,29 +482,35 @@ def _row(stack: Dict, r: int) -> Dict:
 
 
 def _run_eager(step: Callable, params: Params, ctl_stack: Dict,
-               batch_stack: Dict[str, torch.Tensor], rounds: range
-               ) -> Tuple[Params, Dict[str, List[torch.Tensor]]]:
+               batch_stack: Dict[str, torch.Tensor], rounds: range,
+               probe=None) -> Tuple[Params, Dict[str, List[torch.Tensor]]]:
     collected: Dict[str, list] = {}
     for r in rounds:
-        params, metrics = step(params, _row(batch_stack, r),
-                               _row(ctl_stack, r))
+        # `probe` (a context manager, e.g. `obs.cost.RoundCost`) wraps the
+        # first round only
+        with probe if probe is not None and r == rounds.start \
+                else contextlib.nullcontext():
+            params, metrics = step(params, _row(batch_stack, r),
+                                   _row(ctl_stack, r))
         for k, v in metrics.items():
             collected.setdefault(k, []).append(v)   # no per-round sync
     return params, collected
 
 
 class LoopExecutor:
-    """Per-round dispatch of the round body over a stacked trace."""
+    """Per-round dispatch of the round body over a stacked trace.
+    `run(..., probe=)` wraps the chunk's first round in the context manager
+    `probe` (the run's cost counting, `obs.cost.RoundCost`)."""
 
     def __init__(self, step: Callable):
         self._step = step
 
     def run(self, params: Params, ctl_stack: Dict,
-            batch_stack: Dict[str, torch.Tensor]
+            batch_stack: Dict[str, torch.Tensor], probe=None
             ) -> Tuple[Params, Dict[str, torch.Tensor]]:
         rounds = len(ctl_stack["seed"])
         params, collected = _run_eager(self._step, params, ctl_stack,
-                                       batch_stack, range(rounds))
+                                       batch_stack, range(rounds), probe)
         return params, {k: torch.stack(v) for k, v in collected.items()}
 
 
@@ -498,6 +529,7 @@ class _Graph:
         # do not move, and the wrappers' counts are handed back below
         with torch.cuda.graph(self.graph):
             _, self.metrics = step(params, self.batch, self.ctl)
+        retrace.bump(retrace.CHUNK_TRACE)
         after = kops.read_launches()
         self.launches = {k: after[k] - before[k] for k in after}
         kops.add_launches({k: -n for k, n in self.launches.items()})
@@ -548,14 +580,18 @@ class ScanExecutor:
     back to eager rounds on the card.
 
     On the CPU there is no graph: the rounds run eagerly one after the
-    other, with no per-round sync, exactly as `LoopExecutor` runs them."""
+    other, with no per-round sync, exactly as `LoopExecutor` runs them.
+
+    `run(..., probe=)` wraps the chunk's first round, which always runs
+    eagerly, in the context manager `probe` (the run's cost counting);
+    a capture is never counted."""
 
     def __init__(self, step: Callable):
         self._step = step
         self._graph: Optional[Tuple[tuple, _Graph]] = None
 
     def run(self, params: Params, ctl_stack: Dict,
-            batch_stack: Dict[str, torch.Tensor]
+            batch_stack: Dict[str, torch.Tensor], probe=None
             ) -> Tuple[Params, Dict[str, torch.Tensor]]:
         rounds = len(ctl_stack["seed"])
         dev_ctl = {k: v for k, v in ctl_stack.items()
@@ -563,7 +599,7 @@ class ScanExecutor:
         on_card = dev_ctl["c"].device.type == "cuda"
         if not on_card:
             params, collected = _run_eager(self._step, params, ctl_stack,
-                                           batch_stack, range(rounds))
+                                           batch_stack, range(rounds), probe)
             return params, {k: torch.stack(v) for k, v in collected.items()}
         row0 = (_row(dev_ctl, 0), _row(batch_stack, 0))
         key = _graph_key(params, *row0)    # the eager round moves no leaf
@@ -575,13 +611,13 @@ class ScanExecutor:
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 params, collected = _run_eager(self._step, params, ctl_stack,
-                                               batch_stack, range(1))
+                                               batch_stack, range(1), probe)
             main.wait_stream(side)
             self._graph = None                 # free the old graph's pool
             self._graph = (key, _Graph(self._step, params, *row0))
         else:
             params, collected = _run_eager(self._step, params, ctl_stack,
-                                           batch_stack, range(1))
+                                           batch_stack, range(1), probe)
         if rounds == 1:
             return params, {k: torch.stack(v) for k, v in collected.items()}
         out = {k: torch.empty((rounds,) + v[0].shape, dtype=v[0].dtype,
@@ -611,8 +647,17 @@ def get_executor(step: Callable) -> ScanExecutor:
     """Executor cache keyed on the step (memoized by `pairzero.make_zo_step`
     and `make_fo_step`), so identical runs share one captured graph;
     `get_executor.cache_clear()` releases the graphs and their memory
-    pools."""
+    pools. A miss counts as a `scan_executor_build` (`obs.retrace`)."""
+    retrace.bump(retrace.SCAN_EXEC_BUILD)
     return ScanExecutor(step)
+
+
+@functools.lru_cache(maxsize=64)
+def get_loop_executor(step: Callable) -> LoopExecutor:
+    """Executor cache keyed on the step, as the reference's is; a miss
+    counts as a `loop_executor_build` (`obs.retrace`)."""
+    retrace.bump(retrace.LOOP_EXEC_BUILD)
+    return LoopExecutor(step)
 
 
 def chunk_boundaries(start: int, stop: int, chunk_rounds: int,

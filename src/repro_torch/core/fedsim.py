@@ -33,6 +33,21 @@ rounds) and `desync` (`runtime.desync`; default: resolved from
 `pz.desync`, an inert model meaning none). Options of the reference that
 this port does not carry yet raise NotImplementedError naming their
 ROADMAP item; none is ignored.
+
+Observability (`obs`) rides the same loop: `telemetry` (an
+`obs.Telemetry`) records the span timeline (channel_realize,
+schedule_solve, params_init, ctl_build, chunk, dispatch, metrics_flush,
+hooks_boundary and the prefetcher's, stager's, checkpointer's and
+injector's own), samples device memory at chunk boundaries
+(`RunResult.peak_bytes`) and with `cost=True` counts the first round's
+operations and bytes (`RunResult.cost_stats`); `RunResult.compile_stats`
+always reports the run's step and executor builds and graph captures. A
+`MetricsSink` hook streams the trilemma ledger, a `HealthMonitor` hook
+watches the losses: under its abort policy the run stops at the chunk that
+delivered the bad round, a `CheckpointHook`'s saver writes the weights
+and the ledger at the last completed boundary, and `RunResult` carries
+the abort (`health_abort_round`, `health_abort_reason`). All of it only
+observes: telemetry on runs bitwise the run with it off.
 """
 from __future__ import annotations
 
@@ -45,7 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import byzantine as byz
-from repro_torch import channel, prng, resolve_device
+from repro_torch import channel, obs, prng, resolve_device
 from repro_torch.configs.base import ModelConfig, PairZeroConfig
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import engine as eng
@@ -63,7 +78,6 @@ from repro_torch.runtime.fault import ElasticSchedule, FaultModel
 
 # reference options not ported yet → the ROADMAP item that ports them
 _UNPORTED = {
-    "telemetry": "A9: observability",
     "mesh": "A11: mesh engine",
 }
 _IMPL_DTYPE = "A12: kernel implementation and dtype selection"
@@ -99,6 +113,19 @@ class RunResult:
     # "ckpt_write", "prefetch_degraded", "ckpt_write_failed",
     # "ckpt_snapshot_failed"); empty on a clean run
     retry_attempts: Dict[str, int] = field(default_factory=dict)
+    # observability (obs): the device-memory watermark (0: no sampler)
+    peak_bytes: int = 0
+    # build and capture counter deltas for this run (obs.retrace; always
+    # recorded: a warm rerun on the same parameters shows all zeros)
+    compile_stats: Dict[str, int] = field(default_factory=dict)
+    # the first round's operations, bytes and peak (obs.cost), when the
+    # run's Telemetry has cost=True
+    cost_stats: Optional[Dict[str, Any]] = None
+    # a HealthMonitor abort: its round and detector; -1 / "" otherwise.
+    # The accountant charged only executed rounds, so privacy_spent is the
+    # realized spend
+    health_abort_round: int = -1
+    health_abort_reason: str = ""
 
 
 class RoundHook:
@@ -181,7 +208,7 @@ class CheckpointHook(RoundHook):
         if self.cadence:
             self._saver = ckpt.AsyncCheckpointer(
                 self.directory, double_buffer=self.double_buffer,
-                injector=exp.injector)
+                tracer=exp.telemetry.tracer, injector=exp.injector)
 
     def on_boundary(self, t_done: int, exp: "Experiment") -> None:
         if self._saver is not None and t_done % self.cadence == 0:
@@ -193,6 +220,42 @@ class CheckpointHook(RoundHook):
     def close(self, exp: "Experiment") -> None:
         if self._saver is not None:
             self._saver.wait()
+
+
+class _BoundaryCopy:
+    """The weights at the newest chunk boundary, for checkpoint-then-abort.
+
+    The leaves are updated in place, so when a health abort surfaces (one
+    chunk late under scan) the next chunk has already moved them. `take`
+    copies every leaf, in stream order before the next dispatch, into host
+    buffers of the driver's own (pinned for leaves on the card; the
+    checkpointer's own buffers may be in use by its writer), allocated
+    once and reused; `weights` waits for the last copy and returns them in
+    the params' structure."""
+
+    def __init__(self):
+        self._buffers: Optional[List[torch.Tensor]] = None
+        self._like = None
+        self._copied: Optional[torch.cuda.Event] = None
+
+    def take(self, params) -> None:
+        _, leaves = ckpt._leaf_paths(params)
+        if self._buffers is None:
+            self._buffers = [torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=t.is_cuda)
+                             for t in leaves]
+        for buf, leaf in zip(self._buffers, leaves, strict=True):
+            buf.copy_(leaf.detach(), non_blocking=True)
+        self._like = params
+        self._copied = None
+        if any(t.is_cuda for t in leaves):
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def weights(self):
+        if self._copied is not None:
+            self._copied.synchronize()
+        return ckpt._unflatten(self._like, self._buffers)
 
 
 class CallbackHook(RoundHook):
@@ -219,7 +282,13 @@ class Experiment:
 
     `start_round` is where the rounds begin (a restoring hook sets it);
     `spent_at_start` and `hist_at_start` are the DP ledger's position
-    then, from which `privacy_spent_per_round` folds."""
+    then, from which `privacy_spent_per_round` folds. `round_k_eff` and
+    `round_k_sync` list, per executed round, the clients the mask admitted
+    and those of them on the current round seed (the ledger's columns).
+
+    `telemetry` (an `obs.Telemetry`, default off) is read by the run and
+    its hooks. `compile_stats` counts from the construction, which builds
+    the round body."""
 
     def __init__(self, model_cfg: ModelConfig, pz: PairZeroConfig,
                  pipeline: FederatedPipeline, rounds: int, *,
@@ -234,7 +303,9 @@ class Experiment:
                  adversary=None, behavior=None, defense=None,
                  desync: Optional[dsync.DesyncModel] = None,
                  injector: Optional[inj.FaultInjector] = None,
+                 telemetry: Optional[obs.Telemetry] = None,
                  device="cuda"):
+        self._compile_before = obs.retrace.snapshot()
         if engine not in ("scan", "loop"):
             raise ValueError(
                 f"unknown engine: {engine!r} (want 'scan'|'loop')")
@@ -292,31 +363,39 @@ class Experiment:
         self.elastic = elastic
         self.injector = injector
         self.params = params
+        self.telemetry = telemetry if telemetry is not None \
+            else obs.Telemetry.off()
         self.result = RunResult()
         self.accountant = PrivacyAccountant(pz.dp.epsilon, pz.dp.delta)
         self.start_round = 0
         self.spent_at_start = 0.0
         self.hist_at_start = 0
+        self.round_k_eff: List[float] = []
+        self.round_k_sync: List[float] = []
         # bounded-retry counters by site, merged into result.retry_attempts
         self._retries: Dict[str, int] = {}
 
     def run(self) -> RunResult:
         t0 = time.time()
         pz, result, dev = self.pz, self.result, self.device
+        tr, mem = self.telemetry.tracer, self.telemetry.memory
         result.privacy_budget = self.accountant.budget
         # channel + schedule over the PLANNED horizon (Theorem 3 budgets
         # privacy across all T), exactly as the reference realizes them
         horizon = max(pz.rounds, self.rounds)
-        ctrace = self.channel_model.realize(pz.seed ^ 0xC4A7, horizon,
-                                            pz.n_clients)
+        with tr.span("channel_realize", horizon=horizon):
+            ctrace = self.channel_model.realize(pz.seed ^ 0xC4A7, horizon,
+                                                pz.n_clients)
         # a defense may fold its PHY constraint into the solve
-        schedule = self.transport.make_schedule(ctrace, pz) \
-            if self.defense is None \
-            else self.defense.make_schedule(self.transport, ctrace, pz)
+        with tr.span("schedule_solve", transport=self.transport.name):
+            schedule = self.transport.make_schedule(ctrace, pz) \
+                if self.defense is None \
+                else self.defense.make_schedule(self.transport, ctrace, pz)
         result.schedule, result.transport = schedule, self.transport
         if self.params is None:
-            self.params = registry.init_params(self.model_cfg,
-                                               prng.key(pz.seed), dev)
+            with tr.span("params_init"):
+                self.params = registry.init_params(self.model_cfg,
+                                                   prng.key(pz.seed), dev)
         for hook in self.hooks:
             hook.on_start(self)
         # a restoring hook may have replaced the accountant: the ledger's
@@ -324,19 +403,21 @@ class Experiment:
         self.spent_at_start = self.accountant.spent
         self.hist_at_start = len(self.accountant.history)
         start = self.start_round
+        if mem is not None:
+            mem.sample(start, tracer=tr, device=dev)
         # the step's carry: the params, or under FO (params, Adam's state)
         carry = self.params if self.optimizer is None \
             else (self.params, self.optimizer.init(self.params))
 
-        executor = eng.LoopExecutor(self.step) if self.engine == "loop" \
-            else eng.get_executor(self.step)
+        executor = eng.get_loop_executor(self.step) \
+            if self.engine == "loop" else eng.get_executor(self.step)
         align = tuple(hk.cadence for hk in self.hooks if hk.cadence)
         # the loop engine dispatches (and syncs) one round at a time: one-
         # round chunks keep its metrics and on_round live
         span = 1 if self.engine == "loop" else self.chunk_rounds
         bounds = eng.chunk_boundaries(start, self.rounds, span, align)
         n_leaves = len(registry.shapes(self.model_cfg))
-        stager = eng.BatchStager(self.pipeline, dev)
+        stager = eng.BatchStager(self.pipeline, dev, tracer=tr)
         # the worker thread's copies go to the stream the chunks run on
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
             else None
@@ -350,30 +431,44 @@ class Experiment:
             # chunks are prepared in round order, so the FaultModel's RNG
             # is drawn in round order
             with torch.cuda.stream(stream):
-                trace = eng.build_trace(schedule, pz, a, b, device=dev,
-                                        n_leaves=n_leaves,
-                                        transport=self.transport,
-                                        fault=self.fault,
-                                        elastic=self.elastic,
-                                        channel=ctrace,
-                                        draws={k: v[a - start:b - start]
-                                               for k, v in draws.items()},
-                                        behavior=self.behavior,
-                                        defense=self.defense,
-                                        desync=self.desync)
+                with tr.span("ctl_build", t0=a, t1=b):
+                    trace = eng.build_trace(
+                        schedule, pz, a, b, device=dev, n_leaves=n_leaves,
+                        transport=self.transport, fault=self.fault,
+                        elastic=self.elastic, channel=ctrace,
+                        draws={k: v[a - start:b - start]
+                               for k, v in draws.items()},
+                        behavior=self.behavior, defense=self.defense,
+                        desync=self.desync)
                 return trace, stager.stage(a, b)
 
         prefetch = eng.ChunkPrefetcher(prepare, bounds, overlap=self.overlap,
-                                       injector=self.injector)
+                                       injector=self.injector, tracer=tr)
         # a dispatch is retried only for an injected fault, which fires at
         # its entry: a real failure mid-chunk has already updated the
         # params in place and cannot be replayed
         dispatch_attempts = 3 if (self.injector is not None
                                   and self.injector.armed("dispatch")) else 1
+        # checkpoint-then-abort: with an abort-policy monitor and a saver,
+        # the weights of each boundary are kept on the host (the leaves
+        # move in place before an abort surfaces)
+        savers = [hk._saver for hk in self.hooks
+                  if isinstance(hk, CheckpointHook) and hk._saver is not None]
+        boundary = _BoundaryCopy() if savers and any(
+            getattr(hk, "policy", None) == "abort" for hk in self.hooks) \
+            else None
+        if boundary is not None:
+            boundary.take(self.params)
+        # the first dispatched round's cost, counted as it runs
+        cost = obs.cost.RoundCost(dev) if self.telemetry.cost else None
         # software pipelining: chunk i-1's metrics are synced after chunk i
         # has been dispatched, so the sync overlaps the device's work
         pending = None            # (first_round, n_rounds, metrics)
         client_rounds = 0.0
+        # a HealthMonitor(policy="abort") raises from on_round inside a
+        # flush; caught at chunk granularity, so executed == charged rounds
+        health_abort: Optional[obs.HealthAbort] = None
+        last_boundary = start     # the newest completed hook boundary
 
         def flush() -> None:
             nonlocal pending
@@ -381,57 +476,110 @@ class Experiment:
                 return
             a0, n_rounds, metrics = pending
             pending = None
-            host = {k: v.cpu().numpy() for k, v in metrics.items()}
-            result.losses.extend(float(x) for x in host["loss"])
-            if "p_hat" in host:                 # FO has no scalar uplink
-                result.p_hats.extend(float(x) for x in host["p_hat"])
-            for hook in self.hooks:
-                for r in range(n_rounds):
-                    hook.on_round(a0 + r, {k: v[r] for k, v in host.items()})
+            with tr.span("metrics_flush", t0=a0, rounds=n_rounds):
+                host = {k: v.cpu().numpy() for k, v in metrics.items()}
+                result.losses.extend(float(x) for x in host["loss"])
+                if "p_hat" in host:             # FO has no scalar uplink
+                    result.p_hats.extend(float(x) for x in host["p_hat"])
+                for hook in self.hooks:
+                    for r in range(n_rounds):
+                        hook.on_round(a0 + r,
+                                      {k: v[r] for k, v in host.items()})
 
         try:
             for i, (a, b) in enumerate(bounds):
-                trace, batches = prefetch.get(i)
-                n_ok = eng.affordable_rounds(self.accountant, trace)
-                if n_ok == 0:
-                    result.privacy_exhausted_at = a
-                    break
-                eng.charge_rounds(self.accountant, trace, n_ok)
-                client_rounds += float(trace.host_masks[:n_ok].sum())
-                if n_ok < b - a:          # guard trips mid-chunk: truncate
-                    batches = {k: v[:n_ok] for k, v in batches.items()}
-                carry, metrics = inj.with_retries(
-                    lambda: executor.run(carry, trace.rows(n_ok), batches),
-                    site="dispatch", attempts=dispatch_attempts,
-                    injector=self.injector, retries=self._retries)
-                self.params = carry if self.optimizer is None else carry[0]
-                flush()                   # sync chunk i-1 while chunk i runs
-                # pending holds the chunk's metrics alone, so they are
-                # freed once flushed (an FO capture's are θ-sized)
-                pending, metrics = (a, n_ok, metrics), None
-                if self.engine == "loop":
-                    flush()               # per-round dispatch: deliver now
-                # chunk i-1 is synced, so its stager slot (shared with
-                # chunk i+1) may be rewritten: start the next preparation
-                prefetch.kick(i + 1)
-                t_done = a + n_ok
-                if n_ok < b - a:          # guard tripped mid-chunk: hard stop
-                    flush()
-                    result.privacy_exhausted_at = t_done
-                    break
-                for hook in self.hooks:
-                    hook.on_boundary(t_done, self)
+                with tr.span("chunk", chunk=i, t0=a, t1=b):
+                    trace, batches = prefetch.get(i)
+                    n_ok = eng.affordable_rounds(self.accountant, trace)
+                    if n_ok == 0:
+                        result.privacy_exhausted_at = a
+                        break
+                    eng.charge_rounds(self.accountant, trace, n_ok)
+                    # the clients each round's mask admits (the uplink
+                    # bill), and those of them on the current round seed
+                    masks = trace.host_masks[:n_ok]
+                    k_rows = masks.sum(axis=1)
+                    client_rounds += float(k_rows.sum())
+                    self.round_k_eff.extend(float(x) for x in k_rows)
+                    sync_rows = k_rows if trace.host_stale is None else (
+                        masks * (1.0 - trace.host_stale[:n_ok])).sum(axis=1)
+                    self.round_k_sync.extend(float(x) for x in sync_rows)
+                    if n_ok < b - a:      # guard trips mid-chunk: truncate
+                        batches = {k: v[:n_ok] for k, v in batches.items()}
+                    probe = cost if i == 0 else None
+                    with tr.span("dispatch", chunk=i, rounds=n_ok):
+                        carry, metrics = inj.with_retries(
+                            lambda: executor.run(carry, trace.rows(n_ok),
+                                                 batches, probe),
+                            site="dispatch", attempts=dispatch_attempts,
+                            injector=self.injector, tracer=tr,
+                            retries=self._retries)
+                    self.params = carry if self.optimizer is None \
+                        else carry[0]
+                    flush()               # sync chunk i-1 while chunk i runs
+                    # pending holds the chunk's metrics alone, so they are
+                    # freed once flushed (an FO capture's are θ-sized)
+                    pending, metrics = (a, n_ok, metrics), None
+                    if self.engine == "loop":
+                        flush()           # per-round dispatch: deliver now
+                    # chunk i-1 is synced, so its stager slot (shared with
+                    # chunk i+1) may be rewritten: start the next one
+                    prefetch.kick(i + 1)
+                    t_done = a + n_ok
+                    if n_ok < b - a:      # guard tripped mid-chunk: stop
+                        flush()
+                        result.privacy_exhausted_at = t_done
+                        break
+                    if mem is not None and mem.due(t_done):
+                        mem.sample(t_done, tracer=tr, device=dev)
+                    with tr.span("hooks_boundary", t=t_done):
+                        for hook in self.hooks:
+                            hook.on_boundary(t_done, self)
+                    if boundary is not None:
+                        boundary.take(self.params)
+                    last_boundary = t_done
+        except obs.HealthAbort as e:
+            health_abort = e
+            pending = None        # rounds past the abort stay unreported
         finally:
             prefetch.close()
-        flush()
-        # The reference's health monitor (checkpoint at the last boundary,
-        # then abort) waits for the observability subsystem (ROADMAP A9).
+        # the final watermark BEFORE the last flush: the ledger's rows and
+        # result.peak_bytes then report the same peak
+        if mem is not None:
+            mem.sample(start + len(self.round_k_eff), tracer=tr, device=dev)
+        if health_abort is None:
+            try:
+                flush()
+            except obs.HealthAbort as e:
+                health_abort = e
+                pending = None
+        if health_abort is not None:
+            result.health_abort_round = int(health_abort.round)
+            result.health_abort_reason = str(health_abort.reason)
+            # checkpoint-then-abort: the weights and the ledger at the last
+            # completed boundary; best effort, the abort report must
+            # survive a failing writer
+            weights = boundary.weights() if boundary is not None \
+                else self.params
+            for saver in savers:
+                try:
+                    saver.save(last_boundary, weights,
+                               extra={"accountant":
+                                      self.accountant.state_dict(),
+                                      "round": last_boundary})
+                except Exception:  # noqa: BLE001 - keep the abort report
+                    pass
         for hook in self.hooks:
             hook.close(self)
 
-        result.steps = max(0, result.privacy_exhausted_at - start
-                           if result.privacy_exhausted_at >= 0
-                           else self.rounds - start)
+        if health_abort is not None:
+            # every charged round executed: the aborting chunk's rounds
+            # were bought and ran
+            result.steps = len(self.round_k_eff)
+        else:
+            result.steps = max(0, result.privacy_exhausted_at - start
+                               if result.privacy_exhausted_at >= 0
+                               else self.rounds - start)
         result.privacy_spent = self.accountant.spent
         costs = np.asarray(self.accountant.history[self.hist_at_start:],
                            dtype=np.float64)
@@ -443,8 +591,6 @@ class Experiment:
             self.transport, self.defense, pz, self.model_cfg.param_count(),
             client_rounds, result.steps)
         result.prep_stall_s = prefetch.stall_s
-        savers = [hk._saver for hk in self.hooks
-                  if isinstance(hk, CheckpointHook) and hk._saver is not None]
         result.ckpt_stall_s = sum(s.stall_s for s in savers)
         # only nonzero counters: a clean run reports an empty dict
         attempts = dict(self._retries)
@@ -458,6 +604,10 @@ class Experiment:
                 attempts.get("ckpt_snapshot_failed", 0)
                 + saver.snapshot_failures)
         result.retry_attempts = {k: v for k, v in attempts.items() if v}
+        result.peak_bytes = mem.peak_bytes if mem is not None else 0
+        result.compile_stats = obs.retrace.since(self._compile_before)
+        if cost is not None and cost.stats() is not None:
+            result.cost_stats = cost.stats().to_dict()
         result.wall_time_s = time.time() - t0
         result.params = self.params
         if self.optimizer is not None:
@@ -481,6 +631,7 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
         hooks: Sequence[RoundHook] = (),
         desync: Optional[dsync.DesyncModel] = None,
         injector: Optional[inj.FaultInjector] = None,
+        telemetry: Optional[obs.Telemetry] = None,
         variant: Optional[str] = None, scheme: Optional[str] = None,
         device="cuda", **unported) -> RunResult:
     """Run `rounds` rounds of pAirZero on one device (default: the GPU).
@@ -495,7 +646,11 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
     instead of on the prefetch thread. `adversary=` (a
     `privacy.Adversary`) switches on the eavesdropper's capture (collect
     it with a `privacy.AttackHook` in `hooks=`); `behavior=`/`defense=`
-    and `desync=` override `pz.byzantine` and `pz.desync`.
+    and `desync=` override `pz.byzantine` and `pz.desync`. `telemetry=`
+    (an `obs.Telemetry`) switches on the span timeline, the memory
+    watermark and (`cost=True`) the first round's cost; pair it with an
+    `obs.MetricsSink` in `hooks=` for the trilemma ledger, and add an
+    `obs.HealthMonitor` to watch the losses. All of it only observes.
     `variant=`/`scheme=` are the reference's deprecated string spellings,
     routed through the transport registry with its DeprecationWarning.
     `device="cpu"` runs the plain PyTorch versions of the kernels (the
@@ -526,7 +681,8 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
                       fault=fault, elastic=elastic, impl=impl, dtype=dtype,
                       params=params, overlap=overlap, adversary=adversary,
                       behavior=behavior, defense=defense, desync=desync,
-                      injector=injector, device=device).run()
+                      injector=injector, telemetry=telemetry,
+                      device=device).run()
 
 
 def _is_f32(dtype) -> bool:

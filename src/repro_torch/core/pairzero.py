@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig, PairZeroConfig
 from repro_torch.core import transport as tp
 from repro_torch.core import zo
 from repro_torch.models import registry
+from repro_torch.obs import retrace
 from repro_torch.runtime import desync as ds
 
 #: metric-key prefix of an eavesdropper's observations (`privacy.OBS_PREFIX`)
@@ -95,6 +96,7 @@ def make_zo_step(model_cfg: ModelConfig, pz: PairZeroConfig,
     `adversary` (`privacy.Adversary`) adds what the eavesdropper records
     on direction 0 (`obs_*`), from the same payloads and draw rows as the
     decode: capture is passive. None for each is the historical round."""
+    retrace.bump(retrace.ZO_STEP_BUILD)     # lru miss: a fresh step build
     loss_fn = make_loss_fn(model_cfg)
     transport = transport if transport is not None else tp.resolve(pz)
     mu, lr, gamma = pz.zo.mu, pz.zo.lr, pz.zo.clip_gamma
@@ -193,6 +195,7 @@ def make_fo_step(model_cfg: ModelConfig, optimizer, adversary=None,
     holds a fifth of them; the reference differentiates client 0's entry
     of the whole batch's losses, the same function. None for each is the
     historical round, bit for bit."""
+    retrace.bump(retrace.FO_STEP_BUILD)     # lru miss: a fresh step build
     loss_fn = make_loss_fn(model_cfg)
 
     def step(state, batch: Dict, ctl: Dict):

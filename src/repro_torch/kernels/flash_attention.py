@@ -48,6 +48,31 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
+#: the f32 operations and bytes of those launches (chip_smoke.py's bound
+#: column): per visible (query, key) pair 4·d + 3 operations (q·k and p·v,
+#: 2·d each, and about 3 for the exp and the sum); q, k, v read and the
+#: output written once
+flops = 0.0
+moved_bytes = 0.0
+
+
+def visible_pairs(sq: int, skv: int, causal: bool = True,
+                  window: Optional[int] = None) -> int:
+    """(query, key) pairs one head of `attention_plain`'s mask lets
+    through: query i sits at key position i + skv − sq, a causal query sees
+    the keys up to its own, and a window keeps the `window` newest of
+    them."""
+    off = skv - sq
+    if not causal:
+        if window is None:
+            return sq * skv
+        return sum(skv - max(0, p - window + 1) for p in range(off, skv))
+    lo, hi = off + 1, skv              # keys seen by the first, last query
+    if window is None or window >= hi:
+        return (lo + hi) * sq // 2
+    if window <= lo:
+        return sq * window
+    return (lo + window) * (window - lo + 1) // 2 + (hi - window) * window
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,7 +132,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous f32 CUDA tensors; a head_dim
     without an instance runs zero-padded up to the next one."""
-    global launches
+    global launches, flops, moved_bytes
     b, hq, sq, d = q.shape
     bk, hkv, skv, dk = k.shape
     if k.shape != v.shape or bk != b or dk != d:
@@ -141,4 +166,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 0 if window is None else int(window), stream)
     build.check(status, "flash_attention_f32")
     launches += 1
+    flops += float(b * hq * visible_pairs(sq, skv, causal, window)
+                   * (4 * d + 3))
+    moved_bytes += 4.0 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
     return out if d_run == d else out[..., :d].contiguous()

@@ -47,6 +47,25 @@ def read_launches() -> Dict[str, int]:
             for name, (mod, attr) in LAUNCH_COUNTERS.items()}
 
 
+#: beside each launch counter, the attributes its CUDA wrapper adds that
+#: launch's f32 operations and bytes to (the module's own reckoning, as
+#: chip_smoke.py's bound column makes it); read as a difference around
+#: eager calls (`obs.cost.RoundCost`): a capture adds what it recorded,
+#: and a replay adds nothing
+WORK_COUNTERS = {"seeded_axpy": (sa, "flops", "moved_bytes"),
+                 "seeded_gather": (sa, "gather_flops", "gather_moved_bytes"),
+                 "flash_attention": (fa, "flops", "moved_bytes"),
+                 "perturbed_matmul": (pmm, "flops", "moved_bytes"),
+                 "ssd_scan": (ssd_scan, "flops", "moved_bytes"),
+                 "rglru_scan": (rglru_scan, "flops", "moved_bytes")}
+
+
+def read_work() -> Dict[str, Tuple[float, float]]:
+    """Every kernel's (operations, bytes) over its counted launches."""
+    return {name: (getattr(mod, ops), getattr(mod, moved))
+            for name, (mod, ops, moved) in WORK_COUNTERS.items()}
+
+
 def add_launches(delta: Dict[str, int]) -> None:
     """Add `delta` to the launch counts (a replayed CUDA graph launches the
     kernels its capture recorded without calling their wrappers)."""

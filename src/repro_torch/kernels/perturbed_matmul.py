@@ -31,6 +31,10 @@ from repro_torch.kernels import seeded_axpy as sa
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
+#: the f32 operations (2·M·K·N) and bytes (x and w read, the product
+#: written) of those launches, as chip_smoke.py's bound column reckons them
+flops = 0.0
+moved_bytes = 0.0
 #: blocks per thread-block cluster along M: kCluster of the CUDA source
 CLUSTER = 4
 BM = 128            # output rows per block
@@ -76,7 +80,7 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     x and w are contiguous f32 CUDA tensors; seed (one int32 element
     holding the uint32 bits, `sa.seed_tensor`) and eps (one f32 element)
     lie on their device and are read by the kernel from device memory."""
-    global launches
+    global launches, flops, moved_bytes
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"perturbed_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not line up as [M,K] @ [K,N]")
@@ -105,4 +109,6 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
                     stream)
     build.check(status, "perturbed_matmul_f32")
     launches += 1
+    flops += 2.0 * m * k * n
+    moved_bytes += 4.0 * (m * k + k * n + m * n)
     return out

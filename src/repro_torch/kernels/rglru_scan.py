@@ -32,6 +32,11 @@ import torch
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
+#: the f32 operations (a multiply and an add an element) and bytes (a, x and
+#: h0 read, hs and h_last written) of those launches, as chip_smoke.py's
+#: bound column reckons them
+flops = 0.0
+moved_bytes = 0.0
 
 
 def linear_recurrence_plain(a: torch.Tensor, x: torch.Tensor,
@@ -63,7 +68,7 @@ def rglru_scan_cuda(a: torch.Tensor, x: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on f32 CUDA tensors (made contiguous here).
     Returns (hs [B, S, D], h_last [B, D])."""
-    global launches
+    global launches, flops, moved_bytes
     if x.dim() != 3 or a.shape != x.shape:
         raise ValueError(f"linear_recurrence: a {tuple(a.shape)} and x "
                          f"{tuple(x.shape)} must be one [B, S, D] shape")
@@ -87,4 +92,6 @@ def rglru_scan_cuda(a: torch.Tensor, x: torch.Tensor,
                     h_last.data_ptr(), b, s, d, stream)
     build.check(status, "rglru_scan_f32")
     launches += 1
+    flops += 2.0 * b * s * d
+    moved_bytes += 4.0 * (3 * b * s * d + b * d * (1 + (h0 is not None)))
     return hs, h_last

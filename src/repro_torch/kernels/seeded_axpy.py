@@ -57,6 +57,16 @@ _INV24 = 2.0 ** -24
 launches = 0
 #: launches of the CUDA gathered-rows kernel since the last reset
 gather_launches = 0
+#: beside each launch counter, the f32 operations and the bytes its kernel's
+#: launches did since the last reset, reckoned as chip_smoke.py's bound
+#: column reckons them: per element 12 operations (two unit conversions
+#: and floors, log, ×(−2), sqrt, ×2π, cos, ×r, ×scale, +w; the integer
+#: hash is not counted) and 8 bytes (w read, out written); the gather also
+#: reads its int64 token ids
+flops = 0.0
+moved_bytes = 0.0
+gather_flops = 0.0
+gather_moved_bytes = 0.0
 
 
 def mul32(x, c: int):
@@ -200,7 +210,7 @@ def seeded_axpy_cuda(w: torch.Tensor, seed: torch.Tensor,
     `off`. `out` may be `w` (in place). `seed` (one int32 element holding
     the uint32 bits) and `scale` (one f32 element) lie on w's device and
     are read by the kernel from device memory."""
-    global launches
+    global launches, flops, moved_bytes
     for name, t in (("w", w), ("out", out)):
         if t.device != w.device or t.dtype != torch.float32:
             raise ValueError(f"seeded_axpy: {name} must be f32 on {w.device}")
@@ -217,6 +227,8 @@ def seeded_axpy_cuda(w: torch.Tensor, seed: torch.Tensor,
                 int(off) & MASK32, scale.data_ptr(), stream)
     build.check(status, "seeded_axpy_f32")
     launches += 1
+    flops += 12.0 * w.numel()
+    moved_bytes += 8.0 * w.numel()
     return out
 
 
@@ -226,7 +238,7 @@ def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor,
     """Launch the gathered-rows kernel: [..., D] rows w[tokens] + scale·z.
     `w` is a contiguous f32 [V, D] table; token ids must lie in [0, V);
     `seed` and `scale` as for `seeded_axpy_cuda`."""
-    global gather_launches
+    global gather_launches, gather_flops, gather_moved_bytes
     if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
         raise ValueError("seeded_gather: w must be a contiguous f32 [V, D]")
     if tokens.device != w.device or tokens.dtype != torch.int64:
@@ -244,4 +256,6 @@ def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor,
                 scale.data_ptr(), stream)
     build.check(status, "seeded_gather_f32")
     gather_launches += 1
+    gather_flops += 12.0 * out.numel()
+    gather_moved_bytes += 8.0 * out.numel() + 8.0 * tok.numel()
     return out

@@ -39,6 +39,28 @@ MAX_D_STATE = 128
 #: calls that launched the CUDA kernels (one C·Bᵀ pass and one head pass
 #: each) since the last reset (set to 0 to reset)
 launches = 0
+#: the f32 operations and bytes of those calls (`work`)
+flops = 0.0
+moved_bytes = 0.0
+
+
+def work(bsz: int, s: int, h: int, p: int, n: int, q: int,
+         with_state0: bool, want_state: bool) -> tuple:
+    """(bytes, f32 operations) one call needs, as chip_smoke.py's bound
+    column reckons them: each input read and each output written once;
+    C·Bᵀ once per (batch row, chunk) and M·(x·dt) per head, both over their
+    causal half; C·S_prev for each chunk with a carried state, and the
+    state update for each chunk whose state is used (by the next chunk, or
+    returned). Exps and scalings are not counted."""
+    nc = s // q
+    tri = q * (q + 1) // 2
+    carried = nc - 1 + int(with_state0)
+    updates = nc - 1 + int(want_state)
+    ops = (2.0 * bsz * nc * n * tri + 2.0 * bsz * h * nc * p * tri
+           + 2.0 * bsz * h * q * n * p * (carried + updates))
+    n_bytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + h + 2 * bsz * s * n
+                     + bsz * h * p * n * (int(with_state0) + int(want_state)))
+    return n_bytes, ops
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -118,7 +140,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Launch the CUDA kernels on f32 CUDA tensors (made contiguous here).
     Returns (y [B,S,H,P], state [B,H,P,N]), or (y, None) when want_state
     is False. Shapes, types and sizes are checked before any launch."""
-    global launches
+    global launches, flops, moved_bytes
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     chunk = min(chunk, s)
@@ -155,4 +177,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     cb.data_ptr(), bsz, s, h, p, n, chunk, stream)
     build.check(status, "ssd_scan_f32")
     launches += 1
+    n_bytes, ops = work(bsz, s, h, p, n, chunk, s0 is not None, want_state)
+    flops += ops
+    moved_bytes += n_bytes
     return y, state

@@ -27,7 +27,16 @@ active adversary and its defenses
 client desync (--desync-frac, --desync-max-lag, --desync-phase-std,
 --desync-frame-symbols), and `--audit`: the eavesdropper's capture, the
 seed-replay attack on it and, on DP transports, the Clopper-Pearson ε̂
-audit held under the analytic accountant (exit 1 if ε̂ exceeds it), plus
+audit held under the analytic accountant (exit 1 if ε̂ exceeds it), the
+observability flags
+
+    --trace-out trace.json --metrics-out metrics.jsonl \
+        --profile-out merged.json --health-policy abort
+
+(the span timeline as Chrome trace-event JSON, the per-round trilemma
+ledger, a torch.profiler capture merged onto the span timeline, and the
+run-health monitor, which under `abort` checkpoints the last boundary and
+exits with status 3; `tools/check_trace.py` checks the artifacts), plus
 --device. Prints the reference's JSON summary keys that the port fills.
 """
 from __future__ import annotations
@@ -38,6 +47,7 @@ import json
 import numpy as np
 
 from repro_torch import byzantine as byz
+from repro_torch import obs
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import (ByzantineConfig, ChannelConfig,
                                       DesyncConfig, DPConfig, PairZeroConfig,
@@ -182,6 +192,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "eps_hat exceeds it)")
     ap.add_argument("--audit-trials", type=int, default=1500,
                     help="paired canary traces for the eps_hat audit")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the host-side span timeline here as Chrome "
+                         "trace-event JSON (Perfetto / chrome://tracing): "
+                         "chunk prep, prefetch, stalls, dispatch, metric "
+                         "flushes, checkpoint snapshots, plus the run's "
+                         "build/capture and stall counters and the first "
+                         "round's cost under otherData")
+    ap.add_argument("--metrics-out", default=None,
+                    help="stream the per-round trilemma ledger here as "
+                         "JSONL (schema trilemma_ledger/v2): loss, uplink "
+                         "bits, cumulative (eps, delta) spend and the peak "
+                         "device-memory watermark, one record a round")
+    ap.add_argument("--obs-sample-every", type=int, default=32,
+                    help="device-memory sampling period (rounds) for the "
+                         "watermark; samples are taken at chunk "
+                         "boundaries, so the cadence never changes chunks")
+    ap.add_argument("--profile-out", default=None,
+                    help="capture the run under torch.profiler and write a "
+                         "MERGED Chrome trace here: the aten ops and (on "
+                         "the card) the CUDA kernels, aligned onto the host "
+                         "span timeline by a perf_counter anchor")
+    ap.add_argument("--health-policy", default="off",
+                    choices=["off", "warn", "abort"],
+                    help="run-health monitor (NaN/Inf, loss divergence, "
+                         "plateau) over the per-round losses: 'warn' "
+                         "records events in the summary; 'abort' "
+                         "checkpoints the last boundary, stops the run and "
+                         "exits with status 3; the accountant keeps only "
+                         "the realized spend, which --audit consumes")
+    ap.add_argument("--health-divergence", type=float, default=10.0,
+                    help="divergence factor: fire when the loss exceeds "
+                         "this multiple of the running best (<=0 disables "
+                         "the detector)")
+    ap.add_argument("--health-plateau", type=int, default=0,
+                    help="rounds with no new best loss before the plateau "
+                         "detector fires; 0 disables it")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--out", default=None, help="write result JSON here")
@@ -240,8 +286,6 @@ def main(argv=None) -> dict:
         events = tuple(tuple(int(v) for v in e.split(":"))
                        for e in args.elastic.split(","))
         elastic = ElasticSchedule(args.clients, events=events)
-    injector = FaultInjector.from_specs(args.inject, seed=args.inject_seed) \
-        if args.inject else None
 
     def log(t, metrics):
         if t % 50 == 0:
@@ -256,6 +300,28 @@ def main(argv=None) -> dict:
                                     else None)
         hooks = [attack_hook]
 
+    # observability: span timeline, memory watermark, the trilemma ledger,
+    # the profiler merge and the health monitor, all of which only observe
+    telemetry, profiler, health = None, None, None
+    if args.trace_out or args.metrics_out or args.profile_out:
+        telemetry = obs.Telemetry.on(
+            memory_sample_every=args.obs_sample_every,
+            cost=bool(args.trace_out or args.profile_out))
+        if args.metrics_out:
+            hooks = hooks + [obs.MetricsSink(args.metrics_out)]
+    if args.health_policy != "off":
+        health = obs.HealthMonitor(args.health_policy,
+                                   divergence_factor=args.health_divergence,
+                                   plateau_rounds=args.health_plateau)
+        hooks = hooks + [health]
+    injector = FaultInjector.from_specs(
+        args.inject, seed=args.inject_seed,
+        tracer=telemetry.tracer if telemetry is not None
+        else obs.NULL_TRACER) if args.inject else None
+    if args.profile_out:
+        profiler = obs.ProfilerSession()
+        profiler.start()
+
     res = fedsim.run(cfg, pz, pipe, rounds=args.rounds, engine=args.engine,
                      chunk_rounds=args.chunk_rounds,
                      eval_every=args.eval_every,
@@ -263,7 +329,34 @@ def main(argv=None) -> dict:
                      checkpoint_every=args.checkpoint_every,
                      fault=fault, elastic=elastic, injector=injector,
                      on_round=log, overlap=not args.no_overlap,
-                     adversary=adversary, hooks=hooks, device=args.device)
+                     adversary=adversary, hooks=hooks, telemetry=telemetry,
+                     device=args.device)
+    if profiler is not None:
+        profiler.stop()
+    if args.trace_out or args.profile_out:
+        metadata = {
+            "engine": args.engine,
+            "overlap": not args.no_overlap,
+            "prep_stall_s": res.prep_stall_s,
+            "ckpt_stall_s": res.ckpt_stall_s,
+            "peak_bytes": res.peak_bytes,
+            "compile_stats": res.compile_stats,
+        }
+        if res.cost_stats is not None:
+            metadata["cost_stats"] = res.cost_stats
+        if args.trace_out:
+            telemetry.tracer.export_chrome(args.trace_out, metadata=metadata)
+            print(f"trace timeline -> {args.trace_out}", flush=True)
+        if args.profile_out:
+            device_events, profile_meta = profiler.device_events(
+                telemetry.tracer.epoch)
+            telemetry.tracer.export_chrome(
+                args.profile_out,
+                metadata={**metadata, "profile": profile_meta},
+                extra_events=device_events)
+            print(f"merged device+host timeline -> {args.profile_out} "
+                  f"({profile_meta['events']} profiler events, "
+                  f"{profile_meta['kernels']} kernels)", flush=True)
     audit_summary = None
     if args.audit:
         audit_summary = run_audit(pz, res, attack_hook, args)
@@ -290,8 +383,19 @@ def main(argv=None) -> dict:
         "prep_stall_s": round(res.prep_stall_s, 3),
         "ckpt_stall_s": round(res.ckpt_stall_s, 3),
         "wall_time_s": round(res.wall_time_s, 1),
+        "peak_bytes": res.peak_bytes,
+        "compile_stats": res.compile_stats,
         "resumed_from": res.resumed_from,
     }
+    if res.cost_stats is not None:
+        summary["cost_stats"] = res.cost_stats
+    if health is not None:
+        summary["health"] = {
+            "policy": args.health_policy,
+            "events": health.events,
+            "abort_round": res.health_abort_round,
+            "abort_reason": res.health_abort_reason,
+        }
     if audit_summary is not None:
         summary["audit"] = audit_summary
     print(json.dumps(summary, indent=2))
@@ -303,6 +407,12 @@ def main(argv=None) -> dict:
                          f"{audit_summary['eps_hat']:.4f} exceeds the "
                          "analytic accountant's "
                          f"{audit_summary['eps_analytic']:.4f}")
+    if res.health_abort_round >= 0:
+        # a status of its own: a health abort (3), not an audit failure (1)
+        print(f"HEALTH ABORT: {res.health_abort_reason} at round "
+              f"{res.health_abort_round}; the accountant charged only the "
+              f"{res.steps} executed rounds", flush=True)
+        raise SystemExit(3)
     return summary
 
 

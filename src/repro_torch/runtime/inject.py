@@ -26,9 +26,9 @@ invocation index): an exact ``@i,j,...`` selector, or a Bernoulli draw from
 `np.random.default_rng([seed, crc32(site), n])`, the reference's draw, so
 the same specs fire at the same invocations in both packages.
 
-The reference threads a span tracer (`repro.obs`) through these functions;
-the port has no observability subsystem yet (ROADMAP A9), so they take no
-tracer, and the recoveries are counted only (`retries`, `fired`).
+Telemetry (`obs.spans`): every fired fault drops an ``inject`` instant on
+the injector's tracer, and every re-attempt of `with_retries` runs inside a
+``retry`` span; the recoveries are also counted (`retries`, `fired`).
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ import zlib
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs.spans import NULL_TRACER
 
 SITES = ("chunk_prep", "dispatch", "ckpt_snapshot", "ckpt_write")
 
@@ -127,19 +129,21 @@ class FaultInjector:
     returns the mode's marker (``"torn_write"``, ``"delay"``) or None when
     nothing fired; the ``exception`` mode raises instead."""
 
-    def __init__(self, faults: Mapping[str, SiteFault], seed: int = 0):
+    def __init__(self, faults: Mapping[str, SiteFault], seed: int = 0,
+                 tracer=NULL_TRACER):
         for site in faults:
             if site not in SITES:
                 raise ValueError(f"unknown injection site {site!r} "
                                  f"(available: {SITES})")
         self.faults = dict(faults)
         self.seed = int(seed)
+        self.tracer = tracer
         self.counts: Dict[str, int] = {}
         self.fired: Dict[str, int] = {}
 
     @classmethod
-    def from_specs(cls, specs: Sequence[str],
-                   seed: int = 0) -> "FaultInjector":
+    def from_specs(cls, specs: Sequence[str], seed: int = 0,
+                   tracer=NULL_TRACER) -> "FaultInjector":
         """Build from CLI specs ``site:mode[:selector]``: the selector is a
         probability (``0.25``) or exact invocation indices (``@2`` /
         ``@2,5``); omitted means every invocation."""
@@ -158,7 +162,7 @@ class FaultInjector:
                 else:
                     p = float(sel)
             faults[site] = SiteFault(mode=mode, p=p, at=at)
-        return cls(faults, seed=seed)
+        return cls(faults, seed=seed, tracer=tracer)
 
     def armed(self, site: str) -> bool:
         """Whether `site` has a fault armed."""
@@ -180,18 +184,21 @@ class FaultInjector:
         if not hit:
             return None
         self.fired[site] = self.fired.get(site, 0) + 1
+        self.tracer.instant("inject", site=site, mode=fault.mode,
+                            invocation=n)
         return _MODES[fault.mode].trigger(site, n, fault)
 
 
 def with_retries(fn: Callable, *, site: str, attempts: int = 3,
                  injector: Optional[FaultInjector] = None,
-                 backoff_s: float = 0.01,
+                 tracer=NULL_TRACER, backoff_s: float = 0.01,
                  retries: Optional[Dict[str, int]] = None):
     """Call `fn` with bounded retry and exponential backoff.
 
     The injector (when given) fires at each attempt's entry, before `fn`
-    runs, so retried work replays from a clean slate. Each re-attempt is
-    counted into `retries[site]`; the last exception propagates once
+    runs, so retried work replays from a clean slate. Each re-attempt runs
+    in a ``retry`` span (site, attempt, the exception class that forced it)
+    and is counted into `retries[site]`; the last exception propagates once
     `attempts` are spent. `attempts=1` is a plain call (the sites where a
     failure mid-flight cannot be replayed)."""
     try:
@@ -203,11 +210,13 @@ def with_retries(fn: Callable, *, site: str, attempts: int = 3,
     for attempt in range(1, attempts):
         if retries is not None:
             retries[site] = retries.get(site, 0) + 1
-        time.sleep(backoff_s * (2 ** (attempt - 1)))
-        try:
-            if injector is not None:
-                injector.fire(site)
-            return fn()
-        except Exception as exc:  # noqa: BLE001 - bounded retry seam
-            last = exc
+        with tracer.span("retry", site=site, attempt=attempt,
+                         error=type(last).__name__):
+            time.sleep(backoff_s * (2 ** (attempt - 1)))
+            try:
+                if injector is not None:
+                    injector.fire(site)
+                return fn()
+            except Exception as exc:  # noqa: BLE001 - bounded retry seam
+                last = exc
     raise last

@@ -265,11 +265,14 @@ def test_unarmed_dispatch_fails_fast():
                             device="cpu")
     real = engine.LoopExecutor
     engine.LoopExecutor = Boom
+    # the executor cache would serve the step's cached real executor
+    engine.get_loop_executor.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="device fault"):
             exp.run()
     finally:
         engine.LoopExecutor = real
+        engine.get_loop_executor.cache_clear()
     assert calls == [1]
 
 

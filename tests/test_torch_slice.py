@@ -104,7 +104,7 @@ def test_cuda_is_the_default_and_raises_without_a_gpu(monkeypatch):
 @pytest.mark.parametrize("kwargs", [
     dict(impl="pallas"), dict(dtype=torch.float16),
     dict(dtype=torch.bfloat16),
-    dict(mesh="8"), dict(impl="xla"), dict(telemetry=object())])
+    dict(mesh="8"), dict(impl="xla"), dict(impl="pallas_interpret")])
 def test_unported_options_raise(kwargs):
     cfg, pz = configs(base, n_perturb=1)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
@@ -114,7 +114,7 @@ def test_unported_options_raise(kwargs):
 
 @pytest.mark.parametrize("pz_kw,run_kw", [
     (dict(desync=base.DesyncConfig(fraction=0.5)),
-     dict(telemetry=object())),
+     dict(mesh=object())),
     (dict(byzantine=base.ByzantineConfig(behavior="sign_flip",
                                          fraction=0.4)), dict(mesh="8")),
     ({}, dict(desync=object(), impl="pallas")),
@@ -122,9 +122,8 @@ def test_unported_options_raise(kwargs):
     ({}, dict(dtype="bfloat16"))])
 def test_unported_config_fields_raise(pz_kw, run_kw):
     """The config's scenario fields and the run's scenario options are
-    ported; beside them, the options that are not (telemetry, mesh, impl,
-    a non-f32 dtype, also as a string) still raise naming their ROADMAP
-    item."""
+    ported; beside them, the options that are not (mesh, impl, a non-f32
+    dtype, also as a string) still raise naming their ROADMAP item."""
     cfg, pz = configs(base, n_perturb=1)
     pz = base.PairZeroConfig(**{**pz.__dict__, **pz_kw})
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)

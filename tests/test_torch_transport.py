@@ -320,9 +320,11 @@ def test_cli_new_flags_loop_equals_scan_on_cpu():
             "--shadow-std-db", "2", "--task", "squad"]
     loop = train.main(args + ["--engine", "loop"])
     scan = train.main(args + ["--engine", "scan", "--chunk-rounds", "2"])
-    drop = ("engine", "wall_time_s", "prep_stall_s")
+    # compile_stats name the engine's own executor build
+    drop = ("engine", "wall_time_s", "prep_stall_s", "compile_stats")
     assert {k: v for k, v in loop.items() if k not in drop} == \
         {k: v for k, v in scan.items() if k not in drop}
+    assert scan["compile_stats"]["loop_executor_build"] == 0
     assert (loop["transport"], loop["scheme"], loop["channel"]) == \
         ("sign", "solution", "rician")
     assert loop["uplink_bits"] < 4 * 5 and loop["privacy_spent"] > 0
@@ -380,11 +382,22 @@ def test_unported_transports_raise_naming_their_item(mechanism, item):
 @pytest.mark.parametrize("option,item", [("mesh", "A11"),
                                          ("telemetry", "A9")])
 def test_unported_options_raise_naming_their_item(option, item):
+    """`mesh` raises naming its ROADMAP item; `telemetry`, which A9
+    ported, is no longer refused: an `obs.Telemetry` runs and records."""
+    from repro_torch import obs
     cfg, pz = configs(base, n_perturb=1)
     pipe = FederatedPipeline("sst2", TaskSpec("sst2", 64, 16), 5, 2)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        fedsim.run(cfg, pz, pipe, rounds=1, device="cpu",
-                   **{option: object()})
+    if item != "A9":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            fedsim.run(cfg, pz, pipe, rounds=1, device="cpu",
+                       **{option: object()})
+        return
+    assert option not in fedsim._UNPORTED
+    tel = obs.Telemetry.on()
+    res = fedsim.run(cfg, pz, pipe, rounds=1, device="cpu",
+                     **{option: tel})
+    assert res.steps == 1 and res.peak_bytes > 0
+    assert tel.tracer.spans("dispatch")
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8])
