@@ -293,8 +293,8 @@ _P_IN_PLACE = """          uint32_t ph[4], pl[4];
           tc_split(pc[j][3], ph[3], pl[3]);"""
 _V_ROWS_T = [
     ("+ 2 * tq * RS + g;", "+ tq * RS + g;"),
-    ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
-     "tc_split(vj[4 * RS + 8 * n], bh[1], bl[1]);")]
+    ("tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);",
+     "tc_split(to_f32(vj[4 * RS + 8 * n]), bh[1], bl[1]);")]
 _P_SMEM = """          float* pw = p_tile + g * 12 + 2 * tq;
           *reinterpret_cast<float2*>(pw) = make_float2(pc[j][0], pc[j][1]);
           *reinterpret_cast<float2*>(pw + 8 * 12) = make_float2(pc[j][2], pc[j][3]);
@@ -342,11 +342,11 @@ _SUM_PER_STEP = ("  float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"
                  + "#pragma unroll\n"
                  "  for (int e = 0; e < 4; ++e) c[e] += z[e];\n")
 _SKIP_COPIES = [
-    ("if (lane == 0) mbar_expect(bar, rows * D * 4);",
+    ("if (lane == 0) mbar_expect(bar, rows * kRowBytes);",
      "if (lane == 0) mbar_expect(bar, 0);"),
     ("for (int r = lane; r < rows; r += 32)\n        bulk_copy(",
      "for (int r = lane; r < 0; r += 32)\n        bulk_copy("),
-    ("if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * D * 4);",
+    ("if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * kRowBytes);",
      "if (lane == 0) mbar_expect(q_full, 0);"),
     ("if (row >= 0) bulk_copy(smem_u32(qs + r * RS)",
      "if (row < -1) bulk_copy(smem_u32(qs + r * RS)")]
@@ -370,11 +370,12 @@ TC_VARIANTS = {
                  "__maxnreg__(D == 96 ? 136 : 200)")],
     "p_smem": [
         (_P_IN_PLACE, _P_SMEM),
-        ("+ kSlots * kSlotFloats;",
-         "+ kSlots * kSlotFloats + kTcWarps * 16 * 12;"),
+        ("+ kSlots * kSlotElems;",
+         "+ kSlots * kSlotElems + kTcWarps * 16 * 12;"),
         ("  const int g = lane >> 2;\n",
          "  const int g = lane >> 2;\n"
-         "  float* p_tile = ring + S * T::kSlotFloats + warp * 16 * 12;\n")]
+         "  float* p_tile = reinterpret_cast<float*>(ring + S * T::kSlotElems)"
+         " + warp * 16 * 12;\n")]
         + _V_ROWS_T,
     "p_shuffles": [(_P_IN_PLACE, _P_SHUFFLES)] + _V_ROWS_T,
     "sum_per_step": [(_LO_TERMS + _HI_TERM, _SUM_PER_STEP)],
@@ -423,10 +424,10 @@ TC_VARIANTS = {
                       f"bh[{i}] = __float_as_uint(y.{c}); bl[{i}] = 0;")
                      for c, i in (("x", 0), ("y", 1))],
     "skip_v_split": [
-        ("tc_split(vj[8 * n], bh[0], bl[0]);",
-         "bh[0] = __float_as_uint(vj[8 * n]); bl[0] = 0;"),
-        ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
-         "bh[1] = __float_as_uint(vj[RS + 8 * n]); bl[1] = 0;")],
+        ("tc_split(to_f32(vj[8 * n]), bh[0], bl[0]);",
+         "bh[0] = __float_as_uint(to_f32(vj[8 * n])); bl[0] = 0;"),
+        ("tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);",
+         "bh[1] = __float_as_uint(to_f32(vj[RS + 8 * n])); bl[1] = 0;")],
     # no products at all (nor the loads and splits that feed them)
     "skip_mma": [(_LO_TERMS + _HI_TERM, "")],
     # no copies: the consumers work on whatever shared memory holds
@@ -461,7 +462,8 @@ def ptxas_summary(log: str, d: int) -> dict:
     for line in log.splitlines():
         if "Function properties for" in line:
             inside = bool(re.search(
-                rf"flash_fwd_(tc|group|small|split)_kernelILi{d}E", line))
+                rf"flash_fwd_(tc|group|small|split)_kernelILi{d}E[fE]",
+                line))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and inside:

@@ -3,6 +3,7 @@
 `--profile` show where the scenario paths' time goes.
 
     python3 chip_scenarios.py [--profile] [attacked] [fo-desync] [observed]
+        [bf16]
 
 Builds the kernels, then runs the named paths (default: attacked and
 fo-desync) exactly as chip_smoke.py's phase 4 does (`run_attacked_path`,
@@ -13,8 +14,12 @@ round of each path (the attacked path's, and fo-desync's with the
 captured gradient's copy to the host), and DLG_PROFILED steps of DLG on a
 captured gradient after two warm-up steps, printing for each the wall
 time, the device's busy time, the top 12 kernels and copies by device
-time and the top 12 operations by host time. Exits non-zero without a
-CUDA device or on any failed gate.
+time and the top 12 operations by host time. `bf16` runs chip_smoke.py's
+bf16 phases alone: the bf16 instances against their plain versions
+(`check_bf16_kernels`), the chained path with the impl check and the bf16
+and bf16-fused paths (`training_path`), and opt-125m served in f32 and
+bf16 and yi-6b in bf16 (`run_serve_path`). Exits non-zero without a CUDA
+device or on any failed gate.
 """
 from __future__ import annotations
 
@@ -92,6 +97,7 @@ def main() -> int:
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     args = sys.argv[1:]
     names = [a for a in args if not a.startswith("--")] \
         or ["attacked", "fo-desync"]
@@ -105,6 +111,25 @@ def main() -> int:
         timeout=60, check=True).stdout.strip(), flush=True)
     print(f"kernel build: {build.build():.1f} s", flush=True)
     opt = get_arch("opt-125m")
+    if "bf16" in names:
+        names.remove("bf16")
+        t0 = time.perf_counter()
+        for row in cs.check_bf16_kernels(torch, dev):
+            print(row, flush=True)
+        cs.release_device_memory(torch)
+        paths = []
+        for name, fused in (("chained", False), ("bf16", False),
+                            ("bf16-fused", True)):
+            paths += cs.training_path(torch, dev, name, opt, fused,
+                                      "--profile" in args)
+        summary = cs.bf16_summary(paths)
+        for arch, dtype in (("opt-125m", None), ("opt-125m", torch.bfloat16),
+                            ("yi-6b", torch.bfloat16)):
+            row = cs.run_serve_path(torch, dev, arch, False, dtype)
+            summary[row["name"]] = {k: row[k] for k in cs.BF16_SERVE_KEYS
+                                    if k in row}
+        print(cs.json.dumps({"bf16": summary}), flush=True)
+        print(f"bf16 phases: {time.perf_counter() - t0:.1f} s", flush=True)
     for name in names:
         t0 = time.perf_counter()
         print(runs[name](torch, dev, opt), flush=True)

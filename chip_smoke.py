@@ -37,7 +37,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      with the L2 flushed, with its three kernels' registers, local memory
      and shared memory, and its stateful entry at mamba2-370m's serve
      shapes (chunk 32 and chunk 48); rglru_scan also at S = 1 from h0 (a
-     decode step of recurrentgemma-2b);
+     decode step of recurrentgemma-2b); then the bf16 instances
+     (`check_bf16_kernels`): seeded_axpy_bf16 over every OPT-125M leaf,
+     a ragged leaf, an odd view, layer slices and in place, and
+     seeded_gather_bf16 over the fused path's rows, against the plain
+     bf16 versions (bitwise, or 1 bf16 ulp on at most BF16_AXPY_SHARE),
+     one bf16 θ pass beside its byte and issue bounds; flash_attention's
+     bf16 instances (16, 32, 64 and 128; 96 padded to 128) in BF16_FLASH's
+     cases within one bf16 ulp of the f32 result, two calls bitwise, no
+     local memory, timed at OPT-125M's and yi-6b's prefill shapes beside
+     SDPA in bf16 (P rounded to bf16 before P·V: another function);
+     perturbed_matmul_bf16 at the fused path's 7 projections, ragged
+     shapes and a ragged K within one bf16 ulp of the f32 result, its
+     identity probes bitwise against seeded_axpy_bf16, timed beside
+     cuBLAS bf16 on the resolved weights;
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the reduced vlm
      (internvl2-76b) and audio (whisper-medium with 32 frames) rounds, the
@@ -57,7 +70,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      internvl2-76b and whisper-medium ones (24 + 16 tokens): prefill
      logits and state, the teacher-forced logits and serve_loop's tokens,
      GPU against CPU;
-  4. eleven paths, each through `repro_torch.core.fedsim.run` at full width
+  4. thirteen paths, each through `repro_torch.core.fedsim.run` at full width
      with an eval hook, first on the loop engine, then from the same seed
      init on the scan engine (SCAN: rounds, chunk, eval cadence), the
      launch counters set to 0 just before each run and read just after;
@@ -107,6 +120,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
                   layers (DEPTH; 256 patch embeddings in front of 64
                   tokens, GQA at head_dim 128, group 8), chained; fails at
                   2.0 θ;
+       bf16     — OPT-125M in bf16 (`dtype=torch.bfloat16`), chained, as
+                  `chained`; fails at `bf16_peak_gate` of the bf16 θ
+                  (θ, two [2560, V] f32 logits, the lm head's f32 copy
+                  and half a θ: 4.61; a θ-sized copy fails it);
+       bf16-fused — the same with `fused_perturbation=True`, plus one
+                  full-width bf16 fused dual forward from the path's
+                  trained weights held within BF16_FUSED_RTOL of the
+                  same on the plain versions on the card, rounded where
+                  the kernels round (w + eps·z kept in f32), and two
+                  controls beyond that tolerance (w + eps·z rounded to
+                  bf16, as `repro`'s XLA path; f32 weights and kernels);
+     after the chained path the impl check (`run_impl_check`): 2 rounds
+     with impl="pallas" bitwise the chained run's first two, and with
+     impl="xla" no kernel launched and losses within IMPL_RTOL;
      then two scenario paths (ROADMAP A9) at the CLI's defaults,
      OPT-125M, each on the loop engine and then on the scan engine
      (SCENARIO_SCAN) from the same init, with the eavesdropper's capture
@@ -190,12 +217,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      from the plain versions on the card, or (but for the hybrid)
      teacher-forced decode logits that differ from the full forward's
      (the moe family's at a capacity factor that drops no token,
-     `no_drop`); `--profile` adds one decode step's idle share;
-  7. one `serve` JSON line, one `table2` JSON line (peak / θ of the
-     chained, sign and fo paths,
+     `no_drop`); `--profile` adds one decode step's idle share; then
+     opt-125m and yi-6b served from bf16 weights with a bf16 cache, θ
+     and the peak gate at 2 bytes a parameter (the gate plus the lm
+     head's f32 copy), every prefill attention call within one bf16 ulp
+     of the f32 result of its own inputs, the kernels' prefill logits
+     against the plain versions' and decode ≡ forward within
+     BF16_LOGITS_TOL of the logits' largest magnitude, each beside a
+     control that must lie beyond it (the plain prefill with the causal
+     mask flipped; decode with its cache position off by one);
+  7. one `serve` JSON line, one `bf16` JSON line (ms a round of the bf16
+     paths beside chained's and fused's, ms a decode step of the bf16
+     serves, peaks over θ, with the card's name and power limit), one
+     `table2` JSON line (peak / θ of the chained, sign and fo paths,
      the ZO / FO-Adam peak ratio, and OPT-125M's uplink bits a round under
      every transport), one `kernels` JSON line (launches from the loop
-     runs and the serve runs, by path), then the result line.
+     runs and the serve runs, by path; a bf16 instance's from the bf16
+     paths and serves, an f32 one's from the others), then the result
+     line.
 
 Needs one CUDA device and the repository checkout (it imports the port
 from src/); exits non-zero without either. `--profile` adds one more loop
@@ -225,7 +264,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
 # per path: rounds (both engines), rounds a scan chunk, eval cadence
-SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "mamba2": (4, 2, 2),
+SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "bf16": (8, 4, 4),
+        "bf16-fused": (4, 2, 2), "mamba2": (4, 2, 2),
         "hybrid": (3, 3, 3), "sign": (8, 4, 4), "fo": (8, 4, 4),
         "mla": (4, 2, 2), "moe": (4, 2, 2), "moe-fused": (4, 2, 2),
         "audio": (3, 2, 2), "vlm": (3, 2, 2)}
@@ -714,10 +754,11 @@ def check_seeded_axpy(torch, dev) -> list:
     torch.cuda.empty_cache()
     # the issue bound (ROADMAP B4): an axpy thread draws 4 elements, a
     # gather thread one
+    # the f32 instances (axpy_kernel<float>, gather_kernel<float>)
     sass = sass_path_instructions("seeded_axpy",
-                                  ("axpy_kernel", "gather_kernel"))
-    per_el = {"axpy_kernel": sass["axpy_kernel"] / 4,
-              "gather_kernel": float(sass["gather_kernel"])}
+                                  ("axpy_kernelIfE", "gather_kernelIfE"))
+    per_el = {"axpy_kernel": sass["axpy_kernelIfE"] / 4,
+              "gather_kernel": float(sass["gather_kernelIfE"])}
     issue = {"axpy_kernel": issue_bound_ms(torch, per_el["axpy_kernel"],
                                            n_total),
              "gather_kernel": issue_bound_ms(torch, per_el["gather_kernel"],
@@ -1493,6 +1534,364 @@ def check_rglru_scan(torch, dev) -> dict:
             "decode_step": step}
 
 
+# ---------------------------------------------------------------------------
+# bf16 (ROADMAP A12's first part)
+# ---------------------------------------------------------------------------
+
+BF16_FLASH = {  # (q, k/v, causal, window) the bf16 instances are held on
+    "OPT-125M train": ((40, 12, 64, 64), (40, 12, 64, 64), True, None),
+    "yi-6b prefill": ((4, 32, 32, 128), (4, 4, 32, 128), True, None),
+    "GQA window Sq<Skv": ((2, 8, 48, 64), (2, 2, 80, 64), True, 32),
+    "Skv over tiles": ((2, 12, 37, 64), (2, 4, 300, 64), True, 64),
+    "head_dim 32 non-causal": ((3, 4, 150, 32), (3, 4, 150, 32), False, None),
+    "head_dim 16": ((3, 4, 33, 16), (3, 4, 33, 16), False, None),
+    "128 ragged": ((2, 4, 37, 128), (2, 4, 37, 128), True, None),
+    "128 over 300 keys": ((2, 4, 70, 128), (2, 2, 300, 128), True, None),
+    "128 window 1": ((2, 4, 64, 128), (2, 4, 64, 128), True, 1),
+    "128 one query": ((2, 10, 1, 128), (2, 1, 70, 128), True, None),
+    "96 padded to 128": ((2, 4, 37, 96), (2, 4, 37, 96), True, None),
+}
+BF16_PATHS = ("bf16", "bf16-fused")
+BF16_SERVE_ARCHS = ("opt-125m", "yi-6b")
+# a bf16 serve's keys in the `bf16` JSON line: times, peaks, and each
+# logits check's reading beside its control
+BF16_SERVE_KEYS = ("prefill_ms", "decode_ms", "peak_theta", "theta_mb",
+                   "attention_ulp", "plain_rel_err", "plain_control_rel",
+                   "decode_vs_forward_rel", "decode_control_rel")
+# at most this share of a bf16 seeded_axpy / gather pass may differ from
+# the plain version, by 1 bf16 ulp: z agrees to a few f32 ulp, which moves
+# the rounding of w + scale·z only where it sits that close to a bf16
+# midpoint (bitwise expected: the card's plain z is the kernel's)
+BF16_AXPY_SHARE = 1e-5
+# decode ≡ forward and the kernels' prefill against the plain versions in
+# bf16, as a share of the logits' largest magnitude: each attention call
+# is within one bf16 ulp of its f32 result (`kernels_checked`), but the two
+# sides round other sums in other orders, and each later bf16 rounding
+# carries a flip up to a whole ulp. On the H100 they read 1.12e-2 to
+# 1.78e-2 (opt-125m, yi-6b); the controls, the causal mask flipped and
+# decode's cache position off by one, 0.191 to 1.25
+BF16_LOGITS_TOL = 0.05
+# the bf16-fused path's dual forward from its trained weights against the
+# plain versions rounded where the kernels round: each kernel call is
+# within one bf16 ulp of its f32 result, but an f32 sum's order that flips
+# one bf16 rounding is carried up to a whole ulp by every later rounding,
+# and the trained weights amplify it (losses 32-44): 6.96e-3 on the H100,
+# where the controls read 2.24e-2 (w + eps·z rounded to bf16) and 5.37e-2
+# (f32 throughout)
+BF16_FUSED_RTOL = 1.2e-2
+# the impl="xla" check: the chained f32 round on the plain versions against
+# the kernels' (attention within its 1e-5 gate, the axpys bitwise)
+IMPL_ROUNDS = 2
+IMPL_RTOL = 1e-4
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def within_bf16_ulp(torch, got, ref, what: str) -> float:
+    """A bf16 result against the f32 value it rounds: within one bf16 ulp
+    of |ref|, or where a sum cancels toward zero of max|ref| / 256 (the
+    f32 terms are as large as the largest outputs). Returns the largest
+    error in those ulps; raises above 1."""
+    torch.cuda.synchronize()
+    ref = ref.float()
+    tol = bf16_ulp(torch, torch.clamp_min(ref.abs(),
+                                          float(ref.abs().max()) / 256))
+    worst = float(((got.float() - ref).abs() / tol).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst:.3f} bf16 ulp from the f32 "
+                             "result")
+    return worst
+
+
+def bf16_axpy_match(torch, got, want, what: str) -> tuple:
+    """Bitwise, or 1 bf16 ulp apart on at most BF16_AXPY_SHARE of the
+    elements; returns the share that differs and the largest |got − want|."""
+    torch.cuda.synchronize()
+    differ = got != want
+    share = float(differ.float().mean())
+    if share == 0.0:
+        return 0.0, 0.0
+    gap = (got.float() - want.float()).abs()[differ]
+    if share > BF16_AXPY_SHARE or bool(
+            (gap > bf16_ulp(torch, want[differ])).any()):
+        raise AssertionError(f"{what}: {share:.3e} of the elements differ "
+                             f"(max {float(gap.max())})")
+    return share, float(gap.max())
+
+
+def check_bf16_kernels(torch, dev) -> list:
+    """Each bf16 instance against its plain version on the card at the bf16
+    paths' shapes, with the stated gates, then timed beside the plain
+    version, a library call and its bound. seeded_axpy_bf16 and
+    seeded_gather_bf16 against the plain bf16 version (BF16_AXPY_SHARE);
+    flash_attention's bf16 instances within one bf16 ulp of the f32 result
+    (the plain version on the same inputs widened), no local memory, two
+    calls bitwise; perturbed_matmul_bf16 within one bf16 ulp of the f32
+    result (w + eps·z in f32, as the kernel), its identity probe bitwise
+    against seeded_axpy_bf16."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import zo
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import perturbed_matmul as pmm
+    from repro_torch.kernels import seeded_axpy as sa
+    from repro_torch.models import registry
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(30)
+    seed_t = lambda v: sa.seed_tensor(v, dev)  # noqa: E731
+    scale = torch.tensor(-3e-3, dtype=torch.float32, device=dev)
+    cfg = get_arch("opt-125m")
+    rows = []
+
+    # seeded_axpy_bf16: every OPT-125M leaf shape, a ragged leaf, a view
+    # at an odd element (the scalar path), layer slices, in place
+    shapes = list(registry.shapes(cfg)) + [(1_000_003,)]
+    worst = err = 0.0
+    for i, shape in enumerate(shapes):
+        w = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        seed = zo.leaf_seed(0xB16, i)
+        got = sa.seeded_axpy_cuda(w, seed_t(seed), scale, torch.empty_like(w))
+        want = sa.seeded_axpy_plain(w, seed, scale)
+        share, gap = bf16_axpy_match(torch, got, want,
+                                     f"seeded_axpy_bf16 {shape}")
+        worst, err = max(worst, share), max(err, gap)
+        if len(shape) == 3:
+            off = shape[1] * shape[2]
+            sl = sa.seeded_axpy_cuda(w[1], seed_t(seed), scale,
+                                     torch.empty_like(w[1]), off)
+            require_equal(torch, sl, got[1], f"seeded_axpy_bf16 {shape} "
+                          "layer slice")
+        sa.seeded_axpy_cuda(w, seed_t(seed), scale, w)
+        require_equal(torch, w, got, f"seeded_axpy_bf16 {shape} in place")
+    w = torch.randn(4097, generator=gen, device=dev).to(bf16)[1:]
+    share, gap = bf16_axpy_match(
+        torch, sa.seeded_axpy_cuda(w, seed_t(3), scale, torch.empty_like(w),
+                                   17),
+        sa.seeded_axpy_plain(w, 3, scale, 17), "seeded_axpy_bf16 odd view")
+    worst, err = max(worst, share), max(err, gap)
+    # one bf16 θ pass over full OPT-125M, as `zo.perturb` runs it
+    params = registry.init_params(cfg, prng.key(0), dev, bf16)
+    leaves = [t for _, t in zo.flatten(params)]
+    n_total = sum(t.numel() for t in leaves)
+    row_seeds = zo.seed_row(1234, len(leaves), dev)
+    ms = time_ms(torch, lambda: zo.perturb(params, row_seeds, scale,
+                                           inplace=True))
+    plain_ms = time_ms(torch, lambda: [sa.seeded_axpy_plain(t, 9, scale)
+                                       for t in leaves], warmup=1, reps=3)
+    b_ms, b_by = bound_ms(4.0 * n_total, 12.0 * n_total)
+    del params, leaves
+    torch.cuda.empty_cache()
+    sass = sass_path_instructions("seeded_axpy", (
+        "axpy_kernelI13__nv_bfloat16", "gather_kernelI13__nv_bfloat16"))
+    per_el = sass["axpy_kernelI13__nv_bfloat16"] / 4
+    issue = issue_bound_ms(torch, per_el, n_total)
+    print(f"seeded_axpy_bf16: {len(shapes)} shapes, an odd view, layer "
+          f"slices and in place; {worst:.3e} of the elements differ from "
+          f"plain (gate {BF16_AXPY_SHARE}), by at most {err}; one bf16 "
+          f"theta pass {ms:.4f} ms (plain {plain_ms:.4f}), byte bound {b_ms:.4f} ms, "
+          f"issue bound {issue:.4f} ms ({per_el:.1f} SASS instructions an "
+          f"element, {sass} a thread)", flush=True)
+    rows.append({"name": "seeded_axpy_bf16", "counter": "seeded_axpy",
+                 "dtype": "bfloat16", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
+                 "replaces": "src/repro/kernels/seeded_axpy.py:83",
+                 "max_abs_err": err, "share_differ": worst, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(b_ms, issue),
+                 "bound_by": "issue" if issue > b_ms else b_by,
+                 "byte_bound_ms": b_ms, "issue_bound_ms": issue,
+                 "library_ms": None,
+                 "sass_instructions_per_element": per_el,
+                 "shape": f"one bf16 θ pass, {n_total} elements in 12 "
+                          "leaves"})
+
+    # seeded_gather_bf16: the fused path's [40, 64] rows of the bf16 table
+    table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                        device=dev).to(bf16)
+    tokens = torch.randint(0, cfg.vocab_size, (40, 64), generator=gen,
+                           device=dev)
+    eps = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+    got = sa.seeded_gather_cuda(table, tokens, seed_t(4321), eps)
+    g_share, g_err = bf16_axpy_match(torch, got, sa.seeded_gather_plain(
+        table, tokens, 4321, eps), "seeded_gather_bf16")
+    whole = sa.seeded_axpy_cuda(table, seed_t(4321), eps,
+                                torch.empty_like(table))
+    require_equal(torch, got, whole[tokens], "seeded_gather_bf16 vs rows")
+    one = seed_t(1)
+    g_ms = time_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens, one,
+                                                        eps))
+    g_plain = time_ms(torch, lambda: sa.seeded_gather_plain(table, tokens, 1,
+                                                            eps))
+    g_dev = device_ms(torch, lambda: sa.seeded_gather_cuda(table, tokens,
+                                                           one, eps))
+    n_el = tokens.numel() * cfg.d_model
+    gb_ms, gb_by = bound_ms(4.0 * n_el + 8 * tokens.numel(), 12.0 * n_el)
+    g_issue = issue_bound_ms(torch, float(
+        sass["gather_kernelI13__nv_bfloat16"]), n_el)
+    print(f"seeded_gather_bf16: [40,64] rows, {g_share:.3e} differ from "
+          f"plain (by at most {g_err}), bitwise the whole-table pass's "
+          f"rows; {g_ms:.4f} ms, device time {g_dev:.4f} ms (plain {g_plain:.4f}), byte bound "
+          f"{gb_ms:.6f} ms, issue bound {g_issue:.6f} ms", flush=True)
+    rows.append({"name": "seeded_gather_bf16", "counter": "seeded_gather",
+                 "dtype": "bfloat16", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/seeded_axpy.cu",
+                 "replaces": "src/repro/kernels/seeded_axpy.py:83",
+                 "max_abs_err": g_err, "share_differ": g_share, "ms": g_ms,
+                 "device_ms": g_dev, "plain_ms": g_plain,
+                 "bound_ms": max(gb_ms, g_issue),
+                 "bound_by": "issue" if g_issue > gb_ms else gb_by,
+                 "byte_bound_ms": gb_ms, "issue_bound_ms": g_issue,
+                 "library_ms": None,
+                 "shape": "[40,64] tokens of a bf16 [50272,768] table"})
+    del table, whole, got
+
+    # flash_attention's bf16 instances
+    attrs = {d: fa.kernel_attributes(d, bf16) for d in (64, 128)}
+    for d, a in attrs.items():
+        print(f"flash_attention bf16 head_dim {d} kernel: {a}", flush=True)
+        if a["local_bytes"] != 0:
+            raise AssertionError(f"flash_attention bf16 head_dim {d}: "
+                                 f"{a['local_bytes']} bytes of local memory")
+    f_worst = 0.0
+    timed = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, (qs, ks, causal, window) in BF16_FLASH.items():
+        q = torch.randn(qs, generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn(ks, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        got = fa.flash_attention_cuda(q, k, v, causal, window)
+        if got.dtype != bf16:
+            raise AssertionError(f"flash_attention bf16 {label}: {got.dtype}")
+        ref = fa.attention_plain(q.float(), k.float(), v.float(), causal,
+                                 window)
+        f_worst = max(f_worst, within_bf16_ulp(
+            torch, got, ref, f"flash_attention bf16 {label}"))
+        if not torch.equal(got, fa.flash_attention_cuda(q, k, v, causal,
+                                                        window)):
+            raise AssertionError(f"flash_attention bf16 {label}: two calls "
+                                 "differ")
+        if label not in ("OPT-125M train", "yi-6b prefill"):
+            continue
+        b, h, s, d = qs
+        row = {"shape": f"q [{','.join(map(str, qs))}] k/v "
+                        f"[{','.join(map(str, ks))}] causal"}
+        row["ms"] = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v))
+        row["plain_ms"] = time_ms(torch, lambda: fa.attention_plain(q, k, v))
+        row["device_ms"] = device_ms(torch, lambda: fa.flash_attention_cuda(
+            q, k, v))
+        gqa = dict(enable_gqa=True) if ks[1] != qs[1] else {}
+        row["library_ms"] = time_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=True, **gqa))
+        row["library_device_ms"] = device_ms(torch, lambda: sdpa(
+            q, k, v, is_causal=True, **gqa))
+        pairs = b * h * fa.visible_pairs(s, ks[2])
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2.0 * (2 * q.numel() + 2 * k.numel()), pairs * (4 * d + 3))
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        print(f"flash_attention bf16 {label} {row['shape']}: "
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA in "
+              f"bf16 {row['library_ms']:.4f}: P rounded to bf16 before P·V, "
+              f"another function); device time {row['device_ms']:.4f} "
+              f"(SDPA {row['library_device_ms']:.4f}); bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
+              f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
+        timed[label] = row
+    print(f"flash_attention bf16: {len(BF16_FLASH)} cases within "
+          f"{f_worst:.3f} bf16 ulp of the f32 result, two calls bitwise",
+          flush=True)
+    main = timed["OPT-125M train"]
+    rows.append({"name": "flash_attention_bf16", "counter": "flash_attention",
+                 "dtype": "bfloat16", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:104",
+                 "max_abs_err": f_worst, "max_err_unit": "bf16 ulp of the "
+                 "f32 result", **{k: main[k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "device_ms", "library_device_ms", "shape")},
+                 "library": "SDPA in bf16 (P rounded to bf16 before P.V: "
+                            "another function)",
+                 "yi-6b prefill": timed["yi-6b prefill"],
+                 "kernel_attributes": attrs})
+
+    # perturbed_matmul_bf16: the fused path's 7 projections at M = 2560
+    cases = [(M_ROWS, k, n, 3 * k * n) for k, n in PMM_SHAPES]
+    cases += [(37, 200, 300, 2**32 - 7777), (M_ROWS + 37, 768, 768, 0),
+              (300, 3072, 768, 5 * 3072 * 768)]
+    p_worst = 0.0
+    for m, k, n, off in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             / math.sqrt(k)).to(bf16)
+        got = pmm.perturbed_matmul_cuda(x, w, seed_t(55), off, eps)
+        ref = pmm.perturbed_matmul_plain(x.float(), w.float(), 55, off, eps)
+        p_worst = max(p_worst, within_bf16_ulp(
+            torch, got, ref, f"perturbed_matmul_bf16 [{m},{k}]x[{k},{n}]"))
+    # a ragged K: the bf16 x tile's element-by-element copies
+    x = torch.randn((130, 203), generator=gen, device=dev).to(bf16)
+    w = torch.randn((203, 130), generator=gen, device=dev).to(bf16)
+    p_worst = max(p_worst, within_bf16_ulp(
+        torch, pmm.perturbed_matmul_cuda(x, w, seed_t(8), 0, eps),
+        pmm.perturbed_matmul_plain(x.float(), w.float(), 8, 0, eps),
+        "perturbed_matmul_bf16 ragged K"))
+    for k, n, off in ((768, 768, 5 * 768 * 768), (3072, 768, 0)):
+        w = torch.randn((k, n), generator=gen, device=dev).to(bf16)
+        probe = pmm.perturbed_matmul_cuda(
+            torch.eye(k, device=dev, dtype=bf16), w, seed_t(66), off, eps)
+        require_equal(torch, probe, sa.seeded_axpy_cuda(
+            w, seed_t(66), eps, torch.empty_like(w), off),
+            f"perturbed_matmul_bf16 identity probe [{k},{n}]")
+    x = {k: torch.randn((M_ROWS, k), generator=gen, device=dev).to(bf16)
+         for k in (768, 3072)}
+    ws = [torch.randn(s, generator=gen, device=dev).to(bf16)
+          for s in PMM_LAYER]
+    s7 = seed_t(7)
+    resolved = [sa.seeded_axpy_cuda(w, s7, eps, torch.empty_like(w), 0)
+                for w in ws]
+    p_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
+        x[w.shape[0]], w, s7, 0, eps) for w in ws])
+    p_plain = time_ms(torch, lambda: [pmm.perturbed_matmul_plain(
+        x[w.shape[0]], w, 7, 0, eps) for w in ws])
+    p_lib = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
+                                    for w, r in zip(ws, resolved)])
+    p_dev = device_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
+        x[w.shape[0]], w, s7, 0, eps) for w in ws], reps=5)
+    p_lib_dev = device_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
+                                          for w, r in zip(ws, resolved)],
+                          reps=5)
+    flops = sum(2.0 * M_ROWS * k * n for k, n in PMM_LAYER)
+    n_bytes = sum(2.0 * (M_ROWS * k + k * n + M_ROWS * n)
+                  for k, n in PMM_LAYER)
+    pb_ms, pb_by = bound_ms(n_bytes, flops)
+    p_attrs = pmm.kernel_attributes(M_ROWS, 768, bf16)
+    print(f"perturbed_matmul_bf16: {len(cases) + 1} cases within "
+          f"{p_worst:.3f} bf16 ulp of the f32 result, identity probes "
+          f"bitwise against seeded_axpy_bf16; one layer's 7 at M={M_ROWS} "
+          f"{p_ms:.4f} ms (plain {p_plain:.4f}, cuBLAS bf16 on resolved w "
+          f"{p_lib:.4f}); device time {p_dev:.4f} ms (cuBLAS "
+          f"{p_lib_dev:.4f}); bound {pb_ms:.4f} ms by {pb_by} (its products "
+          f"are f32: w + eps*z is not bf16); kernel {p_attrs}", flush=True)
+    rows.append({"name": "perturbed_matmul_bf16",
+                 "counter": "perturbed_matmul", "dtype": "bfloat16",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/perturbed_matmul.cu",
+                 "replaces": "src/repro/kernels/perturbed_matmul.py:71",
+                 "max_abs_err": p_worst,
+                 "max_err_unit": "bf16 ulp of the f32 result", "ms": p_ms,
+                 "plain_ms": p_plain, "bound_ms": pb_ms, "bound_by": pb_by,
+                 "library_ms": p_lib,
+                 "library": "torch.matmul (cuBLAS bf16) on resolved w + "
+                            "eps*z in bf16",
+                 "device_ms": p_dev, "library_device_ms": p_lib_dev,
+                 "kernel_attributes": p_attrs,
+                 "shape": f"one OPT-125M layer's 7 projections at "
+                          f"M={M_ROWS}, bf16"})
+    return rows
+
+
 def pz_defaults(cfg, rounds: int, n_perturb: int = N_PERTURB,
                 fused: bool = False, mechanism: str = "analog",
                 scheme: str = "solution", wrapped: bool = False):
@@ -1730,17 +2129,19 @@ def check_small_reference(torch, dev) -> None:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(wrong_mask: bool = False):
     """The models' kernel entry points (`ops.attention`, `ops.ssd`,
     `ops.linear_recurrence`) swapped for their plain versions, on any
     device: the comparison side of a serve check. Nothing counts a
-    launch inside."""
+    launch inside. `wrong_mask` flips attention's causal mask: a wrong
+    kernel, the control reading of a check."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, rglru_scan
     saved = ops.attention, ops.ssd, ops.linear_recurrence
 
     def attention(q, k, v, *, causal=True, window=None, scale=None):
-        return fa.attention_plain(q, k, v, causal, window, scale)
+        return fa.attention_plain(q, k, v, causal != wrong_mask, window,
+                                  scale)
 
     def ssd(x, dt, a, b, c, state0=None, chunk=128, want_state=True):
         return ops._ssd_plain(x, dt, a, b, c, state0, chunk, want_state)
@@ -1753,14 +2154,72 @@ def plain_versions():
         ops.attention, ops.ssd, ops.linear_recurrence = saved
 
 
+@contextlib.contextmanager
+def kernels_checked(torch, what: str):
+    """Every `ops.attention` and `ops.perturbed_matmul` call inside also
+    held within one bf16 ulp of the f32 result of its own inputs (the
+    plain version on them widened, w + eps·z in f32, `within_bf16_ulp`);
+    yields {entry: [each call's error in those ulps]}."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import perturbed_matmul as pmm
+    saved = ops.attention, ops.perturbed_matmul
+    errs = {"attention": [], "perturbed_matmul": []}
+
+    def attention(q, k, v, *, causal=True, window=None, scale=None):
+        out = saved[0](q, k, v, causal=causal, window=window, scale=scale)
+        ref = fa.attention_plain(q.float(), k.float(), v.float(), causal,
+                                 window, scale)
+        errs["attention"].append(within_bf16_ulp(
+            torch, out, ref, f"{what} attention call "
+            f"{len(errs['attention'])}"))
+        return out
+
+    def perturbed_matmul(x, pp):
+        out = saved[1](x, pp)
+        ref = pmm.perturbed_matmul_plain(x.float(), pp.w.float(), pp.seed,
+                                         pp.off, pp.scale())
+        errs["perturbed_matmul"].append(within_bf16_ulp(
+            torch, out, ref, f"{what} perturbed_matmul call "
+            f"{len(errs['perturbed_matmul'])}"))
+        return out
+
+    ops.attention, ops.perturbed_matmul = attention, perturbed_matmul
+    try:
+        yield errs
+    finally:
+        ops.attention, ops.perturbed_matmul = saved
+
+
+def rel_err(got, want) -> float:
+    """max|got − want| / max|want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def bf16_logits_gate(what: str, reading: float, control: float) -> None:
+    """A bf16 logits check: its reading within BF16_LOGITS_TOL, and its
+    control reading (the same comparison against a wrong computation)
+    beyond it, so that the gate tells the two apart."""
+    if not reading <= BF16_LOGITS_TOL:
+        raise AssertionError(f"{what}: {reading:.3e} of the largest logit "
+                             f"(tol {BF16_LOGITS_TOL})")
+    if not control > BF16_LOGITS_TOL:
+        raise AssertionError(f"{what}: the control reads {control:.3e}, "
+                             f"within the tolerance {BF16_LOGITS_TOL}: the "
+                             "check cannot tell a wrong result apart")
+
+
 def tokens_on(torch, tokens, dev):
     return torch.as_tensor(tokens, device=dev).long()
 
 
-def teacher_forced(torch, cfg, params, seq, s: int):
+def teacher_forced(torch, cfg, params, seq, s: int, shift: int = 0):
     """Prefill of seq[:, :s] (behind the family's zero frontend input, as
     serve_loop's), then decode steps fed seq[:, s:-1] one token at a time:
-    the logits [B, n − s, V] that predict positions s .. n − 1."""
+    the logits [B, n − s, V] that predict positions s .. n − 1. `shift`
+    moves each decode step's cache position by that many (a wrong cache
+    slot and position: the control reading of decode ≡ forward)."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
     mod = registry.get_module(cfg)
@@ -1769,7 +2228,8 @@ def teacher_forced(torch, cfg, params, seq, s: int):
     rows = [logits[:, -1]]
     for i in range(n - s - 1):
         logits, cache = mod.decode_step(params, cfg, cache,
-                                        seq[:, s + i:s + i + 1], pos + i)
+                                        seq[:, s + i:s + i + 1],
+                                        pos + i + shift)
         rows.append(logits[:, -1])
     return torch.stack(rows, dim=1)
 
@@ -1959,7 +2419,8 @@ def serve_peak_gate(cfg) -> float:
     return SERVE_PEAK_THETA + cross / (4 * cfg.param_count())
 
 
-def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
+def run_serve_path(torch, dev, arch: str, profiling: bool,
+                   dtype=None) -> dict:
     """One architecture served at full width through `serve.serve_loop` at
     the CLI's defaults from seed-0 weights, after a warm-up call (a prefill
     and one step): prefill ms, decode ms a step (the median of the
@@ -1973,7 +2434,10 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     no token, a capacity-bound forward does; the vlm and audio families
     behind the same zero patch embeddings or frames). yi-6b also runs once
     through `serve.main`. Configs in DEPTH run at full width with their
-    depth cut."""
+    depth cut. In bf16 (`dtype`) the weights are bf16, θ and the peak gate
+    count 2 bytes a parameter (the gate also the lm head's f32 copy that
+    `unembed` makes), and the kernels-vs-plain prefill and decode ≡
+    forward hold to BF16_LOGITS_TOL of the largest magnitude."""
     import numpy as np
 
     from repro_torch import prng
@@ -1981,9 +2445,12 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     from repro_torch.models import registry
 
     cfg = full_width(arch)
-    theta = 4 * cfg.param_count()
-    row = {"name": f"serve {arch}"}
-    if arch == "yi-6b":
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    theta = theta_of(torch, cfg, dtype)
+    row = {"name": f"serve {arch}" + (" bf16" if bf16 else ""),
+           "dtype": str(dtype)[6:]}
+    if arch == "yi-6b" and not bf16:
         t0 = time.perf_counter()
         cli = serve.main(["--arch", arch, "--device", "cuda"])
         row["cli_s"] = time.perf_counter() - t0
@@ -1995,7 +2462,7 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
         release_device_memory(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = registry.init_params(cfg, prng.key(0), dev)
+    params = registry.init_params(cfg, prng.key(0), dev, dtype)
     torch.cuda.synchronize()
     row["init_s"] = time.perf_counter() - t0
     tokens = np.random.default_rng(0).integers(
@@ -2028,7 +2495,8 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     if launches != expected:
         raise AssertionError(f"serve {arch}: launches {launches}, expected "
                              f"{expected}")
-    row["peak_gate_theta"] = serve_peak_gate(cfg)
+    row["peak_gate_theta"] = serve_peak_gate(cfg) + (
+        4 * cfg.vocab_size * cfg.d_model / theta if bf16 else 0.0)
     if not row["peak_theta"] <= row["peak_gate_theta"]:
         raise AssertionError(f"serve {arch}: peak {row['peak_theta']:.3f} x "
                              f"theta, want <= {row['peak_gate_theta']:.3f}")
@@ -2038,18 +2506,30 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
         raise AssertionError(f"serve {arch}: output {out}")
 
     prompt = tokens_on(torch, tokens, dev)
-    kernels = serve.start(cfg, params, prompt, 0)[:2]
+    with (kernels_checked(torch, row["name"]) if bf16
+          else contextlib.nullcontext()) as ulps:
+        kernels = serve.start(cfg, params, prompt, 0)[:2]
     before = read_launches()
     with plain_versions():
         plain = serve.start(cfg, params, prompt, 0)[:2]
+    if bf16:
+        row["attention_ulp"] = max(ulps["attention"])
+        with plain_versions(wrong_mask=True):
+            wrong = serve.start(cfg, params, prompt, 0)[0]
+        row["plain_control_rel"] = rel_err(kernels[0], wrong)
+        del wrong
     if read_launches() != before:
         raise AssertionError(f"serve {arch}: the plain prefill launched "
                              "kernels")
+    plain_tol = BF16_LOGITS_TOL if bf16 else SERVE_PLAIN_TOL
     row["plain_rel_err"] = max(
-        leaves_rel_err(torch, kernels[0], plain[0], f"serve {arch} prefill "
-                       "logits, kernels vs plain", SERVE_PLAIN_TOL),
-        leaves_rel_err(torch, kernels[1], plain[1], f"serve {arch} prefill "
-                       "state, kernels vs plain", SERVE_PLAIN_TOL))
+        leaves_rel_err(torch, kernels[0], plain[0], f"{row['name']} prefill "
+                       "logits, kernels vs plain", plain_tol),
+        leaves_rel_err(torch, kernels[1], plain[1], f"{row['name']} prefill "
+                       "state, kernels vs plain", plain_tol))
+    if bf16:
+        bf16_logits_gate(f"{row['name']} prefill, kernels vs plain",
+                         row["plain_rel_err"], row["plain_control_rel"])
     del kernels, plain
     if cfg.family != "hybrid":
         seq = tokens_on(torch, out, dev)
@@ -2057,7 +2537,14 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
         fw = forward_logits(no_drop(cfg), params, seq)[
             :, SERVE_PROMPT - 1:-1]
         row["decode_vs_forward_err"] = float((tf - fw).abs().max())
-        if not torch.allclose(tf, fw, **DECODE_TOL):
+        if bf16:
+            row["decode_vs_forward_rel"] = rel_err(tf, fw)
+            row["decode_control_rel"] = rel_err(teacher_forced(
+                torch, no_drop(cfg), params, seq, SERVE_PROMPT, shift=1), fw)
+            bf16_logits_gate(f"{row['name']} teacher-forced decode vs "
+                             "forward", row["decode_vs_forward_rel"],
+                             row["decode_control_rel"])
+        elif not torch.allclose(tf, fw, **DECODE_TOL):
             raise AssertionError(f"serve {arch}: teacher-forced decode vs "
                                  "forward logits, max err "
                                  f"{row['decode_vs_forward_err']} (rtol/atol "
@@ -2066,7 +2553,7 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
     if profiling:
         row["decode_idle"] = profile_decode_step(torch, cfg, params, tokens,
                                                  dev)
-    print(f"serve {arch}{depth_note(cfg)}: weight init on the card "
+    print(f"{row['name']}{depth_note(cfg)}: weight init on the card "
           f"{row['init_s']:.3f} s; "
           f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, gen {SERVE_GEN}: "
           f"prefill {row['prefill_ms']:.3f} ms, decode {row['decode_ms']:.3f}"
@@ -2080,8 +2567,16 @@ def run_serve_path(torch, dev, arch: str, profiling: bool) -> dict:
           f"rel err {row['plain_rel_err']:.3e}"
           + (f"; decode vs forward max err {row['decode_vs_forward_err']:.3e}"
              if "decode_vs_forward_err" in row else "")
+          + (f"; bf16: every prefill attention call within "
+             f"{row['attention_ulp']:.3f} bf16 ulp of its f32 result, "
+             f"logits' share of the largest: kernels vs plain "
+             f"{row['plain_rel_err']:.3e} (control, causal mask flipped: "
+             f"{row['plain_control_rel']:.3e}), decode vs forward "
+             f"{row['decode_vs_forward_rel']:.3e} (control, cache position "
+             f"off by one: {row['decode_control_rel']:.3e}), tol "
+             f"{BF16_LOGITS_TOL}" if bf16 else "")
           + f"; sample row {out[0, SERVE_PROMPT:].tolist()}", flush=True)
-    print(f"serve {arch}: launches {launches}", flush=True)
+    print(f"{row['name']}: launches {launches}", flush=True)
     del params
     release_device_memory(torch)
     return row
@@ -2273,14 +2768,15 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
 
     rounds, _, every = scan
     pz, pipe = path_setup(name, cfg, fused)
-    theta_bytes = 4 * cfg.param_count()
+    dtype = path_dtype(torch, name)
+    theta_bytes = theta_of(torch, cfg, dtype)
     pre, post, seen = Stamp(torch), Stamp(torch), Payloads()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    res = fedsim.run(cfg, pz, pipe, rounds, device=dev,
+    res = fedsim.run(cfg, pz, pipe, rounds, device=dev, dtype=dtype,
                      hooks=[pre, fedsim.EvalHook(every), post, seen])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2313,15 +2809,41 @@ def run_path(torch, dev, name: str, cfg, fused: bool, scan: tuple) -> dict:
     reserved = torch.cuda.max_memory_reserved()
     print(f"path {name}: peak device memory {peak / 1e6:.1f} MB = "
           f"{peak / theta_bytes:.2f} x theta ({theta_bytes / 1e6:.1f} MB "
-          f"f32); max reserved {reserved / 1e6:.1f} MB = "
+          f"{str(dtype)[6:]}); max reserved {reserved / 1e6:.1f} MB = "
           f"{reserved / theta_bytes:.2f} x theta", flush=True)
     print(f"path {name}: launches {launches}", flush=True)
     return {"name": name, "cfg": cfg, "pz": pz, "pipe": pipe, "res": res,
-            "params": res.params, "launches": launches,
+            "params": res.params, "launches": launches, "dtype": dtype,
             "peak_theta": peak / theta_bytes, "ms_per_round": steady * 1e3}
 
 
-def check_peak(name: str, peak_theta: float) -> None:
+def path_dtype(torch, name: str):
+    """The parameters' dtype of a path: bf16 for BF16_PATHS."""
+    return torch.bfloat16 if name in BF16_PATHS else torch.float32
+
+
+def theta_of(torch, cfg, dtype) -> int:
+    """θ's bytes: every parameter at `dtype`'s element size."""
+    return torch.empty((), dtype=dtype).element_size() * cfg.param_count()
+
+
+def bf16_peak_gate(cfg, rows: int = M_ROWS) -> float:
+    """The bf16 training paths' peak over a bf16 θ, reckoned from their
+    structure: θ, the [rows, V] f32 logits twice (the logits and their
+    log-softmax's work), the lm head's [V, D] f32 copy (`unembed` widens
+    the bf16 weights for its f32 logits), and half a θ for the bf16
+    activations and the graph pool: 4.61 for OPT-125M. A θ-sized copy
+    fails it: the paths' peaks (3.80 θ on the loop engine, 3.98 on scan,
+    on an H100) plus one θ exceed it."""
+    theta = 2 * cfg.param_count()
+    head = 4 * cfg.vocab_size * cfg.d_model
+    return 1.5 + (2 * 4 * rows * cfg.vocab_size + head) / theta
+
+
+def check_peak(name: str, peak_theta: float, cfg=None) -> None:
+    if name in BF16_PATHS and not peak_theta < bf16_peak_gate(cfg):
+        raise AssertionError(f"{name} path peak {peak_theta:.2f} x theta, "
+                             f"want < {bf16_peak_gate(cfg):.2f}")
     if name == "audio" and not peak_theta < AUDIO_PEAK_THETA:
         # whisper-medium: θ (3.84 GB) + the eval's encoder over 64 × 1500
         # frames (its MLP's three [96000, 4096] f32 transients, 1.2 θ) and
@@ -2367,7 +2889,7 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
     name, cfg, pz, pipe = loop["name"], loop["cfg"], loop["pz"], loop["pipe"]
     rounds, chunk, every = scan
     fused = pz.fused_perturbation
-    theta_bytes = 4 * cfg.param_count()
+    theta_bytes = theta_of(torch, cfg, loop["dtype"])
     pre, post, seen = Stamp(torch), Stamp(torch), Payloads()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2376,7 +2898,7 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
     t0 = time.perf_counter()
     res = fedsim.run(cfg, pz, pipe, rounds, engine="scan", chunk_rounds=chunk,
                      hooks=[pre, fedsim.EvalHook(every), post, seen],
-                     device=dev)
+                     device=dev, dtype=loop["dtype"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, replays = read_launches(), engine.replays
@@ -2417,7 +2939,7 @@ def run_scan_path(torch, dev, loop: dict, scan: tuple, final) -> dict:
     if replays != rounds - len(bounds):
         raise AssertionError(f"{name} scan: {replays} replays, want "
                              f"{rounds - len(bounds)}")
-    check_peak(name, peak / theta_bytes)
+    check_peak(name, peak / theta_bytes, cfg)
     steady = None
     if len(bounds) > 1:
         spans = [pre.times[c] - post.times[c - 1]
@@ -2451,7 +2973,8 @@ def time_scan_chunks(torch, dev, loop: dict, params, rounds: int,
     stamp = Stamp(torch)
     torch.cuda.synchronize()
     fedsim.run(loop["cfg"], loop["pz"], loop["pipe"], rounds, engine="scan",
-               chunk_rounds=chunk, params=params, hooks=[stamp], device=dev)
+               chunk_rounds=chunk, params=params, hooks=[stamp], device=dev,
+               dtype=loop["dtype"])
     bounds = engine.chunk_boundaries(0, rounds, chunk)
     return (stamp.times[-1] - stamp.times[0]) / (rounds - bounds[0][1])
 
@@ -2563,6 +3086,128 @@ def check_fused_against_fresh(torch, dev, path: dict) -> None:
     print(f"fused vs fresh dual forward at full width: max rel diff "
           f"{float(((got - want) / want).abs().max()):.3e}"
           f" (rtol 1e-4){note}", flush=True)
+
+
+@contextlib.contextmanager
+def f32_perturbed_weights():
+    """The plain perturbed_matmul handed w widened to f32: w + eps·z built
+    and kept in f32, as the kernel keeps it, the product rounded once to
+    x's dtype."""
+    from repro_torch.kernels import perturbed_matmul as pmm
+    saved = pmm.perturbed_matmul_plain
+
+    def plain(x, w, seed, off, eps):
+        return saved(x, w.float(), seed, off, eps)
+
+    pmm.perturbed_matmul_plain = plain
+    try:
+        yield
+    finally:
+        pmm.perturbed_matmul_plain = saved
+
+
+def check_fused_against_plain(torch, dev, path: dict) -> dict:
+    """The bf16-fused path's dual forward at full width, from its trained
+    weights and round 0's batch, against the same on the plain versions on
+    the card rounded where the kernels round (impl "xla" with
+    `f32_perturbed_weights`): losses within BF16_FUSED_RTOL. Fused ≡ fresh
+    cannot hold bitwise in bf16, since fresh rounds w + eps·z to bf16 and
+    fused does not, in `repro` too. Two controls from the same weights must
+    lie beyond the tolerance, so that the check tells them apart: the
+    plain versions as `repro`'s XLA path runs them (w + eps·z rounded to
+    bf16, which the kernel must not do) and the f32 fused dual forward on
+    f32 copies of the weights (no bf16 rounding at all). Each kernel call
+    of the dual forward is also held within one bf16 ulp of the f32 result
+    of its own inputs (`kernels_checked`), so what the losses' gap shows
+    is the two forwards' rounding carried through the layers. The plain
+    forwards launch no kernel. Returns the readings."""
+    from torch.utils import _pytree
+
+    from repro_torch.core import engine, pairzero, zo
+    from repro_torch.kernels import ops
+    cfg, params = path["cfg"], path["params"]
+    batch = {k: v[0] for k, v in engine.stack_batches(path["pipe"], 0, 1,
+                                                       dev).items()}
+    loss_fn = pairzero.make_loss_fn(cfg)
+    seeds = zo.seed_row(zo.perturb_seed(1234, 0), len(zo.flatten(params)),
+                        dev)
+
+    def dual(weights, impl, widen=False):
+        before = read_launches()
+        with ops.use_impl(impl), (f32_perturbed_weights() if widen
+                                  else contextlib.nullcontext()):
+            lp, lm, _ = zo.dual_forward(lambda p: loss_fn(p, batch),
+                                        weights, seeds, 1e-3, mode="fused")
+        if impl == "xla" and read_launches() != before:
+            raise AssertionError("bf16-fused: the plain dual forward "
+                                 "launched kernels")
+        return torch.stack([lp, lm]).float().cpu()
+
+    def rel(a, b):
+        return float(((a - b) / b).abs().max())
+
+    with kernels_checked(torch, "bf16-fused dual forward") as ulps:
+        got = dual(params, None)
+    out = {"calls": {k: len(v) for k, v in ulps.items()},
+           "call_ulp": max(max(v) for v in ulps.values()),
+           "rel": rel(got, dual(params, "xla", widen=True)),
+           "control_rounded": rel(got, dual(params, "xla")),
+           "control_f32": rel(got, dual(_pytree.tree_map(
+               lambda t: t.float(), params), None))}
+    print(f"bf16-fused dual forward at full width from the trained weights "
+          f"(losses {got.tolist()}): each of its {out['calls']} kernel calls "
+          f"within {out['call_ulp']:.3f} bf16 ulp of the f32 result of its "
+          f"own inputs; max rel diff {out['rel']:.3e} against "
+          f"the plain versions with w + eps*z in f32 (rtol "
+          f"{BF16_FUSED_RTOL}); controls: w + eps*z rounded to bf16 "
+          f"{out['control_rounded']:.3e}, f32 weights and kernels "
+          f"{out['control_f32']:.3e}", flush=True)
+    if not out["rel"] <= BF16_FUSED_RTOL:
+        raise AssertionError(f"bf16-fused dual forward: {out['rel']:.3e} "
+                             "from the plain versions")
+    if not min(out["control_rounded"], out["control_f32"]) > BF16_FUSED_RTOL:
+        raise AssertionError("bf16-fused dual forward: a control lies within "
+                             f"rtol {BF16_FUSED_RTOL}: the check cannot tell "
+                             "it apart")
+    return out
+
+
+def run_impl_check(torch, dev, path: dict) -> dict:
+    """`impl=` on the card, chained OPT-125M (f32) for IMPL_ROUNDS rounds
+    from the chained path's seed init: "pallas" launches the kernels and
+    repeats the chained loop run's first rounds bitwise; "xla" launches no
+    kernel and its losses lie within IMPL_RTOL of them."""
+    from repro_torch.core import fedsim
+    cfg, pz, pipe = path["cfg"], path["pz"], path["pipe"]
+    want = path["res"].losses[:IMPL_ROUNDS]
+    out = {"name": "impl"}
+    for impl in ("pallas", "xla"):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fedsim.run(cfg, pz, pipe, IMPL_ROUNDS, device=dev, impl=impl)
+        torch.cuda.synchronize()
+        out[f"{impl}_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        if impl == "pallas":
+            expected = expected_launches(cfg, IMPL_ROUNDS, False)
+            if launches != expected or res.losses != want:
+                raise AssertionError(f"impl pallas: launches {launches} "
+                                     f"(want {expected}), losses "
+                                     f"{res.losses} (want {want})")
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, want))
+            if any(launches.values()) or not rel <= IMPL_RTOL:
+                raise AssertionError(f"impl xla: launches {launches}, losses "
+                                     f"{res.losses} vs the kernels' {want}")
+            out["xla_rel_err"] = rel
+        del res
+    out["launches"] = dict.fromkeys(counters(), 0)
+    print(f"impl on the card, chained OPT-125M, {IMPL_ROUNDS} rounds: "
+          f"'pallas' bitwise the kernel run ({out['pallas_s']:.2f} s), 'xla' "
+          f"no kernel launched, losses within {out['xla_rel_err']:.3e} "
+          f"(rtol {IMPL_RTOL}) ({out['xla_s']:.2f} s)", flush=True)
+    return out
 
 
 class StartProfile:
@@ -3666,6 +4311,71 @@ def run_observed_path(torch, dev, cfg) -> dict:
     return out
 
 
+def training_path(torch, dev, name: str, cfg, fused: bool,
+                  profiling: bool) -> list:
+    """One phase-4 training path: the loop run and its gates, then the scan
+    run from the same seed init, each freed before the next; the chained
+    path also runs the impl check. Returns the rows for the kernels line
+    (the path's, and the impl check's)."""
+    out = []
+    scan = SCAN[name]
+    path = run_path(torch, dev, name, cfg, fused, scan)
+    check_peak(name, path["peak_theta"], cfg)
+    if name == "bf16-fused":
+        fused_check = check_fused_against_plain(torch, dev, path)
+    elif fused:
+        check_fused_against_fresh(torch, dev, path)
+    if name == "chained":
+        out.append(run_impl_check(torch, dev, path))
+    # the loop run's final weights (and Adam moments) on the host (the
+    # hybrid's as checksums), taken before the profiled round moves
+    # them; then freed, so the scan run's peak is its own
+    final = final_state(torch, path["res"], name)
+    if profiling:
+        profile_run(torch, path, dev, "one round (loop engine)",
+                    rounds=1, params=path["params"])
+    path["params"] = path["res"].params = path["res"].opt_state = None
+    torch.cuda.empty_cache()
+    scanned = run_scan_path(torch, dev, path, scan, final)
+    rounds, chunk, _ = scan
+    if scanned["steady"] is None:
+        # one chunk: time two more chunks on the cached graph
+        scanned["steady"] = time_scan_chunks(
+            torch, dev, path, scanned["params"], 2 * rounds, chunk)
+        print(f"path {name} scan: steady {scanned['steady'] * 1e3:.1f} "
+              f"ms/round over a second chunk of {chunk} (loop "
+              f"{path['ms_per_round']:.1f})", flush=True)
+    if profiling:
+        # an FO run starts a fresh Adam state, whose leaves the cached
+        # graph does not read: profile its second chunk, after the
+        # capture
+        skip = chunk if name == "fo" else 0
+        profile_run(torch, path, dev, f"one scan chunk of {chunk} rounds",
+                    skip=skip, rounds=skip + chunk, engine="scan",
+                    chunk_rounds=chunk, params=scanned["params"])
+    row = {k: path[k] for k in ("name", "launches", "peak_theta",
+                                "ms_per_round")}
+    row.update(dtype=str(path["dtype"])[6:],
+               scan_ms_per_round=scanned["steady"] * 1e3,
+               scan_peak_theta=scanned["peak_theta"],
+               scan_reserved_theta=scanned["reserved_theta"])
+    if name == "bf16-fused":
+        row["fused_vs_plain"] = fused_check
+    del path, scanned, final
+    release_device_memory(torch)
+    return [row] + out
+
+
+def bf16_summary(paths: list) -> dict:
+    """The bf16 paths' ms a round and peak / θ beside the f32 chained and
+    fused paths' of the same call."""
+    return {p["name"]: {k: p[k] for k in ("ms_per_round",
+                                           "scan_ms_per_round",
+                                           "peak_theta", "scan_peak_theta",
+                                           "fused_vs_plain") if k in p}
+            for p in paths if p["name"] in ("chained", "fused") + BF16_PATHS}
+
+
 def release_device_memory(torch) -> None:
     """Free what earlier runs keep on the card, so the next path's peak is
     its own: the cached executors' graphs and their memory pools, and
@@ -3714,6 +4424,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuBLAS may otherwise reduce a bf16 GEMM's split-K partials in bf16;
+    # `repro` accumulates in f32 (preferred_element_type)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3734,6 +4447,8 @@ def main() -> int:
     rows += [check_flash_attention(torch, dev),
              check_perturbed_matmul(torch, dev), check_ssd_scan(torch, dev),
              check_rglru_scan(torch, dev)]
+    rows += check_bf16_kernels(torch, dev)
+    release_device_memory(torch)
     phase("1-2, the build, prng and each kernel against its plain version")
     check_small_reference(torch, dev)
     check_small_serve(torch, dev)
@@ -3753,47 +4468,12 @@ def main() -> int:
                              ("moe-fused", full_width("moonshot-v1-16b-a3b"),
                               True),
                              ("audio", full_width("whisper-medium"), False),
-                             ("vlm", full_width("internvl2-76b"), False)):
-        scan = SCAN[name]
-        path = run_path(torch, dev, name, cfg, fused, scan)
-        check_peak(name, path["peak_theta"])
-        if fused:
-            check_fused_against_fresh(torch, dev, path)
-        # the loop run's final weights (and Adam moments) on the host (the
-        # hybrid's as checksums), taken before the profiled round moves
-        # them; then freed, so the scan run's peak is its own
-        final = final_state(torch, path["res"], name)
-        if profiling:
-            profile_run(torch, path, dev, "one round (loop engine)",
-                        rounds=1, params=path["params"])
-        path["params"] = path["res"].params = path["res"].opt_state = None
-        torch.cuda.empty_cache()
-        scanned = run_scan_path(torch, dev, path, scan, final)
-        rounds, chunk, _ = scan
-        if scanned["steady"] is None:
-            # one chunk: time two more chunks on the cached graph
-            scanned["steady"] = time_scan_chunks(
-                torch, dev, path, scanned["params"], 2 * rounds, chunk)
-            print(f"path {name} scan: steady {scanned['steady'] * 1e3:.1f} "
-                  f"ms/round over a second chunk of {chunk} (loop "
-                  f"{path['ms_per_round']:.1f})", flush=True)
-        if profiling:
-            # an FO run starts a fresh Adam state, whose leaves the cached
-            # graph does not read: profile its second chunk, after the
-            # capture
-            skip = chunk if name == "fo" else 0
-            profile_run(torch, path, dev, f"one scan chunk of {chunk} rounds",
-                        skip=skip, rounds=skip + chunk, engine="scan",
-                        chunk_rounds=chunk, params=scanned["params"])
-        paths.append({k: path[k] for k in ("name", "launches", "peak_theta",
-                                           "ms_per_round")})
-        paths[-1].update(scan_ms_per_round=scanned["steady"] * 1e3,
-                         scan_peak_theta=scanned["peak_theta"],
-                         scan_reserved_theta=scanned["reserved_theta"])
-        del path, scanned, final
-        release_device_memory(torch)
+                             ("vlm", full_width("internvl2-76b"), False),
+                             ("bf16", opt, False), ("bf16-fused", opt, True)):
+        paths += training_path(torch, dev, name, cfg, fused, profiling)
 
-    phase("4, the training paths")
+    bf16_row = bf16_summary(paths)
+    phase("4, the training paths (bf16 and bf16-fused, the impl check)")
     for run_scenario in (run_attacked_path, run_fo_desync_path):
         paths.append(run_scenario(torch, dev, opt))
         release_device_memory(torch)
@@ -3807,16 +4487,30 @@ def main() -> int:
 
     served = [run_serve_path(torch, dev, arch, profiling)
               for arch in SERVE_ARCHS]
+    served += [run_serve_path(torch, dev, arch, profiling, torch.bfloat16)
+               for arch in BF16_SERVE_ARCHS]
     paths += served
-    phase("6, the serve paths")
+    phase("6, the serve paths (opt-125m and yi-6b also in bf16)")
 
     print(json.dumps({"serve": served}), flush=True)
+    for row in served:
+        if row["name"].removeprefix("serve ").split()[0] in BF16_SERVE_ARCHS:
+            bf16_row[row["name"]] = {k: row[k] for k in BF16_SERVE_KEYS
+                                     if k in row}
+    print(json.dumps({"bf16": bf16_row, "power": smi}), flush=True)
     print(json.dumps({"table2": table2(paths, opt), "prng": prng_row}),
           flush=True)
     for row in rows:
-        by_path = {p["name"]: p["launches"][row["name"]] for p in paths}
+        # a bf16 instance counts on its kernel's counter in the bf16 paths,
+        # an f32 one in the others
+        counter = row.get("counter", row["name"])
+        dtype = row.get("dtype", "float32")
+        by_path = {p["name"]: p["launches"][counter] for p in paths
+                   if p.get("dtype", "float32") == dtype}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']}: launched by no path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

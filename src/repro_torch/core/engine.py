@@ -546,8 +546,10 @@ class _Graph:
 
 def _graph_key(params: Params, ctl: Dict, batch: Dict) -> tuple:
     # the graph bakes in every address it reads and writes: the leaves'
-    # (updated in place) and its own static buffers, shaped like these rows
-    return (tuple((t.data_ptr(), tuple(t.shape)) for _, t in
+    # (updated in place) and its own static buffers, shaped like these
+    # rows; and the kernels or plain versions the capture recorded
+    return (kops.current_impl(),
+            tuple((t.data_ptr(), tuple(t.shape), t.dtype) for _, t in
                   zo.flatten(params)),
             tuple((k, tuple(v.shape), v.dtype) for k, v in ctl.items()),
             tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items()))

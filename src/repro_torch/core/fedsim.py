@@ -34,6 +34,18 @@ rounds) and `desync` (`runtime.desync`; default: resolved from
 this port does not carry yet raise NotImplementedError naming their
 ROADMAP item; none is ignored.
 
+`impl=` and `dtype=` are the reference's. `impl` names the kernels'
+implementation for the whole run, eval included (`kernels.ops.use_impl`:
+None by device, "pallas" the CUDA kernels, "xla", "xla_chunked",
+"xla_full" and "pallas_interpret" the plain versions on either device).
+`dtype` is the parameters' (float32, or bfloat16 named any way the
+reference takes it): the initial weights are drawn in f32 and rounded
+(or, when `params` are passed, the leaves' own dtype counts), and the
+chained walk rounds at every step, as the reference's. What this port
+does not hold against the reference in bf16 raises NotImplementedError
+naming ROADMAP A12: families other than the dense one, MLA and MoE
+(`registry.check_dtype`), the FO transport, and checkpoints.
+
 Observability (`obs`) rides the same loop: `telemetry` (an
 `obs.Telemetry`) records the span timeline (channel_realize,
 schedule_solve, params_init, ctl_build, chunk, dispatch, metrics_flush,
@@ -60,15 +72,17 @@ import numpy as np
 import torch
 
 from repro_torch import byzantine as byz
-from repro_torch import channel, obs, prng, resolve_device
+from repro_torch import A12, channel, obs, prng, resolve_device, resolve_dtype
 from repro_torch.configs.base import ModelConfig, PairZeroConfig
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import engine as eng
 from repro_torch.core import pairzero
 from repro_torch.core import transport as tp
+from repro_torch.core import zo
 from repro_torch.core.dp import PrivacyAccountant, cumulative_spend
 from repro_torch.data import tasks as T
 from repro_torch.data.pipeline import FederatedPipeline
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models import registry
 from repro_torch.optim import fo as fo_opt
@@ -80,7 +94,6 @@ from repro_torch.runtime.fault import ElasticSchedule, FaultModel
 _UNPORTED = {
     "mesh": "A11: mesh engine",
 }
-_IMPL_DTYPE = "A12: kernel implementation and dtype selection"
 
 
 def _reject(option: str, value: Any) -> None:
@@ -288,7 +301,7 @@ class Experiment:
 
     `telemetry` (an `obs.Telemetry`, default off) is read by the run and
     its hooks. `compile_stats` counts from the construction, which builds
-    the round body."""
+    the round body. `impl` and `dtype` as for `run`."""
 
     def __init__(self, model_cfg: ModelConfig, pz: PairZeroConfig,
                  pipeline: FederatedPipeline, rounds: int, *,
@@ -309,16 +322,16 @@ class Experiment:
         if engine not in ("scan", "loop"):
             raise ValueError(
                 f"unknown engine: {engine!r} (want 'scan'|'loop')")
-        if impl is not None:
-            raise NotImplementedError(
-                f"impl={impl!r} is not ported (ROADMAP {_IMPL_DTYPE}): the "
-                "port runs its CUDA kernels on the card and their plain "
-                "versions on the CPU")
-        if not _is_f32(dtype):
-            raise NotImplementedError(
-                f"dtype={dtype!r} is not ported (ROADMAP {_IMPL_DTYPE}): "
-                "the port trains in float32")
+        self.impl = kops.check_impl(impl)
+        self.dtype = resolve_dtype(dtype)
+        # the parameters' dtype: the leaves' own when they are passed
+        leaves = [t for _, t in zo.flatten(params)] if params else []
+        theta_dtype = leaves[0].dtype if leaves else self.dtype
+        registry.check_dtype(model_cfg, theta_dtype)
         self.device = resolve_device(device)
+        if self.impl == "pallas" and self.device.type != "cuda":
+            raise ValueError("impl='pallas' runs the CUDA kernels, which "
+                             f"have no {self.device.type} version")
         self.model_cfg = model_cfg
         self.pz = pz
         self.pipeline = pipeline
@@ -346,6 +359,16 @@ class Experiment:
                 "Byzantine behaviors/defenses act on the scalar ZO payload "
                 "vector; the FO baseline has no scalar uplink to attack or "
                 "defend — run it without a ByzantineConfig")
+        if theta_dtype != torch.float32:
+            if self.transport.kind == "fo":
+                raise NotImplementedError(
+                    f"the fo transport in {theta_dtype} is not ported "
+                    f"({A12})")
+            if any(isinstance(hk, CheckpointHook) for hk in hooks):
+                raise NotImplementedError(
+                    f"checkpoints of a {theta_dtype} θ are not ported "
+                    f"({A12}): the reference writes bf16 leaves as '<V2' "
+                    ".npy files")
         if self.transport.kind == "fo":
             # the reference's FO baseline: FO-Adam at the ZO learning rate
             self.optimizer = fo_opt.make("adam", pz.zo.lr)
@@ -376,6 +399,10 @@ class Experiment:
         self._retries: Dict[str, int] = {}
 
     def run(self) -> RunResult:
+        with kops.use_impl(self.impl):
+            return self._run()
+
+    def _run(self) -> RunResult:
         t0 = time.time()
         pz, result, dev = self.pz, self.result, self.device
         tr, mem = self.telemetry.tracer, self.telemetry.memory
@@ -394,8 +421,8 @@ class Experiment:
         result.schedule, result.transport = schedule, self.transport
         if self.params is None:
             with tr.span("params_init"):
-                self.params = registry.init_params(self.model_cfg,
-                                                   prng.key(pz.seed), dev)
+                self.params = registry.init_params(
+                    self.model_cfg, prng.key(pz.seed), dev, self.dtype)
         for hook in self.hooks:
             hook.on_start(self)
         # a restoring hook may have replaced the accountant: the ledger's
@@ -654,7 +681,11 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
     `variant=`/`scheme=` are the reference's deprecated string spellings,
     routed through the transport registry with its DeprecationWarning.
     `device="cpu"` runs the plain PyTorch versions of the kernels (the
-    tests' path); "cuda" raises when no GPU is present."""
+    tests' path); "cuda" raises when no GPU is present. `impl=` names the
+    kernels' implementation (`kernels.ops.IMPLS`; "xla" runs the plain
+    versions on the card too, "pallas" the kernels and refuses the CPU)
+    and `dtype=` the parameters' (float32, or bfloat16 for the dense
+    family's GQA models), as the reference's do."""
     for option, value in unported.items():
         if option not in _UNPORTED:
             raise TypeError(f"run() got an unexpected keyword argument "
@@ -684,13 +715,3 @@ def run(model_cfg: ModelConfig, pz: PairZeroConfig,
                       injector=injector, telemetry=telemetry,
                       device=device).run()
 
-
-def _is_f32(dtype) -> bool:
-    """Whether `dtype` (a torch dtype, or anything numpy reads as one,
-    such as `np.float32` or "float32") is float32."""
-    if isinstance(dtype, torch.dtype):
-        return dtype == torch.float32
-    try:
-        return np.dtype(dtype) == np.float32
-    except TypeError:
-        return False

@@ -10,13 +10,16 @@ build/repro_torch_kernels/ at the checkout root (listed in .gitignore).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -24,6 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("seeded_axpy", "flash_attention", "perturbed_matmul", "ssd_scan",
            "rglru_scan")
+
+#: the suffix of a C entry point's instance for each dtype the kernels
+#: take (`seeded_axpy_f32`, `flash_attention_bf16`, ...)
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -89,6 +96,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def entries(name: str, prefix: str, argtypes: Tuple) -> Dict:
+    """{dtype: entry `<prefix>_<SUFFIX[dtype]>`} of csrc/<name>.cu's
+    library, each given `argtypes` and an int status once a library."""
+    return _entries(load(name), prefix, argtypes)
+
+
+@functools.lru_cache(maxsize=None)
+def _entries(lib, prefix: str, argtypes: Tuple) -> Dict:
+    out = {}
+    for dtype, suffix in SUFFIX.items():
+        fn = getattr(lib, f"{prefix}_{suffix}")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        out[dtype] = fn
+    return out
 
 
 def check(status: int, what: str) -> None:

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), f32.
+// Flash attention forward for Hopper (sm_90a), f32, and bf16 at head_dim
+// 16, 32, 64 and 128.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _flash_kernel): online-softmax attention
@@ -31,6 +32,18 @@
 // Head dims 96, 128 and 192 (MLA's q.k heads; yi-6b's and moonshot's GQA
 // heads) have their own kernel on the tensor cores, flash_fwd_tc_kernel;
 // its design is noted where it starts.
+//
+// bf16 (flash_attention_bf16): the small kernel and the tensor-core kernel
+// are templates on the element type too, with bf16 instances at head_dim
+// 16, 32, 64 (OPT-125M's heads) and 128 (yi-6b's), as the TPU kernel
+// computes them: q, k and v are widened to f32 where a thread reads them
+// (from device memory for q, from shared memory for the K/V tiles, which
+// hold bf16 and so half the bytes), the products, the online softmax and P
+// stay f32, and only the output is rounded to bf16, to nearest even
+// (__float2bfloat16_rn, as XLA's convert). A bf16 value is exact in TF32,
+// so K's and V's lo terms are zero in the tensor-core kernel's 3xTF32
+// products; Q (scaled) and P keep theirs. Bound: bytes, half the f32
+// kernel's at the same shape.
 //
 // Head dim 256 has its own kernel, flash_fwd_group_kernel (a template on
 // D), for recurrentgemma-2b (q [40,10,64,256] against one kv head
@@ -82,11 +95,52 @@
 // threads, one an SM (228,256 B of dynamic shared memory): 2.4 items a
 // block, 96 keys of work for the busiest block against 87 on average (a
 // greedy longest-first schedule does no better at these item sizes).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Element access widened to f32: a bf16 is the top half of the f32 with
+// the same value, so widening is exact; stores round to nearest even.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// four bf16 (8 bytes) as a float4
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -195,18 +249,20 @@ constexpr int kSmallBK = 32;                      // key rows per tile
 // blocks or 16-key tiles
 constexpr int kSmallBlocksPerSM = 4;
 
-template <int D>
+template <int D, typename Elem>
 __global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSM)
-flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_small_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                       const Elem* __restrict__ v, Elem* __restrict__ o,
                        int hq, int hkv, int sq, int skv, float scale,
                        int causal, int window) {
   constexpr int L = kSmallLanes;
-  static_assert(D % (4 * L) == 0, "D must split into float4 per lane");
-  constexpr int kVec = D / (4 * L);               // float4 columns per lane
-  constexpr int kTile = kSmallBK * D / 4;         // float4 per k (or v) tile
-  __shared__ __align__(16) float4 ks[2][kSmallBK][D / 4];
-  __shared__ __align__(16) float4 vs[2][kSmallBK][D / 4];
+  static_assert(D % (4 * L) == 0, "D must split into 4 columns per lane");
+  constexpr int kVec = D / (4 * L);               // 4-column groups per lane
+  constexpr int kRowChunks = D * sizeof(Elem) / 16;   // 16-byte copies a row
+  constexpr int kChunk = 16 / sizeof(Elem);            // elements a copy
+  constexpr int kTile = kSmallBK * kRowChunks;    // copies per k (or v) tile
+  __shared__ __align__(16) Elem ks[2][kSmallBK][D];
+  __shared__ __align__(16) Elem vs[2][kSmallBK][D];
 
   const int bh = blockIdx.x;                      // b * hq + h
   const int b = bh / hq;
@@ -220,11 +276,10 @@ flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   float4 qr[kVec];
   float4 acc[kVec];
-  const float4* qp = reinterpret_cast<const float4*>(
-      q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D);
+  const Elem* qp = q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    const float4 t = qp[i * L + lane];
+    const float4 t = load4(qp + 4 * (i * L + lane));
     qr[i] = active ? make_float4(__fmul_rn(t.x, scale), __fmul_rn(t.y, scale),
                                  __fmul_rn(t.z, scale), __fmul_rn(t.w, scale))
                    : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -241,17 +296,17 @@ flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
   const int t_first = k_begin / kSmallBK;
   const int t_end = (k_end + kSmallBK - 1) / kSmallBK;
-  const float4* kb = reinterpret_cast<const float4*>(k + static_cast<int64_t>(kvh) * skv * D);
-  const float4* vb = reinterpret_cast<const float4*>(v + static_cast<int64_t>(kvh) * skv * D);
+  const Elem* kb = k + static_cast<int64_t>(kvh) * skv * D;
+  const Elem* vb = v + static_cast<int64_t>(kvh) * skv * D;
 
   // tile t -> buffer buf; rows past skv are zero-filled
   auto load = [&](int t, int buf) {
     const int k0 = t * kSmallBK;
     for (int e = threadIdx.x; e < kTile; e += kSmallThreads) {
-      const int j = e / (D / 4);
-      const int c = e - j * (D / 4);
+      const int j = e / kRowChunks;
+      const int c = (e - j * kRowChunks) * kChunk;
       const bool ok = k0 + j < skv;
-      const int64_t src = ok ? static_cast<int64_t>(k0 + j) * (D / 4) + c : 0;
+      const int64_t src = ok ? static_cast<int64_t>(k0 + j) * D + c : 0;
       cp_async16(smem_u32(&ks[buf][j][c]), kb + src, ok ? 16 : 0);
       cp_async16(smem_u32(&vs[buf][j][c]), vb + src, ok ? 16 : 0);
     }
@@ -277,7 +332,7 @@ flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.0f;
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        const float4 kv = ks[buf][j][i * L + lane];
+        const float4 kv = load4(&ks[buf][j][4 * (i * L + lane)]);
         dot = fmaf(qr[i].x, kv.x, dot);
         dot = fmaf(qr[i].y, kv.y, dot);
         dot = fmaf(qr[i].z, kv.z, dot);
@@ -312,7 +367,7 @@ flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kSmallBK; ++j) {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
-          const float4 vv = vs[buf][j][i * L + lane];
+          const float4 vv = load4(&vs[buf][j][4 * (i * L + lane)]);
           acc[i].x = fmaf(s[j], vv.x, acc[i].x);
           acc[i].y = fmaf(s[j], vv.y, acc[i].y);
           acc[i].z = fmaf(s[j], vv.z, acc[i].z);
@@ -326,29 +381,31 @@ flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (active) {
     const float denom = fmaxf(l, 1e-30f);
-    float4* op = reinterpret_cast<float4*>(o + (static_cast<int64_t>(bh) * sq + row) * D);
+    Elem* op = o + (static_cast<int64_t>(bh) * sq + row) * D;
 #pragma unroll
     for (int i = 0; i < kVec; ++i)
-      op[i * L + lane] = make_float4(acc[i].x / denom, acc[i].y / denom,
-                                     acc[i].z / denom, acc[i].w / denom);
+      store4(op + 4 * (i * L + lane),
+             make_float4(acc[i].x / denom, acc[i].y / denom,
+                         acc[i].z / denom, acc[i].w / denom));
   }
 }
 
-// float4 rows: torch allocations are 256-byte aligned and D * 4 is a
-// multiple of 16, so every row of a contiguous tensor starts 16-byte aligned
-bool aligned16(const float* q, const float* k, const float* v, const float* o) {
+// 16-byte rows: torch allocations are 256-byte aligned and D times the
+// element size is a multiple of 16, so every row of a contiguous tensor
+// starts 16-byte aligned
+bool aligned16(const void* q, const void* k, const void* v, const void* o) {
   return ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16) == 0;
 }
 
-template <int D>
-int launch_small(const float* q, const float* k, const float* v, float* o,
+template <int D, typename Elem>
+int launch_small(const Elem* q, const Elem* k, const Elem* v, Elem* o,
                  int b, int hq, int hkv, int sq, int skv, float scale,
                  int causal, int window, cudaStream_t stream) {
   if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
   const dim3 grid(static_cast<unsigned int>(b * hq),
                   static_cast<unsigned int>((sq + kSmallRows - 1) / kSmallRows));
-  flash_fwd_small_kernel<D><<<grid, kSmallThreads, 0, stream>>>(
+  flash_fwd_small_kernel<D, Elem><<<grid, kSmallThreads, 0, stream>>>(
       q, k, v, o, hq, hkv, sq, skv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -908,33 +965,35 @@ struct TcShape {
   // every 8-key block of a visible tile scored (see above; at 192 the
   // branch-free S spills)
   static constexpr bool kScoreWholeTile = D != 192;
-  static constexpr int kStride = D + 8;                     // Q, K, V rows
-  static constexpr int kSlotFloats = kTcBK * kStride;
+  // Q, K, V rows in elements (f32 or bf16): the fragment loads of a warp
+  // hit 32 banks at either size (rows 8 words apart in f32, 4 in bf16)
+  static constexpr int kStride = D + 8;
+  static constexpr int kSlotElems = kTcBK * kStride;
   // mbarriers: Q full and empty, then each slot's full, then its empty
   static constexpr int kBars = 2 + 2 * kSlots;
   static constexpr int kBarFloats = (2 * kBars + 3) / 4 * 4;
-  static constexpr int kFloats = kBarFloats + kTcRows * kStride
-                                 + kSlots * kSlotFloats;
+  static constexpr int kElems = kTcRows * kStride + kSlots * kSlotElems;
   static_assert(D % 8 == 0 && kTcBK % 8 == 0, "8-column k-steps, 8-key blocks");
   static_assert(kStride % 32 == 8, "conflict-free fragment loads");
 };
 
-template <int D>
+template <int D, typename Elem>
 __global__ void __launch_bounds__(kTcThreads, TcShape<D>::kBlocksPerSM)
-flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                    const Elem* __restrict__ v, Elem* __restrict__ o,
                     const GroupArgs a) {
   using T = TcShape<D>;
   constexpr int S = T::kSlots;
   constexpr int NB = kTcBK / 8;                   // 8-key blocks a tile
   constexpr int RS = T::kStride;
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(Elem));
   extern __shared__ __align__(16) float smem[];
   const uint32_t q_full = smem_u32(smem);
   const uint32_t q_empty = q_full + 8;
   const uint32_t full0 = q_full + 16;             // slot s: full0 + 8 s
   const uint32_t empty0 = full0 + 8 * S;          // slot s: empty0 + 8 s
-  float* qs = smem + T::kBarFloats;               // [kTcRows][RS]
-  float* ring = qs + kTcRows * RS;                // [S][kTcBK][RS]
+  Elem* qs = reinterpret_cast<Elem*>(smem + T::kBarFloats);   // [kTcRows][RS]
+  Elem* ring = qs + kTcRows * RS;                 // [S][kTcBK][RS]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   constexpr int kConsumerThreads = 32 * kTcWarps;
@@ -963,26 +1022,27 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // V(t0), then K(t) and V(t); ring position p is phase p / S of slot
     // p % S
     int fill = 0;
-    auto load_tile = [&](const float* base, int bkv, int t) {
+    auto load_tile = [&](const Elem* base, int bkv, int t) {
       const int slot = fill % S;
       if (fill >= S) mbar_wait(empty0 + 8 * slot, (fill / S - 1) & 1);
       const int k0 = t * kTcBK;
       const int rows = min(kTcBK, a.skv - k0);
-      float* dst = ring + slot * T::kSlotFloats;
+      Elem* dst = ring + slot * T::kSlotElems;
       if (rows < kTcBK) {
-        for (int e = lane; e < (kTcBK - rows) * (D / 4); e += 32)
-          reinterpret_cast<float4*>(dst + (rows + e / (D / 4)) * RS)[e % (D / 4)] =
-              make_float4(0.f, 0.f, 0.f, 0.f);
+        constexpr int kChunks = kRowBytes / 16;   // 16-byte stores a row
+        for (int e = lane; e < (kTcBK - rows) * kChunks; e += 32)
+          reinterpret_cast<uint4*>(dst + (rows + e / kChunks) * RS)[e % kChunks] =
+              make_uint4(0u, 0u, 0u, 0u);
         fence_proxy_async();
       }
       __syncwarp();
       const uint32_t bar = full0 + 8 * slot;
-      if (lane == 0) mbar_expect(bar, rows * D * 4);
+      if (lane == 0) mbar_expect(bar, rows * kRowBytes);
       __syncwarp();
-      const float* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
+      const Elem* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
       for (int r = lane; r < rows; r += 32)
         bulk_copy(smem_u32(dst + r * RS), src + static_cast<int64_t>(r) * D,
-                  D * 4, bar);
+                  kRowBytes, bar);
       ++fill;
     };
     for (int round = 0;; ++round) {
@@ -996,11 +1056,11 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (t == t_first) {
           // the item's Q rows, once the last item's scores are done
           if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
-          if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * D * 4);
+          if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * kRowBytes);
           __syncwarp();
           for (int r = lane; r < kTcRows; r += 32) {
             const int64_t row = group_row(a, it, r);
-            if (row >= 0) bulk_copy(smem_u32(qs + r * RS), q + row * D, D * 4, q_full);
+            if (row >= 0) bulk_copy(smem_u32(qs + r * RS), q + row * D, kRowBytes, q_full);
           }
         }
         load_tile(v, it.bkv, t);
@@ -1012,7 +1072,7 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // a consumer warp: rows 16 warp + g and 16 warp + g + 8 of the item
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const float* q_lane = qs + (16 * warp + g) * RS + 2 * tq;
+  const Elem* q_lane = qs + (16 * warp + g) * RS + 2 * tq;
   int fill = 0;
   for (int round = 0;; ++round) {
     const int index = item_index(round);
@@ -1057,14 +1117,14 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int slot = fill % S;
       mbar_wait(full0 + 8 * slot, (fill / S) & 1);
       if (b_lo < b_hi) {
-        const float* k_lane = ring + slot * T::kSlotFloats + g * RS + 2 * tq;
+        const Elem* k_lane = ring + slot * T::kSlotElems + g * RS + 2 * tq;
 #pragma unroll 2
         for (int d0 = 0; d0 < D; d0 += 8) {
           // one k-step: columns 2t and 2t + 1 of these 8 as A's columns t
           // and t + 4 and B's rows t and t + 4 (the same permutation of the
-          // k index in both), so a lane loads each operand as a float2
-          const float2 xa = *reinterpret_cast<const float2*>(q_lane + d0);
-          const float2 xb = *reinterpret_cast<const float2*>(q_lane + 8 * RS + d0);
+          // k index in both), so a lane loads each operand as a pair
+          const float2 xa = load2(q_lane + d0);
+          const float2 xb = load2(q_lane + 8 * RS + d0);
           uint32_t ah[4], al[4];
           tc_split(__fmul_rn(xa.x, a.scale), ah[0], al[0]);
           tc_split(__fmul_rn(xb.x, a.scale), ah[1], al[1]);
@@ -1073,7 +1133,7 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int j = 0; j < NB; ++j) {
             if (!T::kScoreWholeTile && (j < b_lo || j >= b_hi)) continue;
-            const float2 y = *reinterpret_cast<const float2*>(k_lane + 8 * j * RS + d0);
+            const float2 y = load2(k_lane + 8 * j * RS + d0);
             uint32_t bh[2], bl[2];
             tc_split(y.x, bh[0], bl[0]);
             tc_split(y.y, bh[1], bl[1]);
@@ -1181,7 +1241,7 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
           acc[n][2] *= alpha_b;
           acc[n][3] *= alpha_b;
         }
-        const float* v_lane = ring + slot * T::kSlotFloats + 2 * tq * RS + g;
+        const Elem* v_lane = ring + slot * T::kSlotElems + 2 * tq * RS + g;
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           if (j < b_lo || j >= b_hi) continue;
@@ -1190,12 +1250,12 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
           tc_split(pc[j][2], ph[1], pl[1]);
           tc_split(pc[j][1], ph[2], pl[2]);
           tc_split(pc[j][3], ph[3], pl[3]);
-          const float* vj = v_lane + 8 * j * RS;
+          const Elem* vj = v_lane + 8 * j * RS;
 #pragma unroll
           for (int n = 0; n < D / 8; ++n) {
             uint32_t bh[2], bl[2];
-            tc_split(vj[8 * n], bh[0], bl[0]);
-            tc_split(vj[RS + 8 * n], bh[1], bl[1]);
+            tc_split(to_f32(vj[8 * n]), bh[0], bl[0]);
+            tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);
             tc_mma3(acc[n], ph, pl, bh, bl);
           }
         }
@@ -1222,36 +1282,35 @@ flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
     if (row_a >= 0) {
-      float* op = o + static_cast<int64_t>(row_a) * D + 2 * tq;
+      Elem* op = o + static_cast<int64_t>(row_a) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            make_float2(acc[n][0] * inv_a, acc[n][1] * inv_a);
+        store2(op + 8 * n, acc[n][0] * inv_a, acc[n][1] * inv_a);
     }
     if (row_b >= 0) {
-      float* op = o + static_cast<int64_t>(row_b) * D + 2 * tq;
+      Elem* op = o + static_cast<int64_t>(row_b) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            make_float2(acc[n][2] * inv_b, acc[n][3] * inv_b);
+        store2(op + 8 * n, acc[n][2] * inv_b, acc[n][3] * inv_b);
     }
   }
 }
 
-template <int D>
+template <int D, typename Elem>
 int tc_smem_bytes() {
-  return static_cast<int>(sizeof(float)) * TcShape<D>::kFloats;
+  return static_cast<int>(sizeof(float)) * TcShape<D>::kBarFloats
+         + static_cast<int>(sizeof(Elem)) * TcShape<D>::kElems;
 }
 
 // dynamic shared memory allowed so far, and blocks the card holds at once,
-// for flash_fwd_tc_kernel<D>
-template <int D>
+// for flash_fwd_tc_kernel<D, Elem>
+template <int D, typename Elem>
 int allowed_tc_smem = 0;
-template <int D>
+template <int D, typename Elem>
 int resident_tc_blocks = 0;
 
-template <int D>
-int launch_tc(const float* q, const float* k, const float* v, float* o,
+template <int D, typename Elem>
+int launch_tc(const Elem* q, const Elem* k, const Elem* v, Elem* o,
               int b, int hq, int hkv, int sq, int skv, float scale,
               int causal, int window, cudaStream_t stream) {
   if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
@@ -1271,14 +1330,15 @@ int launch_tc(const float* q, const float* k, const float* v, float* o,
   if (items > 0x7fffffff || static_cast<int64_t>(b) * hq * sq > 0x7fffffff)
     return cudaErrorInvalidValue;
   a.n_items = static_cast<int>(items);
-  const int smem = tc_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem, &allowed_tc_smem<D>);
+  const int smem = tc_smem_bytes<D, Elem>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D, Elem>, smem,
+                               &allowed_tc_smem<D, Elem>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = resident_blocks(flash_fwd_tc_kernel<D>, kTcThreads, smem,
-                        &resident_tc_blocks<D>);
+  err = resident_blocks(flash_fwd_tc_kernel<D, Elem>, kTcThreads, smem,
+                        &resident_tc_blocks<D, Elem>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min(a.n_items, resident_tc_blocks<D>);
-  flash_fwd_tc_kernel<D><<<blocks, kTcThreads, smem, stream>>>(q, k, v, o, a);
+  const int blocks = min(a.n_items, resident_tc_blocks<D, Elem>);
+  flash_fwd_tc_kernel<D, Elem><<<blocks, kTcThreads, smem, stream>>>(q, k, v, o, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1306,6 +1366,29 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
   }
 }
 
+// The same on bf16 q, k, v and o (f32 inside, the output rounded to
+// nearest even), at head_dim 16, 32, 64 and 128.
+extern "C" int flash_attention_bf16(const void* q, const void* k,
+                                    const void* v, void* o, int b, int hq,
+                                    int hkv, int sq, int skv, int d,
+                                    float scale, int causal, int window,
+                                    void* stream) {
+  if (b <= 0 || sq <= 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0 || sq > skv) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(o);
+  switch (d) {
+    case 16: return launch_small<16>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 32: return launch_small<32>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 64: return launch_small<64>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 128: return launch_tc<128>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // the head_dim-d kernel as built, on the current device
 // (flash_fwd_small_kernel<d> at 16, 32 and 64, flash_fwd_tc_kernel<d> at 96,
 // 128 and 192, flash_fwd_group_kernel<d> at 256): eight ints into
@@ -1313,14 +1396,14 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
 // dynamic shared memory bytes per block, resident blocks per SM, threads a
 // block, query rows a block ((head, position) rows an item for the tc and
 // group kernels), keys a K/V tile.
-template <int D>
+template <int D, typename Elem>
 int small_attributes(int* info) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_small_kernel<D>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_small_kernel<D, Elem>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_small_kernel<D>, kSmallThreads, 0);
+      &blocks, flash_fwd_small_kernel<D, Elem>, kSmallThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = fa.numRegs;
   info[1] = static_cast<int>(fa.localSizeBytes);
@@ -1357,17 +1440,18 @@ int group_attributes(int* info) {
   return 0;
 }
 
-template <int D>
+template <int D, typename Elem>
 int tc_attributes(int* info) {
-  const int smem = tc_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem, &allowed_tc_smem<D>);
+  const int smem = tc_smem_bytes<D, Elem>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D, Elem>, smem,
+                               &allowed_tc_smem<D, Elem>);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D>);
+  err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D, Elem>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_tc_kernel<D>, kTcThreads, smem);
+      &blocks, flash_fwd_tc_kernel<D, Elem>, kTcThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = fa.numRegs;
   info[1] = static_cast<int>(fa.localSizeBytes);
@@ -1382,13 +1466,25 @@ int tc_attributes(int* info) {
 
 extern "C" int flash_attention_attributes(int d, int* info) {
   switch (d) {
-    case 16: return small_attributes<16>(info);
-    case 32: return small_attributes<32>(info);
-    case 64: return small_attributes<64>(info);
-    case 96: return tc_attributes<96>(info);
-    case 128: return tc_attributes<128>(info);
-    case 192: return tc_attributes<192>(info);
+    case 16: return small_attributes<16, float>(info);
+    case 32: return small_attributes<32, float>(info);
+    case 64: return small_attributes<64, float>(info);
+    case 96: return tc_attributes<96, float>(info);
+    case 128: return tc_attributes<128, float>(info);
+    case 192: return tc_attributes<192, float>(info);
     case 256: return group_attributes<256>(info);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 instance at head_dim d (16, 32, 64: flash_fwd_small_kernel<d,
+// bf16>; 128: flash_fwd_tc_kernel<128, bf16>), the same eight ints.
+extern "C" int flash_attention_bf16_attributes(int d, int* info) {
+  switch (d) {
+    case 16: return small_attributes<16, bf16>(info);
+    case 32: return small_attributes<32, bf16>(info);
+    case 64: return small_attributes<64, bf16>(info);
+    case 128: return tc_attributes<128, bf16>(info);
     default: return cudaErrorInvalidValue;
   }
 }

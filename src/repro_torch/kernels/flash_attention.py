@@ -33,6 +33,13 @@ both kernels each K/V tile is copied once for the
 whole group by TMA bulk copies. Scores and probabilities never reach
 device memory, and key tiles no row of the item can see are skipped.
 
+bf16 q/k/v (`flash_attention_bf16` in the CUDA source) run the small
+kernel at head_dim 16, 32 and 64 and the tensor-core kernel at 128, as
+`repro`'s kernel computes them: widened to f32 where they are read, the
+softmax and P in f32, the output rounded once to bf16; a head_dim below
+128 without a bf16 instance is zero-padded up to the next one, and above
+128 a bf16 call raises (ROADMAP A12). Bound: bytes, half the f32 call's.
+
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
 `repro.kernels.ref.attention_ref`); `launches` counts kernel launches.
 """
@@ -43,15 +50,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 #: head dims the CUDA source has an instance for; others pad up to one
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+#: the head dims of its bf16 instances (ROADMAP A12 queues 96, 192, 256)
+BF16_HEAD_DIMS = (16, 32, 64, 128)
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
 #: the f32 operations and bytes of those launches (chip_smoke.py's bound
 #: column): per visible (query, key) pair 4·d + 3 operations (q·k and p·v,
 #: 2·d each, and about 3 for the exp and the sum); q, k, v read and the
-#: output written once
+#: output written once, at their element size
 flops = 0.0
 moved_bytes = 0.0
 
@@ -100,24 +111,25 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)
 
 
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
 def _lib():
-    from repro_torch.kernels import build
-    fn = build.load("flash_attention").flash_attention_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    """{dtype: entry} of the built library."""
+    return build.entries("flash_attention", "flash_attention", _ARGS)
 
 
-def kernel_attributes(d: int = 256) -> dict:
+def kernel_attributes(d: int = 256, dtype=torch.float32) -> dict:
     """The head_dim-d instance (`flash_fwd_small_kernel<d>` at d ≤ 64,
     `flash_fwd_tc_kernel<d>` at 96, 128 and 192, `flash_fwd_group_kernel<d>`
-    at 256) as built on the current CUDA device: registers and
-    local memory per thread, static and dynamic shared memory per block,
-    resident blocks per SM, threads, query rows and keys of a K/V tile
-    per block."""
-    from repro_torch.kernels import build
-    fn = build.load("flash_attention").flash_attention_attributes
+    at 256; in bf16 at 16, 32, 64 and 128) as built on the current CUDA
+    device: registers and local memory per thread, static and dynamic
+    shared memory per block, resident blocks per SM, threads, query rows
+    and keys of a K/V tile per block."""
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_bf16_attributes if dtype == torch.bfloat16 \
+        else lib.flash_attention_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 8)()
@@ -130,8 +142,9 @@ def kernel_attributes(d: int = 256) -> dict:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on contiguous f32 CUDA tensors; a head_dim
-    without an instance runs zero-padded up to the next one."""
+    """Launch the CUDA kernel on contiguous f32 or bf16 CUDA tensors (one
+    dtype for all three); a head_dim without an instance runs zero-padded
+    up to the next one."""
     global launches, flops, moved_bytes
     b, hq, sq, d = q.shape
     bk, hkv, skv, dk = k.shape
@@ -143,30 +156,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > SUPPORTED_HEAD_DIMS[-1]:
         raise ValueError(f"attention: head_dim {d} is above the CUDA "
                          f"kernel's largest, {SUPPORTED_HEAD_DIMS[-1]}")
+    if q.dtype not in build.SUFFIX:
+        raise ValueError(f"attention: no kernel for {q.dtype} (f32, bf16)")
     for t in (q, k, v):
-        if t.dtype != torch.float32 or t.device != q.device \
+        if t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous():
-            raise ValueError("attention: q, k, v must be contiguous f32 on "
-                             "one CUDA device")
+            raise ValueError("attention: q, k, v must be contiguous, of one "
+                             "dtype, on one CUDA device")
+    dims = BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
+        else SUPPORTED_HEAD_DIMS
+    if d > dims[-1]:
+        raise NotImplementedError(
+            f"attention: bf16 at head_dim {d} has no instance (up to "
+            f"{dims[-1]}; ROADMAP A12)")
     if window is not None and window <= 0:
         raise ValueError(f"attention: window must be positive, got {window}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    d_run = next(x for x in SUPPORTED_HEAD_DIMS if x >= d)
+    d_run = next(x for x in dims if x >= d)
     if d_run != d:
         # zeros add nothing to q·k, and give zero output columns
         q, k, v = (torch.nn.functional.pad(t, (0, d_run - d))
                    for t in (q, k, v))
-    from repro_torch.kernels import build
-    fn = _lib()
+    fn = _lib()[q.dtype]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, hq, hkv, sq, skv, d_run, float(scale), int(bool(causal)),
                 0 if window is None else int(window), stream)
-    build.check(status, "flash_attention_f32")
+    build.check(status, f"flash_attention_{build.SUFFIX[q.dtype]}")
     launches += 1
     flops += float(b * hq * visible_pairs(sq, skv, causal, window)
                    * (4 * d + 3))
-    moved_bytes += 4.0 * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
+    moved_bytes += float(q.element_size()) * (2 * b * hq * sq * d
+                                              + 2 * b * hkv * skv * d)
     return out if d_run == d else out[..., :d].contiguous()

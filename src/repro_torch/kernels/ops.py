@@ -1,8 +1,16 @@
-"""Kernel entry points: dispatch on the tensor's device.
+"""Kernel entry points: dispatch on the tensor's device and the
+implementation in use.
 
-A CUDA tensor goes to the hand-written kernel (which launches or raises —
-there is no fallback); a CPU tensor goes to the plain PyTorch version;
-any other device raises.
+With no implementation named (`impl=None`, the default) a CUDA tensor
+goes to the hand-written kernel (which launches or raises — there is no
+fallback) and a CPU tensor to the plain PyTorch version; any other device
+raises. `use_impl(impl)` names one for a block of work, with `repro`'s
+names (`IMPLS`): "pallas" is the CUDA kernels, on a CPU tensor a
+ValueError (there is no kernel there); "xla", "xla_chunked", "xla_full"
+and "pallas_interpret" are the plain versions on either device (they play
+the role of `repro`'s `ref.py` oracles and XLA fallbacks, and of its
+interpreted kernel bodies); any other name raises ValueError, as in
+`repro`. The entry points (`fedsim.run`, `serve_loop`) set it for a run.
 
 `attention`, `ssd` and `linear_recurrence` are differentiable: when an
 input requires grad (the first-order baseline), the card's forward is the
@@ -19,8 +27,9 @@ layer-sized transient, so no θ-sized perturbed copy ever exists.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -74,24 +83,61 @@ def add_launches(delta: Dict[str, int]) -> None:
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
+#: `repro`'s implementation names (`repro.kernels.ops`)
+IMPLS = ("pallas", "pallas_interpret", "xla", "xla_chunked", "xla_full")
+_impl: Optional[str] = None
+
+
+def check_impl(impl: Optional[str]) -> Optional[str]:
+    """`impl` if it is None or one of `IMPLS`; else ValueError."""
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"unknown impl: {impl}")
+    return impl
+
+
+def current_impl() -> Optional[str]:
+    """The implementation in use (None: by device)."""
+    return _impl
+
+
+@contextlib.contextmanager
+def use_impl(impl: Optional[str]) -> Iterator[None]:
+    """Run the block with implementation `impl` (None: by device). Not
+    thread-local: the kernels run on the thread that drives the run."""
+    global _impl
+    check_impl(impl)
+    before, _impl = _impl, impl
+    try:
+        yield
+    finally:
+        _impl = before
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    """Whether `t`'s op runs the CUDA kernel (else the plain version)."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {t.device} (want cuda or cpu)")
+    if _impl is None:
+        return t.device.type == "cuda"
+    if _impl == "pallas":
+        if t.device.type != "cuda":
+            raise ValueError("impl='pallas' runs the CUDA kernels; a CPU "
+                             "tensor has none (impl=None or 'xla' run the "
+                             "plain versions)")
         return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {t.device} (want cuda or cpu)")
+    return False
 
 
 def seeded_axpy(w: torch.Tensor, seed: torch.Tensor, scale: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out = w + scale · z(seed); `out=w` updates in place. `seed` is the
     leaf's stream seed as one int32 element (`sa.seed_tensor`) and `scale`
-    a 0-d f32 tensor, both on w's device; on the CPU the seed is read as a
-    host int (a plain int is taken too)."""
+    a 0-d f32 tensor, both on w's device (the plain version takes a plain
+    int too)."""
     if _on_cuda(w):
         return sa.seeded_axpy_cuda(w, seed, scale,
                                    torch.empty_like(w) if out is None else out)
-    res = sa.seeded_axpy_plain(w, sa.seed_value(seed), scale)
+    res = sa.seeded_axpy_plain(w, seed, scale)
     return res if out is None else out.copy_(res)
 
 
@@ -203,8 +249,7 @@ class PerturbedParam:
 
 def perturbed_z(pp: PerturbedParam) -> torch.Tensor:
     """z of a tagged leaf (f32, w's shape): counters off + flat index."""
-    return sa.draw_z(pp.w.shape, sa.seed_value(pp.seed), pp.w.device,
-                     pp.off)
+    return sa.draw_z(pp.w.shape, pp.seed, pp.w.device, pp.off)
 
 
 def resolve(pp):
@@ -215,13 +260,12 @@ def resolve(pp):
     if _on_cuda(pp.w):
         return sa.seeded_axpy_cuda(pp.w, pp.seed, pp.scale(),
                                    torch.empty_like(pp.w), pp.off)
-    return sa.seeded_axpy_plain(pp.w, sa.seed_value(pp.seed), pp.scale(),
-                                pp.off)
+    return sa.seeded_axpy_plain(pp.w, pp.seed, pp.scale(), pp.off)
 
 
 def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
     """x [..., K] @ (w + eps·z) for a 2-D tagged leaf w [K, N] → [..., N]
-    f32; on the card z is drawn inside the kernel's weight tiles."""
+    in x's dtype; the kernel draws z inside its weight tiles."""
     w = pp.w
     if w.ndim != 2:
         raise ValueError(f"perturbed_matmul wants a 2-D leaf, got "
@@ -232,8 +276,7 @@ def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
             x.reshape(-1, x.shape[-1]).contiguous(), w, pp.seed, pp.off,
             pp.scale())
         return out.reshape(tuple(batch) + (w.shape[1],))
-    return pmm.perturbed_matmul_plain(x, w, sa.seed_value(pp.seed), pp.off,
-                                      pp.scale())
+    return pmm.perturbed_matmul_plain(x, w, pp.seed, pp.off, pp.scale())
 
 
 def perturbed_unembed(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
@@ -251,7 +294,7 @@ def perturbed_gather(pp: PerturbedParam, tokens: torch.Tensor
     if _on_cuda(pp.w):
         return sa.seeded_gather_cuda(pp.w, tokens, pp.seed, pp.scale(),
                                      pp.off)
-    return sa.seeded_gather_plain(pp.w, tokens, sa.seed_value(pp.seed),
+    return sa.seeded_gather_plain(pp.w, tokens, pp.seed,
                                   pp.scale(), pp.off)
 
 

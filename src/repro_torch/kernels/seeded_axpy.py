@@ -17,12 +17,19 @@ backend. This module holds the stream twice:
   launch the kernels and count their launches in `launches` and
   `gather_launches`.
 
-The plain versions take the leaf's stream seed as a host int. The kernels
-read it from device memory, as they read the scale: the wrappers take a
-one-element int32 tensor on the card holding the seed's uint32 bits
-(`seed_tensor`; `zo.seed_row` makes a row of them), so a captured CUDA
-graph replays a round with whatever seeds its input buffer holds, and no
-host value is baked into a launch. `seed_value` reads one back on the host.
+The kernels read the leaf's stream seed from device memory, as they read
+the scale: the wrappers take a one-element int32 tensor on the card
+holding the seed's uint32 bits (`seed_tensor`; `zo.seed_row` makes a row
+of them), so a captured CUDA graph replays a round with whatever seeds
+its input buffer holds, and no host value is baked into a launch. The
+plain versions take such a tensor too, read on its device with no host
+round trip (so a round on them is captured as well), or a host int.
+`seed_value` reads one back on the host.
+
+Leaves are f32 or bf16. A bf16 leaf is widened to f32, w + scale·z formed
+in f32 and rounded once to bf16 (to nearest even, as `repro`'s kernel and
+XLA's convert do): `seeded_axpy_bf16` and `seeded_gather_bf16` in the CUDA
+source, and `.to(w.dtype)` in the plain versions.
 
 Every draw takes a base counter `off` (0 for a whole leaf): a layer sliced
 out of a scan-stacked leaf draws counters `off + i` and so continues the
@@ -31,11 +38,12 @@ entry perturbs embedding rows: row `tok` column j draws `off + tok·D + j`,
 the bits the row has in the whole-table stream.
 
 Bound on the H100: instruction issue, then bytes. One read and one write
-of w (8 bytes per f32 element): a θ pass over full OPT-125M's 190.5M
-elements moves 1.52 GB, at least 0.45 ms at 3.35 TB/s; z is generated in
-registers, so device memory sees nothing else. But every element costs a
-whole draw, about 105 instructions on the kernel's shortest SASS path,
-which `chip_smoke.py` turns into an issue bound above the byte bound.
+of w (8 bytes per f32 element, 4 per bf16): a θ pass over full OPT-125M's
+190.5M elements moves 1.52 GB in f32, at least 0.45 ms at 3.35 TB/s, and
+0.76 GB in bf16; z is generated in registers, so device memory sees
+nothing else. But every element costs a whole draw, about 105
+instructions on the kernel's shortest SASS path, which `chip_smoke.py`
+turns into an issue bound above the byte bound in either type.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import build
 
 MASK32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -53,6 +63,9 @@ _M2 = 0x846CA68B
 _TWO_PI_F32 = 6.2831854820251465
 _INV24 = 2.0 ** -24
 
+#: leaf types the CUDA kernels take
+KERNEL_DTYPES = tuple(build.SUFFIX)
+
 #: launches of the CUDA axpy kernel since the last reset (set to 0 to reset)
 launches = 0
 #: launches of the CUDA gathered-rows kernel since the last reset
@@ -61,8 +74,8 @@ gather_launches = 0
 #: launches did since the last reset, reckoned as chip_smoke.py's bound
 #: column reckons them: per element 12 operations (two unit conversions
 #: and floors, log, ×(−2), sqrt, ×2π, cos, ×r, ×scale, +w; the integer
-#: hash is not counted) and 8 bytes (w read, out written); the gather also
-#: reads its int64 token ids
+#: hash is not counted) and two element sizes of bytes (w read, out
+#: written: 8 in f32, 4 in bf16); the gather also reads its int64 token ids
 flops = 0.0
 moved_bytes = 0.0
 gather_flops = 0.0
@@ -109,9 +122,20 @@ def _box_muller_cpu(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(r * c)
 
 
-def gaussian_from_counter(idx: torch.Tensor, seed: int) -> torch.Tensor:
-    """Standard normal z[idx] for int64 counters idx (values < 2³²)."""
-    base = (idx * 2 + mul32(int(seed) & MASK32, GOLDEN)) & MASK32
+def _seed_bits(seed, device):
+    """A leaf seed's uint32 bits: a host int, or (from a one-element int
+    tensor holding them, e.g. an element of `zo.seed_row`) an int64 0-d
+    tensor on `device`, read without a host round trip, so the plain
+    versions too run inside a CUDA graph's capture."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(device=device, dtype=torch.int64) & MASK32
+    return int(seed) & MASK32
+
+
+def gaussian_from_counter(idx: torch.Tensor, seed) -> torch.Tensor:
+    """Standard normal z[idx] for int64 counters idx (values < 2³²); `seed`
+    a host int or a one-element int tensor (`_seed_bits`)."""
+    base = (idx * 2 + mul32(_seed_bits(seed, idx.device), GOLDEN)) & MASK32
     u1 = bits_to_unit(fmix32(base))
     u2 = bits_to_unit(fmix32((base + 1) & MASK32))
     if idx.device.type == "cpu":
@@ -131,15 +155,16 @@ def flat_counters(shape, off: int = 0, device="cpu") -> torch.Tensor:
     return ((idx + (int(off) & MASK32)) & MASK32).reshape(tuple(shape))
 
 
-def draw_z(shape, seed: int, device="cpu", off: int = 0) -> torch.Tensor:
+def draw_z(shape, seed, device="cpu", off: int = 0) -> torch.Tensor:
     """z(seed) over a leaf of `shape` from counter `off` (with off = 0 the
     plain counterpart of `repro.kernels.ref.draw_z_ref`)."""
     return gaussian_from_counter(flat_counters(shape, off, device), seed)
 
 
-def seeded_axpy_plain(w: torch.Tensor, seed: int, scale: torch.Tensor,
+def seeded_axpy_plain(w: torch.Tensor, seed, scale: torch.Tensor,
                       off: int = 0) -> torch.Tensor:
-    """out = w + scale · z(seed) in f32 (two roundings, as the reference)."""
+    """out = w + scale · z(seed) in f32 (two roundings, as the reference),
+    in w's dtype (a bf16 leaf: one more rounding, to nearest even)."""
     z = draw_z(w.shape, seed, w.device, off)
     return (w.to(torch.float32) + scale * z).to(w.dtype)
 
@@ -152,7 +177,7 @@ def gather_counters(tokens: torch.Tensor, d: int, off: int = 0
             ) & MASK32
 
 
-def seeded_gather_plain(w: torch.Tensor, tokens: torch.Tensor, seed: int,
+def seeded_gather_plain(w: torch.Tensor, tokens: torch.Tensor, seed,
                         scale: torch.Tensor, off: int = 0) -> torch.Tensor:
     """Rows w[tokens] + scale · z, each row drawing its whole-table bits."""
     z = gaussian_from_counter(gather_counters(tokens, w.shape[-1], off), seed)
@@ -187,75 +212,78 @@ def _check_scale(scale: torch.Tensor, device: torch.device, what: str):
         raise ValueError(f"{what}: scale must be one f32 element on {device}")
 
 
+_AXPY_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+              ctypes.c_void_p)
+_GATHER_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p)
+
+
 def _lib():
-    from repro_torch.kernels import build
-    lib = build.load("seeded_axpy")
-    fn = lib.seeded_axpy_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    gather = lib.seeded_gather_f32
-    gather.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-                       ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
-    gather.restype = ctypes.c_int
-    return fn, gather
+    """({dtype: axpy entry}, {dtype: gather entry}) of the built library."""
+    return (build.entries("seeded_axpy", "seeded_axpy", _AXPY_ARGS),
+            build.entries("seeded_axpy", "seeded_gather", _GATHER_ARGS))
 
 
 def seeded_axpy_cuda(w: torch.Tensor, seed: torch.Tensor,
                      scale: torch.Tensor, out: torch.Tensor, off: int = 0
                      ) -> torch.Tensor:
     """Launch the CUDA kernel: out = w + scale · z(seed), counters from
-    `off`. `out` may be `w` (in place). `seed` (one int32 element holding
-    the uint32 bits) and `scale` (one f32 element) lie on w's device and
-    are read by the kernel from device memory."""
+    `off`, on an f32 or a bf16 leaf. `out` (w's dtype) may be `w` (in
+    place). `seed` (one int32 element holding the uint32 bits) and `scale`
+    (one f32 element) lie on w's device and are read by the kernel from
+    device memory."""
     global launches, flops, moved_bytes
+    if w.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"seeded_axpy: no kernel for {w.dtype} (f32, bf16)")
     for name, t in (("w", w), ("out", out)):
-        if t.device != w.device or t.dtype != torch.float32:
-            raise ValueError(f"seeded_axpy: {name} must be f32 on {w.device}")
+        if t.device != w.device or t.dtype != w.dtype:
+            raise ValueError(f"seeded_axpy: {name} must be {w.dtype} on "
+                             f"{w.device}")
     check_seed(seed, w.device, "seeded_axpy")
     _check_scale(scale, w.device, "seeded_axpy")
     if not (w.is_contiguous() and out.is_contiguous()):
         raise ValueError("seeded_axpy: w and out must be contiguous")
     if out.shape != w.shape:
         raise ValueError("seeded_axpy: out must match w")
-    from repro_torch.kernels import build
-    fn, _ = _lib()
+    fn = _lib()[0][w.dtype]
     stream = torch.cuda.current_stream(w.device).cuda_stream
     status = fn(w.data_ptr(), out.data_ptr(), w.numel(), seed.data_ptr(),
                 int(off) & MASK32, scale.data_ptr(), stream)
-    build.check(status, "seeded_axpy_f32")
+    build.check(status, f"seeded_axpy_{build.SUFFIX[w.dtype]}")
     launches += 1
     flops += 12.0 * w.numel()
-    moved_bytes += 8.0 * w.numel()
+    moved_bytes += 2.0 * w.element_size() * w.numel()
     return out
 
 
 def seeded_gather_cuda(w: torch.Tensor, tokens: torch.Tensor,
                        seed: torch.Tensor, scale: torch.Tensor, off: int = 0
                        ) -> torch.Tensor:
-    """Launch the gathered-rows kernel: [..., D] rows w[tokens] + scale·z.
-    `w` is a contiguous f32 [V, D] table; token ids must lie in [0, V);
-    `seed` and `scale` as for `seeded_axpy_cuda`."""
+    """Launch the gathered-rows kernel: [..., D] rows w[tokens] + scale·z,
+    in w's dtype. `w` is a contiguous f32 or bf16 [V, D] table; token ids
+    must lie in [0, V); `seed` and `scale` as for `seeded_axpy_cuda`."""
     global gather_launches, gather_flops, gather_moved_bytes
-    if w.dim() != 2 or w.dtype != torch.float32 or not w.is_contiguous():
-        raise ValueError("seeded_gather: w must be a contiguous f32 [V, D]")
+    if w.dim() != 2 or w.dtype not in KERNEL_DTYPES \
+            or not w.is_contiguous():
+        raise ValueError("seeded_gather: w must be a contiguous f32 or bf16 "
+                         "[V, D]")
     if tokens.device != w.device or tokens.dtype != torch.int64:
         raise ValueError(f"seeded_gather: tokens must be int64 on {w.device}")
     check_seed(seed, w.device, "seeded_gather")
     _check_scale(scale, w.device, "seeded_gather")
     tok = tokens.contiguous()
     out = torch.empty(tuple(tokens.shape) + (w.shape[1],),
-                      dtype=torch.float32, device=w.device)
-    from repro_torch.kernels import build
-    _, fn = _lib()
+                      dtype=w.dtype, device=w.device)
+    fn = _lib()[1][w.dtype]
     stream = torch.cuda.current_stream(w.device).cuda_stream
     status = fn(w.data_ptr(), tok.data_ptr(), out.data_ptr(), tok.numel(),
                 w.shape[1], seed.data_ptr(), int(off) & MASK32,
                 scale.data_ptr(), stream)
-    build.check(status, "seeded_gather_f32")
+    build.check(status, f"seeded_gather_{build.SUFFIX[w.dtype]}")
     gather_launches += 1
     gather_flops += 12.0 * out.numel()
-    gather_moved_bytes += 8.0 * out.numel() + 8.0 * tok.numel()
+    gather_moved_bytes += 2.0 * w.element_size() * out.numel() \
+        + 8.0 * tok.numel()
     return out

@@ -14,6 +14,12 @@ frames, the SSD state and conv tail of the ssm family, the recurrent state
 and rolling attention window of the hybrid family. Every state is updated
 in place. The decode step runs eagerly
 (the reference jits it with the cache donated): one launch per operation.
+
+`serve_loop` takes the reference's `impl=` (`kernels.ops.use_impl`) and
+serves params in their own dtype: bf16 params of the dense family's GQA
+models give a bf16 KV cache, as the reference's `init_cache(...,
+dtype=dtype)`; other families in bf16 raise NotImplementedError naming
+ROADMAP A12. The CLI, as the reference's, has no dtype flag.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from repro_torch import prng, resolve_device
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.core import zo
+from repro_torch.kernels import ops as kops
 from repro_torch.models import registry
 
 
@@ -79,14 +86,18 @@ def serve_loop(cfg, params, tokens, gen_steps: int, *, extra_cap: int = 0,
     """Prefill + greedy decode on the params' device. tokens: [B, S_prompt]
     int → [B, S_prompt + gen_steps] int32 numpy: the prompt, the prefill's
     argmax, then gen_steps − 1 decode steps' argmax. `extra_cap` is taken
-    and unused, as in the reference. `hook(stage)`, if given, is called
-    with "start" (the prompt on the device), "prefill" and "decode" (after
-    each step) as the work is enqueued: a caller can record CUDA events
-    there."""
-    if impl is not None:
-        raise NotImplementedError(
-            "impl= (picking the plain versions or a kernel by name) is not "
-            "ported (ROADMAP A12)")
+    and unused, as in the reference. `impl` names the kernels'
+    implementation (`kernels.ops.IMPLS`), as in the reference; the params'
+    dtype is the cache's (`registry.check_dtype`). `hook(stage)`, if
+    given, is called with "start" (the prompt on the device), "prefill"
+    and "decode" (after each step) as the work is enqueued: a caller can
+    record CUDA events there."""
+    registry.check_dtype(cfg, zo.flatten(params)[0][1].dtype)
+    with kops.use_impl(impl):
+        return _serve(cfg, params, tokens, gen_steps, hook)
+
+
+def _serve(cfg, params, tokens, gen_steps: int, hook):
     mod = registry.get_module(cfg)
     mark = hook or (lambda stage: None)
     prompt = torch.as_tensor(np.asarray(tokens),

@@ -2,8 +2,11 @@
 `repro.models.layers`.
 
 Params are nested dicts of tensors; scan-stacked layer leaves carry a
-leading L dim (the forward slices one layer's views per step). Compute is
-f32; attention goes through `kernels.ops.attention` (the CUDA kernel on
+leading L dim (the forward slices one layer's views per step). Compute
+is in the params' dtype (f32, or bf16 for the dense family) with f32
+where the reference has it: matmuls accumulate in f32 (`torch.matmul` on
+bf16 operands, cuBLAS's f32 accumulation on the card), and norms, rope,
+softmax, SwiGLU's product and the logits are f32; attention goes through `kernels.ops.attention` (the CUDA kernel on
 the card, the plain version on the CPU). The projections stay
 `torch.matmul`, as `repro` leaves them to XLA — except on leaves tagged by
 the fused dual forward (`kops.PerturbedParam`), which go to the fused
@@ -45,12 +48,15 @@ class Normal:
     divisor: Optional[float] = None
 
 
-def init_from_specs(specs: dict, key: torch.Tensor, device) -> dict:
-    """f32 params from a family's `param_specs` — nested dicts and lists of
-    (shape, init) per leaf, init a `Normal`, None for ones or a `Fill` —
-    drawn from the root `key` (a `prng` key) as the reference's init draws
-    them, on `device` (on the meta device, shapes only: nothing is
-    drawn)."""
+def init_from_specs(specs: dict, key: torch.Tensor, device,
+                    dtype=torch.float32) -> dict:
+    """Params in `dtype` from a family's `param_specs` — nested dicts and
+    lists of (shape, init) per leaf, init a `Normal`, None for ones or a
+    `Fill` — drawn from the root `key` (a `prng` key) as the reference's
+    init draws them, on `device` (on the meta device, shapes only: nothing
+    is drawn). A normal leaf is drawn and scaled in f32 and then cast,
+    rounding to nearest even (the reference's `_init`); ones and fills are
+    made in `dtype`."""
     device = torch.device(device)
     key = key.to(device)
 
@@ -61,20 +67,20 @@ def init_from_specs(specs: dict, key: torch.Tensor, device) -> dict:
             return [build(v) for v in node]
         shape, init = node
         if device.type == "meta":
-            return torch.empty(shape, dtype=torch.float32, device=device)
+            return torch.empty(shape, dtype=dtype, device=device)
         if init is None:
-            return torch.ones(shape, dtype=torch.float32, device=device)
+            return torch.ones(shape, dtype=dtype, device=device)
         if isinstance(init, Fill):
-            return torch.full(shape, init.value, dtype=torch.float32,
-                              device=device)
+            return torch.full(shape, init.value, dtype=dtype, device=device)
         k = key
         for n, i in init.path:
             k = prng.split(k, n)
             if i is not None:
                 k = k[..., i, :]
         w = prng.normal(k, shape[k.dim() - 1:])
-        return w / init.divisor if init.divisor is not None \
+        w = w / init.divisor if init.divisor is not None \
             else w * init.scale
+        return w.to(dtype)
     return build(specs)
 
 

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import A12, resolve_dtype
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.zo import flatten
 from repro_torch.models import encdec, hybrid, ssm, transformer, vlm
@@ -33,11 +34,33 @@ def get_module(cfg: ModelConfig):
             f"unknown family {cfg.family!r} for {cfg.name}") from None
 
 
-def init_params(cfg: ModelConfig, key: torch.Tensor, device) -> Dict:
-    """`repro.models.registry.init_params(key, cfg)`'s weights: every leaf
-    drawn from `key` (a `repro_torch.prng` key, e.g. `prng.key(seed)`)
-    along the reference's key tree, on `device`."""
-    return get_module(cfg).init(cfg, key, device)
+def check_dtype(cfg: ModelConfig, dtype: torch.dtype) -> None:
+    """Raise NotImplementedError naming ROADMAP A12 where the port does not
+    hold `cfg` in `dtype` against the reference: bf16 runs the dense
+    family's GQA models only (not the ssm, hybrid, vlm or audio families,
+    nor MLA or MoE)."""
+    if dtype == torch.float32:
+        return
+    if cfg.family != "dense" or cfg.mla.enabled or cfg.moe.enabled:
+        what = "MLA" if cfg.mla.enabled else "MoE" if cfg.moe.enabled \
+            else f"the {cfg.family} family"
+        raise NotImplementedError(
+            f"{cfg.name} in {dtype}: {what} is not ported in {dtype} "
+            f"({A12}); the dense family's GQA models are")
+
+
+def init_params(cfg: ModelConfig, key: torch.Tensor, device,
+                dtype=torch.float32) -> Dict:
+    """`repro.models.registry.init_params(key, cfg, dtype)`'s weights:
+    every leaf drawn from `key` (a `repro_torch.prng` key, e.g.
+    `prng.key(seed)`) along the reference's key tree, on `device`, in
+    `dtype` (float32, or bfloat16 for the dense family: `check_dtype`)."""
+    dtype = resolve_dtype(dtype)
+    check_dtype(cfg, dtype)
+    mod = get_module(cfg)
+    if dtype == torch.float32:
+        return mod.init(cfg, key, device)
+    return mod.init(cfg, key, device, dtype)
 
 
 def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16) -> Dict:

@@ -50,9 +50,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
     return specs
 
 
-def init(cfg: ModelConfig, key, device) -> Dict:
-    """f32 params drawn from `key` (a `prng` key) as the reference's."""
-    return L.init_from_specs(param_specs(cfg), key, device)
+def init(cfg: ModelConfig, key, device, dtype=torch.float32) -> Dict:
+    """Params in `dtype` drawn from `key` (a `prng` key) as the
+    reference's."""
+    return L.init_from_specs(param_specs(cfg), key, device, dtype)
 
 
 def _block_apply(bp: Dict, x: torch.Tensor, positions: torch.Tensor,

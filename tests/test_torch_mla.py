@@ -178,11 +178,18 @@ def test_flash_attention_cuda_takes_mla_head_dims(monkeypatch, d):
 
 def test_every_instance_is_launched_and_described():
     """Each head dim of SUPPORTED_HEAD_DIMS has a launch case and an
-    attributes case in the CUDA source, and no other head dim has."""
+    attributes case in the CUDA source's f32 entry points, and no other
+    head dim has; likewise BF16_HEAD_DIMS in its bf16 entry points."""
     code = (build.CSRC / "flash_attention.cu").read_text()
-    launch = re.findall(r"case (\d+): return launch_(?:small|tc|group)<\1>",
-                        code)
-    attrs = re.findall(r"case (\d+): return (?:small|tc|group)_attributes<\1>",
-                       code)
+
+    def cases(entry):
+        body = code[code.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        return re.findall(r"case (\d+): return \w+<\1\b", body)
+
     want = [str(d) for d in fa.SUPPORTED_HEAD_DIMS]
-    assert launch == want and attrs == want
+    assert cases("flash_attention_f32") == want
+    assert cases("flash_attention_attributes") == want
+    want = [str(d) for d in fa.BF16_HEAD_DIMS]
+    assert cases("flash_attention_bf16") == want
+    assert cases("flash_attention_bf16_attributes") == want

@@ -59,6 +59,7 @@ from repro.models import registry as jreg  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core import zo  # noqa: E402
 from repro_torch.examples import serve_batched  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -409,7 +410,9 @@ def test_attention_plain_matches_reference_at_head_dim_128(impl):
 @pytest.mark.parametrize("what,item", [("impl", "A12"), ("vlm", "A8"),
                                        ("audio", "A8"), ("prefix", "A8")])
 def test_unported_serve_options_raise(what, item):
-    """`impl=`, which is not ported, raises naming its ROADMAP item. The
+    """The A12 case: `impl=` runs since A12's first part (the plain
+    versions by name, the same tokens on the CPU), and bf16 weights of a
+    family it does not hold in bf16 (the vlm here) raise naming A12. The
     A8 cases (the vlm and audio families, prefill behind prefix_embeds)
     are ported now and run: the vlm family with no frontend tokens
     serves what the dense family serves, reduced whisper-medium serves
@@ -421,8 +424,14 @@ def test_unported_serve_options_raise(what, item):
     cfg, params = case["cfg"], case["params"]
     tokens = _tokens(cfg, (BATCH, 4))
     if what == "impl":
+        np.testing.assert_array_equal(
+            serve.serve_loop(cfg, params, tokens, 2, impl="xla"),
+            serve.serve_loop(cfg, params, tokens, 2))
+        bf16 = zo.rebuild(params, [t.to(torch.bfloat16)
+                                   for _, t in zo.flatten(params)])
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            serve.serve_loop(cfg, params, tokens, 2, impl="xla")
+            serve.serve_loop(dataclasses.replace(cfg, family="vlm"), bf16,
+                             tokens, 2)
     elif what == "vlm":
         got = serve.serve_loop(dataclasses.replace(cfg, family="vlm"),
                                params, tokens, 2)
