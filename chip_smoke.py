@@ -47,10 +47,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      cases within one bf16 ulp of the f32 result, two calls bitwise, no
      local memory, timed at OPT-125M's and yi-6b's prefill shapes beside
      SDPA in bf16 (P rounded to bf16 before P·V: another function);
-     perturbed_matmul_bf16 at the fused path's 7 projections, ragged
-     shapes and a ragged K within one bf16 ulp of the f32 result, its
-     identity probes bitwise against seeded_axpy_bf16, timed beside
-     cuBLAS bf16 on the resolved weights;
+     perturbed_matmul_bf16 (on the tensor cores, w + eps·z in three bf16
+     pieces) at the fused path's 7 projections, ragged shapes, a ragged K
+     and K % 8 == 4 within one bf16 ulp of the f32 result, its identity
+     probes bitwise against seeded_axpy_bf16 (one on w + eps·z near
+     2^-112, whose lo pieces are subnormal), timed beside cuBLAS bf16 on
+     the resolved weights and its bound (bytes, 3×bf16 operations or one
+     draw a weight, the largest);
   3. small-input references: tiny runs on the GPU (kernels) and on the CPU
      (plain versions) from the same weights agree — the reduced vlm
      (internvl2-76b) and audio (whisper-medium with 32 frames) rounds, the
@@ -123,7 +126,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
        bf16     — OPT-125M in bf16 (`dtype=torch.bfloat16`), chained, as
                   `chained`; fails at `bf16_peak_gate` of the bf16 θ
                   (θ, two [2560, V] f32 logits, the lm head's f32 copy
-                  and half a θ: 4.61; a θ-sized copy fails it);
+                  that `unembed` made before its bf16 GEMM with f32
+                  output, and half a θ: 4.61; a θ-sized copy fails it);
        bf16-fused — the same with `fused_perturbation=True`, plus one
                   full-width bf16 fused dual forward from the path's
                   trained weights held within BF16_FUSED_RTOL of the
@@ -220,7 +224,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      `no_drop`); `--profile` adds one decode step's idle share; then
      opt-125m and yi-6b served from bf16 weights with a bf16 cache, θ
      and the peak gate at 2 bytes a parameter (the gate plus the lm
-     head's f32 copy), every prefill attention call within one bf16 ulp
+     head's f32 copy that `unembed` made before its bf16 GEMM with f32
+     output; no copy is made now), every prefill attention call within one bf16 ulp
      of the f32 result of its own inputs, the kernels' prefill logits
      against the plain versions' and decode ≡ forward within
      BF16_LOGITS_TOL of the logits' largest magnitude, each beside a
@@ -263,6 +268,7 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 on the tensor cores, dense
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 on the tensor cores, dense
 # per path: rounds (both engines), rounds a scan chunk, eval cadence
 SCAN = {"chained": (8, 4, 4), "fused": (4, 2, 2), "bf16": (8, 4, 4),
         "bf16-fused": (4, 2, 2), "mamba2": (4, 2, 2),
@@ -1286,7 +1292,7 @@ def check_perturbed_matmul(torch, dev) -> dict:
                            reps=5)
     # the same layer at M = BM·C rows (z drawn once per weight) beside
     # cuBLAS there
-    m_one = pmm.BM * pmm.CLUSTER
+    m_one = pmm.BM[torch.float32] * pmm.CLUSTER[torch.float32]
     one_ms = time_ms(torch, lambda: [pmm.perturbed_matmul_cuda(
         x[w.shape[0]][:m_one], w, s7, 0, eps) for w in ws])
     one_lib = time_ms(torch, lambda: [torch.matmul(x[w.shape[0]][:m_one], r)
@@ -1297,7 +1303,7 @@ def check_perturbed_matmul(torch, dev) -> dict:
     n_bytes = sum(4.0 * (M_ROWS * k + k * n + M_ROWS * n)
                   for k, n in PMM_LAYER)
     b_ms, b_by = bound_ms(n_bytes, flops)
-    draws = M_ROWS / (pmm.BM * pmm.CLUSTER)
+    draws = M_ROWS / m_one
     print(f"perturbed_matmul per call at M={M_ROWS}: "
           + ", ".join(f"{s} {t:.4f} ms (cuBLAS {per_shape_lib[s]:.4f})"
                       for s, t in per_shape.items())
@@ -1317,7 +1323,7 @@ def check_perturbed_matmul(torch, dev) -> dict:
             "library_ms": library_ms, "library": "torch.matmul (cuBLAS SGEMM) on resolved w + eps*z",
             "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
             "per_call_ms": per_shape, "per_call_library_ms": per_shape_lib,
-            "cluster": pmm.CLUSTER, "draws_per_weight": draws,
+            "cluster": pmm.CLUSTER[torch.float32], "draws_per_weight": draws,
             "one_draw_rows": m_one,
             "one_draw_ms": one_ms, "one_draw_library_ms": one_lib,
             "kernel_attributes": attrs,
@@ -1630,9 +1636,11 @@ def check_bf16_kernels(torch, dev) -> list:
     seeded_gather_bf16 against the plain bf16 version (BF16_AXPY_SHARE);
     flash_attention's bf16 instances within one bf16 ulp of the f32 result
     (the plain version on the same inputs widened), no local memory, two
-    calls bitwise; perturbed_matmul_bf16 within one bf16 ulp of the f32
-    result (w + eps·z in f32, as the kernel), its identity probe bitwise
-    against seeded_axpy_bf16."""
+    calls bitwise; perturbed_matmul_bf16 (three bf16 pieces on the tensor
+    cores) within one bf16 ulp of the f32 result (w + eps·z in f32, as the
+    kernel) in every x-copy path (K % 8 == 0, K % 8 == 4, ragged K), its
+    identity probes bitwise against seeded_axpy_bf16, one of them on
+    w + eps·z near 2^-112 whose lo pieces are subnormal."""
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.core import zo
@@ -1820,7 +1828,9 @@ def check_bf16_kernels(torch, dev) -> list:
     # perturbed_matmul_bf16: the fused path's 7 projections at M = 2560
     cases = [(M_ROWS, k, n, 3 * k * n) for k, n in PMM_SHAPES]
     cases += [(37, 200, 300, 2**32 - 7777), (M_ROWS + 37, 768, 768, 0),
-              (300, 3072, 768, 5 * 3072 * 768)]
+              (300, 3072, 768, 5 * 3072 * 768),
+              # K % 8 == 4: the x tile's 8-byte copies
+              (300, 772, 640, 123457)]
     p_worst = 0.0
     for m, k, n, off in cases:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
@@ -1844,6 +1854,26 @@ def check_bf16_kernels(torch, dev) -> list:
         require_equal(torch, probe, sa.seeded_axpy_cuda(
             w, seed_t(66), eps, torch.empty_like(w), off),
             f"perturbed_matmul_bf16 identity probe [{k},{n}]")
+    # the identity probe on w + eps·z near 2^-112, whose lo pieces fall
+    # below 2^-126 (subnormal, or past bf16's last bit at 2^-133)
+    tiny = torch.tensor(2.0 ** -113, dtype=torch.float32, device=dev)
+    w = (torch.randn((768, 768), generator=gen, device=dev)
+         * 2.0 ** -112).to(bf16)
+    probe = pmm.perturbed_matmul_cuda(
+        torch.eye(768, device=dev, dtype=bf16), w, seed_t(67), 99, tiny)
+    require_equal(torch, probe, sa.seeded_axpy_cuda(
+        w, seed_t(67), tiny, torch.empty_like(w), 99),
+        "perturbed_matmul_bf16 identity probe, subnormal lo pieces")
+    v = sa.seeded_axpy_cuda(w.float(), seed_t(67), tiny,
+                            torch.empty_like(w, dtype=torch.float32), 99)
+    rest = v - v.to(bf16).float()
+    rest = rest - (rest.view(torch.int32) & -65536).view(torch.float32)
+    lo = (rest.view(torch.int32) & -65536).view(torch.float32)
+    sub_share = float(((lo != 0) & (lo.abs() < 2.0 ** -126)).float().mean())
+    if not sub_share > 0.5:
+        raise AssertionError(f"perturbed_matmul_bf16 subnormal probe: only "
+                             f"{sub_share:.3f} of its lo pieces are "
+                             "subnormal")
     x = {k: torch.randn((M_ROWS, k), generator=gen, device=dev).to(bf16)
          for k in (768, 3072)}
     ws = [torch.randn(s, generator=gen, device=dev).to(bf16)
@@ -1862,18 +1892,32 @@ def check_bf16_kernels(torch, dev) -> list:
     p_lib_dev = device_ms(torch, lambda: [torch.matmul(x[w.shape[0]], r)
                                           for w, r in zip(ws, resolved)],
                           reps=5)
+    # the bound: the largest of the bytes, the three bf16 products (3 ×
+    # 2·M·K·N at BF16_FLOPS_PER_S) and one draw of each weight at
+    # seeded_axpy_bf16's issue rate (per_el SASS instructions a weight)
     flops = sum(2.0 * M_ROWS * k * n for k, n in PMM_LAYER)
     n_bytes = sum(2.0 * (M_ROWS * k + k * n + M_ROWS * n)
                   for k, n in PMM_LAYER)
-    pb_ms, pb_by = bound_ms(n_bytes, flops)
+    pb_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    pb_ops = 3 * flops / BF16_FLOPS_PER_S * 1e3
+    pb_issue = issue_bound_ms(torch, per_el,
+                              sum(k * n for k, n in PMM_LAYER))
+    pb_ms = max(pb_bytes, pb_ops, pb_issue)
+    pb_term = ("bytes" if pb_ms == pb_bytes else "3xbf16 operations"
+               if pb_ms == pb_ops else "one draw a weight (issue)")
+    pb_by = "bytes" if pb_ms == pb_bytes else "operations"
     p_attrs = pmm.kernel_attributes(M_ROWS, 768, bf16)
     print(f"perturbed_matmul_bf16: {len(cases) + 1} cases within "
           f"{p_worst:.3f} bf16 ulp of the f32 result, identity probes "
-          f"bitwise against seeded_axpy_bf16; one layer's 7 at M={M_ROWS} "
-          f"{p_ms:.4f} ms (plain {p_plain:.4f}, cuBLAS bf16 on resolved w "
-          f"{p_lib:.4f}); device time {p_dev:.4f} ms (cuBLAS "
-          f"{p_lib_dev:.4f}); bound {pb_ms:.4f} ms by {pb_by} (its products "
-          f"are f32: w + eps*z is not bf16); kernel {p_attrs}", flush=True)
+          f"bitwise against seeded_axpy_bf16 (one on w + eps*z near "
+          f"2^-112: {sub_share:.3f} of its lo pieces subnormal); one "
+          f"layer's 7 at M={M_ROWS} {p_ms:.4f} ms (plain {p_plain:.4f}, "
+          f"cuBLAS bf16 on resolved w {p_lib:.4f}); device time "
+          f"{p_dev:.4f} ms (cuBLAS {p_lib_dev:.4f}); bound {pb_ms:.4f} ms "
+          f"by {pb_term} (bytes {pb_bytes:.4f}, 3xbf16 operations "
+          f"{pb_ops:.4f}, one draw a weight {pb_issue:.4f}), "
+          f"{pb_ms / p_dev:.3f} of it by device time; kernel {p_attrs}",
+          flush=True)
     rows.append({"name": "perturbed_matmul_bf16",
                  "counter": "perturbed_matmul", "dtype": "bfloat16",
                  "route": "cuda",
@@ -1882,6 +1926,10 @@ def check_bf16_kernels(torch, dev) -> list:
                  "max_abs_err": p_worst,
                  "max_err_unit": "bf16 ulp of the f32 result", "ms": p_ms,
                  "plain_ms": p_plain, "bound_ms": pb_ms, "bound_by": pb_by,
+                 "bound_term": pb_term, "byte_bound_ms": pb_bytes,
+                 "bf16_ops_bound_ms": pb_ops, "issue_bound_ms": pb_issue,
+                 "bound_share": pb_ms / p_dev,
+                 "subnormal_lo_share": sub_share,
                  "library_ms": p_lib,
                  "library": "torch.matmul (cuBLAS bf16) on resolved w + "
                             "eps*z in bf16",
@@ -2436,7 +2484,7 @@ def run_serve_path(torch, dev, arch: str, profiling: bool,
     through `serve.main`. Configs in DEPTH run at full width with their
     depth cut. In bf16 (`dtype`) the weights are bf16, θ and the peak gate
     count 2 bytes a parameter (the gate also the lm head's f32 copy that
-    `unembed` makes), and the kernels-vs-plain prefill and decode ≡
+    `unembed` made before its bf16 GEMM with f32 output), and the kernels-vs-plain prefill and decode ≡
     forward hold to BF16_LOGITS_TOL of the largest magnitude."""
     import numpy as np
 
@@ -2495,6 +2543,8 @@ def run_serve_path(torch, dev, arch: str, profiling: bool,
     if launches != expected:
         raise AssertionError(f"serve {arch}: launches {launches}, expected "
                              f"{expected}")
+    # in bf16 the gate also holds the lm head's f32 copy, which `unembed`
+    # made before its bf16 GEMM with f32 output (kept as it was reckoned)
     row["peak_gate_theta"] = serve_peak_gate(cfg) + (
         4 * cfg.vocab_size * cfg.d_model / theta if bf16 else 0.0)
     if not row["peak_theta"] <= row["peak_gate_theta"]:
@@ -2830,11 +2880,12 @@ def theta_of(torch, cfg, dtype) -> int:
 def bf16_peak_gate(cfg, rows: int = M_ROWS) -> float:
     """The bf16 training paths' peak over a bf16 θ, reckoned from their
     structure: θ, the [rows, V] f32 logits twice (the logits and their
-    log-softmax's work), the lm head's [V, D] f32 copy (`unembed` widens
-    the bf16 weights for its f32 logits), and half a θ for the bf16
-    activations and the graph pool: 4.61 for OPT-125M. A θ-sized copy
+    log-softmax's work), the lm head's [V, D] f32 copy (which `unembed`
+    made by widening the bf16 weights until it took one bf16 GEMM with f32
+    output; the gate is kept as it was reckoned), and half a θ for the
+    bf16 activations and the graph pool: 4.61 for OPT-125M. A θ-sized copy
     fails it: the paths' peaks (3.80 θ on the loop engine, 3.98 on scan,
-    on an H100) plus one θ exceed it."""
+    on an H100, with the copy) plus one θ exceed it."""
     theta = 2 * cfg.param_count()
     head = 4 * cfg.vocab_size * cfg.d_model
     return 1.5 + (2 * 4 * rows * cfg.vocab_size + head) / theta

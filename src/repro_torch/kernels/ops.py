@@ -279,12 +279,25 @@ def perturbed_matmul(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
     return pmm.perturbed_matmul_plain(x, w, pp.seed, pp.off, pp.scale())
 
 
+def unembed_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """lm head [.., D] @ w[V, D]ᵀ → f32 logits, a plain large matmul. On a
+    CUDA device with bf16 operands it is one bf16 GEMM with f32 output: a
+    product of two bf16 values is exact in f32 and the sums are f32, as
+    `repro`'s einsum with `preferred_element_type=f32` computes it, and no
+    f32 copy of [V, D] is made. Otherwise both operands are widened to f32
+    (PyTorch's CPU build has no bf16 GEMM with f32 output)."""
+    if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(tuple(x.shape[:-1]) + (w.shape[0],))
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32).t())
+
+
 def perturbed_unembed(x: torch.Tensor, pp: PerturbedParam) -> torch.Tensor:
     """lm head [.., D] @ (w + eps·z)[V, D]ᵀ → f32 logits. Resolves one
-    [V, D] transient, freed after the product (as `repro` does); the
-    product itself is a plain large matmul."""
-    return torch.matmul(x.to(torch.float32),
-                        resolve(pp).to(torch.float32).t())
+    [V, D] transient in w's dtype, freed after the product (as `repro`
+    does); the product itself is `unembed_matmul`."""
+    return unembed_matmul(x, resolve(pp))
 
 
 def perturbed_gather(pp: PerturbedParam, tokens: torch.Tensor

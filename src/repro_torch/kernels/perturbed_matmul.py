@@ -18,13 +18,19 @@ into the shared memory of all of them, so z is drawn M / (128·CLUSTER)
 times per weight (5 at M = 2560), and x tiles arrive by `cp.async` ahead
 of the product.
 
-bf16 x and w (`perturbed_matmul_bf16` in the CUDA source), as `repro`'s
-kernel: w + eps·z built in f32 (not rounded), f32 accumulation, the
-product rounded once to x's dtype. The plain version is `repro`'s XLA
-path: w + eps·z resolved in w's dtype (a bf16 leaf rounds it), the
-product accumulated in f32, then cast to x's dtype; so in bf16 the two
-part by w + eps·z's rounding, and `chip_smoke.py` holds the kernel to
-the plain version on f32 copies of the same inputs.
+bf16 x and w (`perturbed_matmul_bf16`, kernel `pmm_kernel_bf16`), as
+`repro`'s kernel: w + eps·z built in f32 (not rounded), f32 accumulation,
+the product rounded once to x's dtype. Its products run on the tensor
+cores: w + eps·z is split into three bf16 pieces whose sum is it (its 24
+significant bits), x (exact in bf16) times each piece is exact in f32, and
+three `mma.sync` m16n8k16 bf16 products (x·lo, x·mid, x·hi) accumulate in
+f32; its tile rows `BM` and cluster `CLUSTER` are its own. Its bound is
+the three products: 3·2·M·K·N at the 989 TFLOP/s of bf16, 0.1466 ms for
+one OPT-125M layer's 7 projections at M = 2560. The plain version is
+`repro`'s XLA path: w + eps·z resolved in w's dtype (a bf16 leaf rounds
+it), the product accumulated in f32, then cast to x's dtype; so in bf16
+the two part by w + eps·z's rounding, and `chip_smoke.py` holds the
+kernel to the plain version on f32 copies of the same inputs.
 
 `perturbed_matmul_plain` is the plain PyTorch version (resolve w + eps·z,
 then `torch.matmul` in f32); `launches` counts kernel launches.
@@ -45,9 +51,11 @@ launches = 0
 #: column reckons them
 flops = 0.0
 moved_bytes = 0.0
-#: blocks per thread-block cluster along M: kCluster of the CUDA source
-CLUSTER = 4
-BM = 128            # output rows per block
+#: blocks per thread-block cluster along M, per dtype: kCluster (f32) and
+#: kTcCluster (bf16) of the CUDA source
+CLUSTER = {torch.float32: 4, torch.bfloat16: 4}
+#: output rows per block, per dtype: BM and kTcBM of the CUDA source
+BM = {torch.float32: 128, torch.bfloat16: 128}
 
 
 def perturbed_matmul_plain(x: torch.Tensor, w: torch.Tensor, seed,
@@ -71,15 +79,18 @@ def _lib():
 def kernel_attributes(m: int, n: int, dtype=torch.float32) -> dict:
     """The `dtype` instance as built and launched for an [m, ·] × [·, n]
     call on the current CUDA device: registers and local memory per
-    thread, shared memory per block, cluster size and residency."""
+    thread, shared memory per block, cluster size and residency, the grid,
+    and the tile: output rows and columns a block, K a step, threads a
+    block."""
     fn = build.load("perturbed_matmul").perturbed_matmul_attributes
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 8)()
+    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+            "cluster", "resident_clusters", "blocks_per_sm", "grid_blocks",
+            "block_rows", "block_cols", "block_k", "threads")
+    info = (ctypes.c_int * len(keys))()
     build.check(fn(m, n, int(dtype == torch.bfloat16),
                    ctypes.addressof(info)), "perturbed_matmul_attributes")
-    keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
-            "cluster", "resident_clusters", "blocks_per_sm", "grid_blocks")
     return dict(zip(keys, info))
 
 
@@ -112,7 +123,8 @@ def perturbed_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     n = w.shape[1]
     if max(m, k, n) >= 2**31:
         raise ValueError("perturbed_matmul: dims must be below 2³¹")
-    if -(-m // (BM * CLUSTER)) * CLUSTER > 65535:
+    bm, cluster = BM[w.dtype], CLUSTER[w.dtype]
+    if -(-m // (bm * cluster)) * cluster > 65535:
         raise ValueError(f"perturbed_matmul: M = {m} needs more than 65535 "
                          "row blocks")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)

@@ -162,7 +162,7 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
     """lm head: [.., D] @ [V, D]ᵀ → [.., V] f32 logits."""
     if isinstance(p["w"], kops.PerturbedParam):
         return kops.perturbed_unembed(x, p["w"])
-    return torch.matmul(x.to(torch.float32), p["w"].to(torch.float32).t())
+    return kops.unembed_matmul(x, p["w"])
 
 
 def head(params: dict) -> dict:

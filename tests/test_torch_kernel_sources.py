@@ -4,16 +4,21 @@ depend on. CPU only: nothing here compiles or launches a kernel.
 - the build targets sm_90a and never passes --use_fast_math, so logf,
   cosf, sqrtf and expf stay the precise versions;
 - no code line under csrc/ calls a fast-math intrinsic or uses wgmma;
-- no code line reaches the tensor cores (TF32, mma.sync) but inside
-  flash_attention.cu's two 3xTF32 helpers, `tc_split` and `tc_mma3`,
-  which issue exactly three mma.sync a product (lo.hi, hi.lo, hi.hi):
-  perturbed_matmul and seeded_axpy keep f32 FMA for their bitwise
-  identity probe and their parity with cuBLAS SGEMM, and flash
-  attention's 3xTF32 is held to the flash gate on the card;
+- no code line reaches the tensor cores (TF32, mma.sync) but inside the
+  named helpers: flash_attention.cu's 3xTF32 `tc_split` and `tc_mma3`,
+  which issue exactly three mma.sync a product (lo.hi, hi.lo, hi.hi),
+  and perturbed_matmul.cu's bf16 `bf16_split3` and `bf16_mma3`, which
+  issue exactly three bf16 mma.sync a product (x.lo, x.mid, x.hi) and
+  only from the bf16 kernel: the f32 perturbed_matmul and seeded_axpy
+  keep f32 FMA for their bitwise identity probe and their parity with
+  cuBLAS SGEMM, flash attention's 3xTF32 is held to the flash gate on the
+  card, and perturbed_matmul_bf16's three pieces carry w + eps·z's 24
+  bits, so its identity probe stays bitwise;
 - every kernel that draws z includes the one counter-hash header;
 - a library is rebuilt when a shared header changes;
 - each ctypes binding matches its C entry point, argument for argument,
-  and perturbed_matmul's wrapper has the cluster size of its source.
+  and perturbed_matmul's wrapper has the cluster size and block rows of
+  its source for each dtype.
 """
 import ctypes
 import re
@@ -38,7 +43,9 @@ SOURCE_FILES = sorted(p.name for p in build.CSRC.iterdir()
                       if p.suffix in (".cu", ".cuh"))
 # the only code allowed on the tensor cores: (file, helper)
 TC_HELPERS = (("flash_attention.cu", "tc_split"),
-              ("flash_attention.cu", "tc_mma3"))
+              ("flash_attention.cu", "tc_mma3"),
+              ("perturbed_matmul.cu", "bf16_split3"),
+              ("perturbed_matmul.cu", "bf16_mma3"))
 
 
 def _code_lines(text: str):
@@ -67,6 +74,20 @@ def _helper_span(lines, name: str) -> range:
     signature to its closing brace."""
     start = next(i for i, line in enumerate(lines)
                  if re.search(rf"__device__ .*\b{name}\(", line))
+    return _braced_from(lines, start, name)
+
+
+def _kernel_span(lines, name: str) -> range:
+    """The code lines of the kernel `name(...) { ... }`, from the line that
+    opens its parameter list (`name(` at the line's start) to its closing
+    brace."""
+    start = next(i for i, line in enumerate(lines)
+                 if re.match(rf"{name}\(", line))
+    return _braced_from(lines, start, name)
+
+
+def _braced_from(lines, start: int, name: str) -> range:
+    """Lines start.. through the brace that closes the first one opened."""
     depth, seen = 0, False
     for i in range(start, len(lines)):
         depth += lines[i].count("{") - lines[i].count("}")
@@ -109,6 +130,32 @@ def test_tensor_core_helpers_issue_three_passes():
     assert "0xffffe000u" in split and "x - __uint_as_float(hi)" in split
     kernel = "\n".join(lines)
     assert "tc_mma3(" in kernel[kernel.index("flash_fwd_tc_kernel("):]
+
+
+def test_bf16_tensor_core_helpers_issue_three_passes():
+    """perturbed_matmul.cu's bf16_mma3 is three mma.sync m16n8k16 bf16
+    products into f32 accumulators, the pieces small first: x.lo, x.mid,
+    x.hi; bf16_split3 issues none (hi rounded to nearest even, mid and lo
+    toward zero); the bf16 kernel splits with bf16_split3 and multiplies
+    through bf16_mma3; and the f32 kernel pmm_kernel<float> reaches no
+    tensor-core helper."""
+    lines = _code_lines((build.CSRC / "perturbed_matmul.cu").read_text())
+    mma3 = "\n".join(lines[i] for i in _helper_span(lines, "bf16_mma3"))
+    split = "\n".join(lines[i] for i in _helper_span(lines, "bf16_split3"))
+    assert mma3.count("mma.sync") == 3
+    assert mma3.count(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32") == 3
+    assert re.findall(r'"r"\((b\w+)\[0\]\)', mma3) == ["blo", "bmid", "bhi"]
+    assert "mma" not in split
+    assert split.count("__float2bfloat16_rn(") == 2
+    assert split.count("__float2bfloat16_rz(") == 4
+    bf16_kernel = "\n".join(lines[i]
+                            for i in _kernel_span(lines, "pmm_kernel_bf16"))
+    assert "bf16_mma3(" in bf16_kernel and "bf16_split3(" in bf16_kernel
+    f32_kernel = "\n".join(lines[i] for i in _kernel_span(lines, "pmm_kernel"))
+    assert "Elem" in f32_kernel and "fmaf(" in f32_kernel
+    for word in ("mma", "ldsm", "ldmatrix", "split3", "tc_split"):
+        assert word not in f32_kernel, word
 
 
 def test_tf32_rounding_helper_rounds_as_cvt_rna():
@@ -239,19 +286,27 @@ def test_ctypes_bindings_match_c_entry_points(monkeypatch):
 
 def test_perturbed_matmul_cluster_matches_its_source():
     """The wrapper's row-block limit and the drawn-tile accounting use
-    CLUSTER; the kernel's grid and draws use kCluster."""
+    CLUSTER and BM per dtype; the kernels' grids and draws use kCluster and
+    BM (f32) and kTcCluster and kTcBM (bf16)."""
+    torch = pytest.importorskip("torch")
     code = "\n".join(_code_lines(
         (build.CSRC / "perturbed_matmul.cu").read_text()))
-    found = re.findall(r"constexpr int kCluster = (\d+);", code)
-    assert found == [str(pmm.CLUSTER)]
-    assert re.findall(r"constexpr int BM = (\d+);", code) == [str(pmm.BM)]
+    assert set(pmm.CLUSTER) == set(pmm.BM) == set(build.SUFFIX)
+    for dtype, cluster, bm in ((torch.float32, "kCluster", "BM"),
+                               (torch.bfloat16, "kTcCluster", "kTcBM")):
+        found = re.findall(rf"constexpr int {cluster} = (\d+);", code)
+        assert found == [str(pmm.CLUSTER[dtype])]
+        found = re.findall(rf"constexpr int {bm} = (\d+);", code)
+        assert found == [str(pmm.BM[dtype])]
 
 
-def test_perturbed_matmul_rejects_too_many_row_blocks_before_launch():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_perturbed_matmul_rejects_too_many_row_blocks_before_launch(dtype):
     torch = pytest.importorskip("torch")
-    m = 65535 * pmm.BM + 1
-    x = torch.zeros((m, 4), device="meta")
-    w = torch.zeros((4, 4), device="meta")
+    dtype = getattr(torch, dtype)
+    m = 65535 * pmm.BM[dtype] + 1
+    x = torch.zeros((m, 4), dtype=dtype, device="meta")
+    w = torch.zeros((4, 4), dtype=dtype, device="meta")
     eps = torch.zeros((), device="meta")
     seed = torch.zeros((), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="65535 row blocks"):
