@@ -4,6 +4,9 @@ away and by changing one design choice at a time.
 
     python3 chip_flash_variants.py [--head-dim 256|192|128|96]
                                    [--baseline FILE.cu] [variant ...]
+    python3 chip_flash_variants.py --dtype bf16 [--head-dim 64|128]
+                                   [--main LABEL] [--baseline FILE.cu]
+                                   [variant ...]
 
 Each variant is src/repro_torch/kernels/csrc/flash_attention.cu with one or
 more text substitutions (VARIANTS below for the head_dim-256 kernel,
@@ -23,9 +26,24 @@ blocks scored apart or a whole tile at once, and `skip_lo_terms`
 (one TF32 pass, timed only: never the kernel, which needs three); each
 checked variant also prints its largest share of the flash gate and, at
 inputs x8, its distance from the f64 value beside attention_plain's.
-`--baseline`
+`--dtype bf16` takes the bf16 kernel (`flash_fwd_bf16_kernel`) with
+BF16_VARIANTS: at 64 (the default) OPT-125M's training shape
+([40,12,64,64], causal), also timed at whisper-medium's encoder
+([40,16,1500,64], non-causal) and cross-attention (q [40,16,64,64] on
+1500 keys); at 128 yi-6b's prefill (q [4,32,32,128] on [4,4,32,128]),
+also timed at a 2048-token prompt (`--main` makes one of these timed
+shapes the main one: checked, traced and timed first); design variants
+(rows an item, key tile, K/V a row a copy or in blocks, ring slots,
+blocks an SM, unrolling, the producer's order, the output divided a value
+at a time) held within one bf16 ulp of `attention_plain` in f32 (chip_smoke's
+`within_bf16_ulp`) and to two calls bitwise, `skip_lo_pass` (P in one
+bf16 piece, as SDPA in bf16: another function) timed with its reading in
+those ulps printed, and a `skip_*` variant for each phase. Substitutions
+of the bf16 variants apply to the bf16 kernel's part of the source
+only, those of the f32 variants to the rest. `--baseline`
 adds one more variant, "baseline": another flash_attention.cu built as it
-is (an older version of the source, to time against in the same call).
+is (an older version of the source, to time against in the same call;
+in bf16 its `flash_attention_bf16`).
 Three kinds:
   - design variants change one choice (threads, rows an item, persistence,
     FMA order, unrolling, Q copies) and are held against `attention_plain`
@@ -39,6 +57,7 @@ Three kinds:
     from registers instead of shared memory), compute a wrong result by
     construction and are only timed: what they save is that phase's share
     of the call.
+Variants join with "+" (`bk_32+min_blocks_4`: the substitutions of both).
 Every variant runs twice, in the order given and then reversed, on the
 same inputs. Printed per run: the device time of one call (its kernel's
 self time under torch.profiler, mean of 20 calls); per variant, ptxas's
@@ -77,10 +96,29 @@ TC_TIMED = {192: {"prefill": ((4, 128, 32, 192), (4, 128, 32, 192))},
             96: {"prefill": ((4, 40, 32, 96), (4, 40, 32, 96))}}
 
 
-def tc_checks(d: int) -> tuple:
-    return (TC_MAIN[d],
-            ((2, 16, 45, d), (2, 2, 130, d), True, 40),
+# the bf16 kernel's shapes: the training or prefill shape it is tuned at,
+# and the shapes timed beside it
+BF16_MAIN = {64: ((40, 12, 64, 64), (40, 12, 64, 64), True, None),
+             128: ((4, 32, 32, 128), (4, 4, 32, 128), True, None)}
+BF16_TIMED = {64: {"whisper encoder": ((40, 16, 1500, 64),
+                                       (40, 16, 1500, 64), False),
+                   "whisper cross": ((40, 16, 64, 64), (40, 16, 1500, 64),
+                                     False)},
+              128: {"prompt 2048": ((1, 32, 2048, 128), (1, 4, 2048, 128),
+                                    True)}}
+# the bf16 kernel's part of the source (its design note to the end of the
+# anonymous namespace)
+BF16_BEGIN = "// bf16 at head_dim 16, 32, 64 and 128 (flash_fwd_bf16_kernel"
+BF16_END = "}  // namespace"
+
+
+def extra_checks(d: int) -> tuple:
+    return (((2, 16, 45, d), (2, 2, 130, d), True, 40),
             ((2, 4, 70, d), (2, 2, 300, d), True, None))
+
+
+def tc_checks(d: int) -> tuple:
+    return (TC_MAIN[d],) + extra_checks(d)
 
 
 def _consts(**values) -> list:
@@ -293,8 +331,8 @@ _P_IN_PLACE = """          uint32_t ph[4], pl[4];
           tc_split(pc[j][3], ph[3], pl[3]);"""
 _V_ROWS_T = [
     ("+ 2 * tq * RS + g;", "+ tq * RS + g;"),
-    ("tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);",
-     "tc_split(to_f32(vj[4 * RS + 8 * n]), bh[1], bl[1]);")]
+    ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
+     "tc_split(vj[4 * RS + 8 * n], bh[1], bl[1]);")]
 _P_SMEM = """          float* pw = p_tile + g * 12 + 2 * tq;
           *reinterpret_cast<float2*>(pw) = make_float2(pc[j][0], pc[j][1]);
           *reinterpret_cast<float2*>(pw + 8 * 12) = make_float2(pc[j][2], pc[j][3]);
@@ -424,10 +462,10 @@ TC_VARIANTS = {
                       f"bh[{i}] = __float_as_uint(y.{c}); bl[{i}] = 0;")
                      for c, i in (("x", 0), ("y", 1))],
     "skip_v_split": [
-        ("tc_split(to_f32(vj[8 * n]), bh[0], bl[0]);",
-         "bh[0] = __float_as_uint(to_f32(vj[8 * n])); bl[0] = 0;"),
-        ("tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);",
-         "bh[1] = __float_as_uint(to_f32(vj[RS + 8 * n])); bl[1] = 0;")],
+        ("tc_split(vj[8 * n], bh[0], bl[0]);",
+         "bh[0] = __float_as_uint(vj[8 * n]); bl[0] = 0;"),
+        ("tc_split(vj[RS + 8 * n], bh[1], bl[1]);",
+         "bh[1] = __float_as_uint(vj[RS + 8 * n]); bl[1] = 0;")],
     # no products at all (nor the loads and splits that feed them)
     "skip_mma": [(_LO_TERMS + _HI_TERM, "")],
     # no copies: the consumers work on whatever shared memory holds
@@ -438,32 +476,164 @@ TC_VARIANTS = {
 }
 
 
+def _bf16_part(src: str) -> tuple:
+    """The source cut into (before, the bf16 kernel's part, after)."""
+    i = src.index(BF16_BEGIN)
+    j = src.index(BF16_END, i)
+    return src[:i], src[i:j], src[j:]
+
+
+def _bf_shape(d: int, **values) -> list:
+    """Substitutions of Bf16Shape's constants at head dim d (the other head
+    dims keep theirs)."""
+    part = _bf16_part(SOURCE.read_text())[1]
+    out = []
+    for name, value in values.items():
+        m = re.search(rf"static constexpr (int|bool) {name} = ([^;]+);", part)
+        if m is None:
+            raise AssertionError(f"Bf16Shape::{name} not in the source")
+        out.append((m.group(0), f"static constexpr {m.group(1)} {name} = "
+                                f"D == {d} ? {value} : ({m.group(2)});"))
+    return out
+
+
+def _bf16_pass(operand: str, acc: str = "c") -> str:
+    """One mma.sync of the bf16 helpers, as written in the source."""
+    return ('  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, '
+            '%1, %2, %3}, "\n'
+            '      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"\n'
+            f'      : "+f"({acc}[0]), "+f"({acc}[1]), "+f"({acc}[2]), '
+            f'"+f"({acc}[3])\n'
+            f'      : "r"({operand}[0]), "r"({operand}[1]), "r"({operand}[2]), '
+            f'"r"({operand}[3]), "r"(b0), "r"(b1));\n')
+
+
+_BF16_EXPS = [(f"{x} = expf({y});", f"{x} = ({y});") for x, y in (
+    ("alpha[h]", "m[h] - mu[h]"),
+    ("sc[j][e]", "sc[j][e] - mu[e >> 1]"))]
+
+_BF16_TRACE = [
+    ("template <int D>\nstruct Bf16Shape {",
+     _TRACE_DECL.replace("namespace {\n", "")
+     + "template <int D>\nstruct Bf16Shape {"),
+    ("  __syncthreads();\n\n  // round r's item, in snake order",
+     "  __syncthreads();\n  int ntr = 0;\n  trace_time(46);\n  trace_mark(ntr);\n"
+     "\n  // round r's item, in snake order"),
+    ("    if (index >= a.n_items) break;\n    const GroupItem it = group_item(a, index);\n"
+     "    const int t_first = it.k_begin / BK;\n    const int t_end = (it.k_end + BK - 1) / BK;\n"
+     "    // the positions",
+     "    if (index >= a.n_items) { trace_time(47); break; }\n"
+     "    const GroupItem it = group_item(a, index);\n"
+     "    const int t_first = it.k_begin / BK;\n    const int t_end = (it.k_end + BK - 1) / BK;\n"
+     "    // the positions")]
+_BF16_TRACE += [(m, m + "trace_mark(ntr);\n") for m in (
+    "    mbar_wait(q_full, round & 1);\n", "      scores(t, p);\n",
+    "      softmax(t, p);\n", "      weigh(t, p);\n",
+    "    __syncwarp();                                 // os is rewritten next item\n")]
+
+BF16_VARIANTS = {
+    "as_built": [],
+    # clock stamps of consumer warp 0's lane 0: the block's start, Q landed,
+    # after each tile's scores, softmax and P V, after an item's stores
+    "trace": _BF16_TRACE,
+    # (q head, position) rows an item: 16 a consumer warp
+    "warps_2": lambda d: _bf_shape(d, kWarps=2),
+    "warps_8": lambda d: _bf_shape(d, kWarps=8),
+    "bk_32": lambda d: _bf_shape(d, kBK=32),
+    "bk_64": lambda d: _bf_shape(d, kBK=64),
+    "bk_128": lambda d: _bf_shape(d, kBK=128),
+    "slots_2": lambda d: _bf_shape(d, kSlots=2),
+    "slots_4": lambda d: _bf_shape(d, kSlots=4),
+    "slots_6": lambda d: _bf_shape(d, kSlots=6),
+    "slots_8": lambda d: _bf_shape(d, kSlots=8),
+    # __launch_bounds__' blocks an SM: the register cap ptxas works to
+    "min_blocks_2": lambda d: _bf_shape(d, kBlocksPerSM=2),
+    "min_blocks_3": lambda d: _bf_shape(d, kBlocksPerSM=3),
+    "min_blocks_4": lambda d: _bf_shape(d, kBlocksPerSM=4),
+    "min_blocks_5": lambda d: _bf_shape(d, kBlocksPerSM=5),
+    "min_blocks_6": lambda d: _bf_shape(d, kBlocksPerSM=6),
+    "min_blocks_8": lambda d: _bf_shape(d, kBlocksPerSM=8),
+    "bk_16": lambda d: _bf_shape(d, kBK=16),
+    # S's k-steps unrolled one, two or all at a time (more products in
+    # flight, more registers)
+    "s_unroll_1": lambda d: _bf_shape(d, kSUnroll=1),
+    "s_unroll_2": lambda d: _bf_shape(d, kSUnroll=2),
+    "s_unroll_all": lambda d: _bf_shape(d, kSUnroll=d // 16),
+    # P V's 8-column blocks two at a time
+    "pv_unroll_1": [("#pragma unroll\n          for (int n = 0; n < D / 16; ++n) {",
+                     "#pragma unroll 1\n          for (int n = 0; n < D / 16; ++n) {")],
+    # the producer copies an item's first K tile before its Q
+    "k_first": [("        if (t == t_first) {\n          // the item's Q rows",
+                 "        if (t == t_first) load_tile(k, it.bkv, t);\n"
+                 "        if (t == t_first) {\n          // the item's Q rows"),
+                ("        load_tile(k, it.bkv, t);\n        load_tile(v, it.bkv, t);",
+                 "        if (t != t_first) load_tile(k, it.bkv, t);\n"
+                 "        load_tile(v, it.bkv, t);")],
+    # P in one bf16 piece (hi V only): another function, timed only
+    "skip_lo_pass": [(_bf16_pass("pl"), "")],
+    # no products of S, or of P V (their loads stay: ldmatrix is volatile)
+    "skip_qk": [(_bf16_pass("a", "z"), "")],
+    "skip_pv": [(_bf16_pass("pl") + _bf16_pass("ph"), "")],
+    # no exponentials: the softmax's subtractions and sums only
+    "skip_exps": _BF16_EXPS,
+    # P's pieces as raw bits, no rounding or subtraction
+    "skip_split": [(
+        "  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);\n"
+        "  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(x, __low2float(h)),\n"
+        "                                                 __fsub_rn(y, __high2float(h)));\n"
+        "  hi = *reinterpret_cast<const uint32_t*>(&h);\n"
+        "  lo = *reinterpret_cast<const uint32_t*>(&l);\n",
+        "  hi = __float_as_uint(x);\n  lo = __float_as_uint(y);\n")],
+    "skip_copies": _SKIP_COPIES,
+    # the output times 1 / l, without quotient_rn's correction
+    "skip_div": [("  return __fmaf_rn(__fmaf_rn(-q, d, x), inv, q);", "  return q;")],
+    # the output divided by l, one division a value
+    "divide": [("store2(op + 8 * n, quotient_rn(acc[n][2 * h], den, inv),\n"
+                "               quotient_rn(acc[n][2 * h + 1], den, inv));",
+                "store2(op + 8 * n, acc[n][2 * h] / den, acc[n][2 * h + 1] / den);")],
+    # no stores to device memory (the staging in shared memory stays)
+    "skip_stores": [("      if (row >= 0)\n        reinterpret_cast<uint4*>(o + row * D)",
+                     "      if (row < -1)\n        reinterpret_cast<uint4*>(o + row * D)")],
+}
+
+
 def variant_source(name: str, baseline, variants: dict, d: int) -> str:
     if name == "baseline":
         return Path(baseline).read_text()
-    subs = variants[name]
-    subs = subs(d) if callable(subs) else subs
-    src = SOURCE.read_text()
-    if name == "trace":
-        src += _TRACE_TAIL
+    # "a+b": the substitutions of a, then those of b
+    subs = []
+    for part_name in name.split("+"):
+        part_subs = variants[part_name]
+        subs += part_subs(d) if callable(part_subs) else part_subs
+    before, part, after = _bf16_part(SOURCE.read_text())
+    # the bf16 variants change the bf16 kernel's part, the others the rest
+    mark = "\x00"
+    if variants is BF16_VARIANTS:
+        src, kept = part, before + mark + after
+    else:
+        src, kept = before + mark + after, part
     for old, new in subs:
         if src.count(old) != 1:
             raise AssertionError(f"{name}: {old!r} found {src.count(old)} "
                                  "times in the source")
         src = src.replace(old, new)
-    return src
+    src = (kept.replace(mark, src) if variants is BF16_VARIANTS
+           else src.replace(mark, kept))
+    return src + _TRACE_TAIL if "trace" in name.split("+") else src
 
 
-def ptxas_summary(log: str, d: int) -> dict:
+def ptxas_summary(log: str, d: int, bf16: bool = False) -> dict:
     """Registers and spill bytes of the head_dim-d kernel (at 256 the group
     kernel, or the split kernel of an older source; at 96 and 192 the tc
-    kernel, or an older source's small or group kernel)."""
+    kernel, or an older source's small or group kernel; in bf16 the bf16
+    kernel, or an older source's bf16 small or tc instance)."""
+    pattern = (rf"flash_fwd_bf16_kernelILi{d}E|"
+               rf"flash_fwd_(small|tc)_kernelILi{d}E13__nv_bfloat16" if bf16
+               else rf"flash_fwd_(tc|group|small|split)_kernelILi{d}E[fE]")
     out, inside = {}, False
     for line in log.splitlines():
         if "Function properties for" in line:
-            inside = bool(re.search(
-                rf"flash_fwd_(tc|group|small|split)_kernelILi{d}E[fE]",
-                line))
+            inside = bool(re.search(pattern, line))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and inside:
@@ -476,7 +646,7 @@ def ptxas_summary(log: str, d: int) -> dict:
     return out
 
 
-def build(names, baseline, d: int, variants: dict) -> dict:
+def build(names, baseline, d: int, variants: dict, bf16: bool) -> dict:
     """One nvcc per variant, all started together (the port's flags plus
     -Xptxas -v); returns name -> (library path, ptxas summary)."""
     from repro_torch.kernels import build as kbuild
@@ -495,14 +665,15 @@ def build(names, baseline, d: int, variants: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        out[name] = (lib, ptxas_summary(log, d))
+        out[name] = (lib, ptxas_summary(log, d, bf16))
     return out
 
 
-def attributes(lib, d: int) -> dict:
+def attributes(lib, d: int, bf16: bool) -> dict:
     """The head_dim-d kernel's registers, shared memory and blocks an SM,
     as the variant's library reports them on this card."""
-    fn = lib.flash_attention_attributes
+    fn = lib.flash_attention_bf16_attributes if bf16 \
+        else lib.flash_attention_attributes
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     info = (ctypes.c_int * 8)()
@@ -511,6 +682,25 @@ def attributes(lib, d: int) -> dict:
     keys = ("registers", "local_bytes", "static_smem", "dynamic_smem",
             "blocks_per_sm", "threads", "rows", "key_tile")
     return dict(zip(keys, info))
+
+
+def _option(args: list, flag: str, default):
+    """The value after `flag` in args (removed from them), or default."""
+    if flag not in args:
+        return default
+    i = args.index(flag)
+    value = args[i + 1]
+    del args[i:i + 2]
+    return value
+
+
+def bf16_ulps(torch, chip_smoke, got, ref) -> float:
+    """chip_smoke's `within_bf16_ulp` reading without its raise: the
+    largest |got - ref| in bf16 ulps of |ref| (or of max|ref| / 256)."""
+    ref = ref.float()
+    tol = chip_smoke.bf16_ulp(torch, torch.clamp_min(
+        ref.abs(), float(ref.abs().max()) / 256))
+    return float(((got.float() - ref).abs() / tol).max())
 
 
 def main() -> int:
@@ -523,20 +713,32 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
 
     args = sys.argv[1:]
-    baseline = None
-    if "--baseline" in args:
-        i = args.index("--baseline")
-        baseline = args[i + 1]
-        del args[i:i + 2]
-    d = 256
-    if "--head-dim" in args:
-        i = args.index("--head-dim")
-        d = int(args[i + 1])
-        del args[i:i + 2]
-    if d == 256:
+    baseline = _option(args, "--baseline", None)
+    dtype_name = _option(args, "--dtype", "f32")
+    if dtype_name not in ("f32", "bf16"):
+        raise SystemExit(f"--dtype takes f32 or bf16, not {dtype_name}")
+    bf16 = dtype_name == "bf16"
+    d = int(_option(args, "--head-dim", 64 if bf16 else 256))
+    if bf16:
+        if d not in BF16_MAIN:
+            raise SystemExit(f"--dtype bf16 --head-dim takes 64 or 128, "
+                             f"not {d}")
+        variants, main_case = BF16_VARIANTS, BF16_MAIN[d]
+        # --main LABEL: one of BF16_TIMED's shapes as the main shape
+        label = _option(args, "--main", None)
+        if label is not None:
+            qs, ks, causal = BF16_TIMED[d][label]
+            main_case = (qs, ks, causal, None)
+        # and non-causal over several key tiles
+        checks = (main_case,) + extra_checks(d) + (
+            ((2, 4, 150, d), (2, 4, 150, d), False, None),)
+        dtype = torch.bfloat16
+    elif d == 256:
         variants, main_case, checks = VARIANTS, MAIN, CHECKS
+        dtype = torch.float32
     elif d in TC_MAIN:
         variants, main_case, checks = TC_VARIANTS, TC_MAIN[d], tc_checks(d)
+        dtype = torch.float32
     else:
         raise SystemExit(f"--head-dim takes 256, 192, 128 or 96, not {d}")
     names = args or list(variants)
@@ -547,49 +749,79 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    built = build(names, baseline, d, variants)
+    built = build(names, baseline, d, variants, bf16)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     inputs = []
     for qs, ks, causal, window in checks:
-        q = torch.randn(qs, generator=gen, device=dev)
-        k, v = (torch.randn(ks, generator=gen, device=dev) for _ in range(2))
-        inputs.append((q, k, v, causal, window,
-                       fa.attention_plain(q, k, v, causal, window)))
-    # inputs x8 (scores x64): every f32 implementation, the plain version
-    # included, is tens of times the 1e-5 gate from the exact value here;
-    # printed against the f64 value, beside the plain version's own
-    qs = main_case[1][:1] + (8,) + main_case[1][2:]
-    large = [8 * torch.randn(qs, generator=gen, device=dev) for _ in range(3)]
-    large_exact = chip_smoke.attention_f64(torch, *large)
-    errors = {"plain": {"x8_vs_f64": chip_smoke.gate_share(
-        fa.attention_plain(*large), large_exact)}} if d != 256 else {}
-    timed = {label: [torch.randn(qs, generator=gen, device=dev)] + [
-                 torch.randn(ks, generator=gen, device=dev) for _ in range(2)]
-             for label, (qs, ks) in TC_TIMED.get(d, {}).items()}
+        q = torch.randn(qs, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(ks, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        inputs.append((q, k, v, causal, window, fa.attention_plain(
+            q.float(), k.float(), v.float(), causal, window)))
+    errors = {}
+    if not bf16 and d != 256:
+        # inputs x8 (scores x64): every f32 implementation, the plain
+        # version included, is tens of times the 1e-5 gate from the exact
+        # value here; printed against the f64 value, beside the plain
+        # version's own
+        qs = main_case[1][:1] + (8,) + main_case[1][2:]
+        large = [8 * torch.randn(qs, generator=gen, device=dev)
+                 for _ in range(3)]
+        large_exact = chip_smoke.attention_f64(torch, *large)
+        errors["plain"] = {"x8_vs_f64": chip_smoke.gate_share(
+            fa.attention_plain(*large), large_exact)}
+    if bf16:
+        timed = {label: ([torch.randn(qs, generator=gen, device=dev)
+                          .to(dtype)] + [torch.randn(ks, generator=gen,
+                                                     device=dev).to(dtype)
+                                         for _ in range(2)], causal)
+                 for label, (qs, ks, causal) in BF16_TIMED[d].items()}
+    else:
+        timed = {label: ([torch.randn(qs, generator=gen, device=dev)] + [
+                     torch.randn(ks, generator=gen, device=dev)
+                     for _ in range(2)], True)
+                 for label, (qs, ks) in TC_TIMED.get(d, {}).items()}
     plain_lib = fa._lib
     times = {name: [] for name in names}
     timed_ms = {label: {name: [] for name in names} for label in timed}
     attrs = {}
     for name in names + names[::-1]:
         lib = ctypes.CDLL(str(built[name][0]))
-        attrs.setdefault(name, attributes(lib, d))
-        fn = lib.flash_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fa._lib = lambda fn=fn: fn
-        if not name.startswith("skip_"):
+        attrs.setdefault(name, attributes(lib, d, bf16))
+        fns = {}
+        for dt, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            fn = getattr(lib, f"flash_attention_{suffix}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[dt] = fn
+        fa._lib = lambda fns=fns: fns
+        if "skip_" not in name or name == "skip_lo_pass":
             gates = []
             for q, k, v, causal, window, want in inputs:
                 got = fa.flash_attention_cuda(q, k, v, causal, window)
                 torch.cuda.synchronize()
+                if bf16:
+                    gates.append(bf16_ulps(torch, chip_smoke, got, want))
+                    if name == "skip_lo_pass":
+                        continue
+                    if not gates[-1] <= 1.0 or not torch.equal(
+                            got, fa.flash_attention_cuda(q, k, v, causal,
+                                                         window)):
+                        raise AssertionError(
+                            f"{name} {tuple(q.shape)} on {tuple(k.shape)}: "
+                            f"{gates[-1]:.3f} bf16 ulp, or two calls differ")
+                    continue
                 if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
                     err = float((got - want).abs().max())
                     raise AssertionError(f"{name} {tuple(q.shape)} on "
                                          f"{tuple(k.shape)}: max err {err}")
                 gates.append(chip_smoke.gate_share(got, want))
-            if name not in errors and d != 256:
+            if bf16 and name not in errors:
+                errors[name] = {"bf16_ulp": max(gates)}
+                print(f"{name}: {errors[name]}", flush=True)
+            elif name not in errors and d != 256:
                 q, k, v = large
                 errors[name] = {
                     "gate_share": max(gates),
@@ -601,17 +833,17 @@ def main() -> int:
             q, k, v, causal, window))
         times[name].append(ms)
         print(f"{name}: device time {ms:.4f} ms", flush=True)
-        if name == "trace":
+        if "trace" in name.split("+"):
             trace_report(ctypes.CDLL(str(built[name][0])))
-        for label, qkv in timed.items():
+        for label, (qkv, causal) in timed.items():
             ms = chip_smoke.device_ms(torch, lambda: fa.flash_attention_cuda(
-                *qkv))
+                *qkv, causal))
             timed_ms[label][name].append(ms)
             print(f"{name}: {label} device time {ms:.4f} ms", flush=True)
     fa._lib = plain_lib
     for name in names:
         print(f"{name}: ptxas {built[name][1]}; {attrs[name]}", flush=True)
-    print(json.dumps({"device": smi, "head_dim": d,
+    print(json.dumps({"device": smi, "head_dim": d, "dtype": dtype_name,
                       "shape": [list(main_case[0]), list(main_case[1])],
                       "device_ms": {name: statistics.median(v)
                                     for name, v in times.items()},
@@ -619,7 +851,7 @@ def main() -> int:
                       "timed_runs_ms": {
                           label: {"shape": [list(t.shape) for t in qkv[:2]],
                                   "runs_ms": timed_ms[label]}
-                          for label, qkv in timed.items()},
+                          for label, (qkv, _) in timed.items()},
                       "ptxas": {name: built[name][1] for name in names},
                       "attributes": attrs, "errors": errors}),
           flush=True)

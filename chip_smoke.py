@@ -43,10 +43,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      seeded_gather_bf16 over the fused path's rows, against the plain
      bf16 versions (bitwise, or 1 bf16 ulp on at most BF16_AXPY_SHARE),
      one bf16 θ pass beside its byte and issue bounds; flash_attention's
-     bf16 instances (16, 32, 64 and 128; 96 padded to 128) in BF16_FLASH's
-     cases within one bf16 ulp of the f32 result, two calls bitwise, no
-     local memory, timed at OPT-125M's and yi-6b's prefill shapes beside
-     SDPA in bf16 (P rounded to bf16 before P·V: another function);
+     bf16 kernel on the tensor cores (16, 32, 64 and 128; 96 padded to
+     128) in BF16_FLASH's cases (a 2048-token prompt and whisper-medium's
+     encoder and cross-attention among them) within one bf16 ulp of the
+     f32 result, two calls bitwise, no local memory at any head dim, timed
+     at BF16_FLASH_TIMED's shapes by device time beside SDPA in bf16 (P
+     rounded to bf16 before P·V: another function) and the larger of the
+     bytes and the kernel's three bf16 passes at 989 TFLOP/s;
      perturbed_matmul_bf16 (on the tensor cores, w + eps·z in three bf16
      pieces) at the fused path's 7 projections, ragged shapes, a ragged K
      and K % 8 == 4 within one bf16 ulp of the f32 result, its identity
@@ -1556,7 +1559,16 @@ BF16_FLASH = {  # (q, k/v, causal, window) the bf16 instances are held on
     "128 window 1": ((2, 4, 64, 128), (2, 4, 64, 128), True, 1),
     "128 one query": ((2, 10, 1, 128), (2, 1, 70, 128), True, None),
     "96 padded to 128": ((2, 4, 37, 96), (2, 4, 37, 96), True, None),
+    # a 2048-token prompt at 128, and whisper-medium's encoder and its
+    # cross-attention of 64 text queries on 1500 frames at 64 (A12 item 3)
+    "2048-token prompt": ((1, 32, 2048, 128), (1, 4, 2048, 128), True, None),
+    "whisper encoder": ((40, 16, 1500, 64), (40, 16, 1500, 64), False, None),
+    "whisper cross": ((40, 16, 64, 64), (40, 16, 1500, 64), False, None),
 }
+# the cases timed beside SDPA in bf16 and the bound: the bf16 paths'
+# training shape, yi-6b's prefill, and the three above
+BF16_FLASH_TIMED = ("OPT-125M train", "yi-6b prefill", "2048-token prompt",
+                    "whisper encoder", "whisper cross")
 BF16_PATHS = ("bf16", "bf16-fused")
 BF16_SERVE_ARCHS = ("opt-125m", "yi-6b")
 # a bf16 serve's keys in the `bf16` JSON line: times, peaks, and each
@@ -1634,9 +1646,10 @@ def check_bf16_kernels(torch, dev) -> list:
     paths' shapes, with the stated gates, then timed beside the plain
     version, a library call and its bound. seeded_axpy_bf16 and
     seeded_gather_bf16 against the plain bf16 version (BF16_AXPY_SHARE);
-    flash_attention's bf16 instances within one bf16 ulp of the f32 result
-    (the plain version on the same inputs widened), no local memory, two
-    calls bitwise; perturbed_matmul_bf16 (three bf16 pieces on the tensor
+    flash_attention's bf16 kernel (Q·Kᵀ in one bf16 pass, P in two bf16
+    pieces) within one bf16 ulp of the f32 result (the plain version on the
+    same inputs widened), no local memory, two calls bitwise, timed at
+    BF16_FLASH_TIMED's shapes; perturbed_matmul_bf16 (three bf16 pieces on the tensor
     cores) within one bf16 ulp of the f32 result (w + eps·z in f32, as the
     kernel) in every x-copy path (K % 8 == 0, K % 8 == 4, ragged K), its
     identity probes bitwise against seeded_axpy_bf16, one of them on
@@ -1757,8 +1770,8 @@ def check_bf16_kernels(torch, dev) -> list:
                  "shape": "[40,64] tokens of a bf16 [50272,768] table"})
     del table, whole, got
 
-    # flash_attention's bf16 instances
-    attrs = {d: fa.kernel_attributes(d, bf16) for d in (64, 128)}
+    # flash_attention's bf16 instances: flash_fwd_bf16_kernel<d>
+    attrs = {d: fa.kernel_attributes(d, bf16) for d in fa.BF16_HEAD_DIMS}
     for d, a in attrs.items():
         print(f"flash_attention bf16 head_dim {d} kernel: {a}", flush=True)
         if a["local_bytes"] != 0:
@@ -1782,31 +1795,46 @@ def check_bf16_kernels(torch, dev) -> list:
                                                         window)):
             raise AssertionError(f"flash_attention bf16 {label}: two calls "
                                  "differ")
-        if label not in ("OPT-125M train", "yi-6b prefill"):
+        del got, ref
+        if label not in BF16_FLASH_TIMED:
             continue
         b, h, s, d = qs
         row = {"shape": f"q [{','.join(map(str, qs))}] k/v "
-                        f"[{','.join(map(str, ks))}] causal"}
-        row["ms"] = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v))
-        row["plain_ms"] = time_ms(torch, lambda: fa.attention_plain(q, k, v))
-        row["device_ms"] = device_ms(torch, lambda: fa.flash_attention_cuda(
-            q, k, v))
-        gqa = dict(enable_gqa=True) if ks[1] != qs[1] else {}
-        row["library_ms"] = time_ms(torch, lambda: sdpa(
-            q, k, v, is_causal=True, **gqa))
-        row["library_device_ms"] = device_ms(torch, lambda: sdpa(
-            q, k, v, is_causal=True, **gqa))
-        pairs = b * h * fa.visible_pairs(s, ks[2])
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            2.0 * (2 * q.numel() + 2 * k.numel()), pairs * (4 * d + 3))
+                        f"[{','.join(map(str, ks))}] "
+                        + ("causal" if causal else "non-causal")}
+        flash = lambda: fa.flash_attention_cuda(q, k, v, causal)  # noqa
+        lib = lambda: sdpa(q, k, v, is_causal=causal,  # noqa: E731
+                           enable_gqa=ks[1] != qs[1])
+        plain = lambda: fa.attention_plain(q, k, v, causal)  # noqa: E731
+        row["ms"] = time_ms(torch, flash)
+        row["plain_ms"] = time_ms(torch, plain)
+        row["device_ms"] = device_ms(torch, flash)
+        row["library_ms"] = time_ms(torch, lib)
+        row["library_device_ms"] = device_ms(torch, lib)
+        # bytes: q, k, v read and the output written once; operations: the
+        # kernel's passes on each visible pair, Q K^T in one (2d flops)
+        # and P V in two (4d), at bf16's rate
+        pairs = b * h * fa.visible_pairs(s, ks[2], causal)
+        row["bound_bytes_ms"] = (2.0 * (2 * q.numel() + 2 * k.numel())
+                                 / HBM_BYTES_PER_S * 1e3)
+        row["bound_ops_ms"] = pairs * 6 * d / BF16_FLOPS_PER_S * 1e3
+        by_bytes = row["bound_bytes_ms"] >= row["bound_ops_ms"]
+        row["bound_ms"] = max(row["bound_bytes_ms"], row["bound_ops_ms"])
+        row["bound_by"] = "bytes" if by_bytes else "operations"
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+        if row["share_of_bound"] > 1.0:
+            raise AssertionError(f"flash_attention bf16 {label}: "
+                                 f"{row['device_ms']} ms is under its bound "
+                                 f"{row['bound_ms']} ms")
         print(f"flash_attention bf16 {label} {row['shape']}: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, SDPA in "
               f"bf16 {row['library_ms']:.4f}: P rounded to bf16 before P·V, "
               f"another function); device time {row['device_ms']:.4f} "
               f"(SDPA {row['library_device_ms']:.4f}); bound "
-              f"{row['bound_ms']:.5f} ms by {row['bound_by']}, "
-              f"{100 * row['share_of_bound']:.1f}% of it", flush=True)
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']} (bytes "
+              f"{row['bound_bytes_ms']:.5f}, bf16 operations "
+              f"{row['bound_ops_ms']:.5f}), {100 * row['share_of_bound']:.1f}"
+              "% of it", flush=True)
         timed[label] = row
     print(f"flash_attention bf16: {len(BF16_FLASH)} cases within "
           f"{f_worst:.3f} bf16 ulp of the f32 result, two calls bitwise",
@@ -1819,10 +1847,11 @@ def check_bf16_kernels(torch, dev) -> list:
                  "max_abs_err": f_worst, "max_err_unit": "bf16 ulp of the "
                  "f32 result", **{k: main[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                     "device_ms", "library_device_ms", "shape")},
+                     "device_ms", "library_device_ms", "share_of_bound",
+                     "shape")},
                  "library": "SDPA in bf16 (P rounded to bf16 before P.V: "
                             "another function)",
-                 "yi-6b prefill": timed["yi-6b prefill"],
+                 **{label: timed[label] for label in BF16_FLASH_TIMED[1:]},
                  "kernel_attributes": attrs})
 
     # perturbed_matmul_bf16: the fused path's 7 projections at M = 2560

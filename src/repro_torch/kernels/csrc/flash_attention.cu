@@ -33,17 +33,13 @@
 // heads) have their own kernel on the tensor cores, flash_fwd_tc_kernel;
 // its design is noted where it starts.
 //
-// bf16 (flash_attention_bf16): the small kernel and the tensor-core kernel
-// are templates on the element type too, with bf16 instances at head_dim
-// 16, 32, 64 (OPT-125M's heads) and 128 (yi-6b's), as the TPU kernel
-// computes them: q, k and v are widened to f32 where a thread reads them
-// (from device memory for q, from shared memory for the K/V tiles, which
-// hold bf16 and so half the bytes), the products, the online softmax and P
-// stay f32, and only the output is rounded to bf16, to nearest even
-// (__float2bfloat16_rn, as XLA's convert). A bf16 value is exact in TF32,
-// so K's and V's lo terms are zero in the tensor-core kernel's 3xTF32
-// products; Q (scaled) and P keep theirs. Bound: bytes, half the f32
-// kernel's at the same shape.
+// bf16 (flash_attention_bf16) at head_dim 16, 32, 64 (OPT-125M's and
+// whisper-medium's heads) and 128 (yi-6b's) has its own kernel on the bf16
+// tensor cores, flash_fwd_bf16_kernel: Q K^T exact in one bf16 pass, P in
+// two bf16 pieces, the softmax in f32 and the output rounded once to bf16,
+// to nearest even (__float2bfloat16_rn, as XLA's convert); its design is
+// noted where it starts. The small kernel and the tensor-core kernel are f32
+// only.
 //
 // Head dim 256 has its own kernel, flash_fwd_group_kernel (a template on
 // D), for recurrentgemma-2b (q [40,10,64,256] against one kv head
@@ -104,36 +100,16 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Element access widened to f32: a bf16 is the top half of the f32 with
-// the same value, so widening is exact; stores round to nearest even.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// Element access: f32 loads and stores, and a pair stored as bf16 rounded
+// to nearest even (the bf16 kernel's output).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-// four bf16 (8 bytes) as a float4
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -249,20 +225,20 @@ constexpr int kSmallBK = 32;                      // key rows per tile
 // blocks or 16-key tiles
 constexpr int kSmallBlocksPerSM = 4;
 
-template <int D, typename Elem>
+template <int D>
 __global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSM)
-flash_fwd_small_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                       const Elem* __restrict__ v, Elem* __restrict__ o,
+flash_fwd_small_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int hq, int hkv, int sq, int skv, float scale,
                        int causal, int window) {
   constexpr int L = kSmallLanes;
   static_assert(D % (4 * L) == 0, "D must split into 4 columns per lane");
   constexpr int kVec = D / (4 * L);               // 4-column groups per lane
-  constexpr int kRowChunks = D * sizeof(Elem) / 16;   // 16-byte copies a row
-  constexpr int kChunk = 16 / sizeof(Elem);            // elements a copy
+  constexpr int kRowChunks = D * sizeof(float) / 16;  // 16-byte copies a row
+  constexpr int kChunk = 16 / sizeof(float);           // elements a copy
   constexpr int kTile = kSmallBK * kRowChunks;    // copies per k (or v) tile
-  __shared__ __align__(16) Elem ks[2][kSmallBK][D];
-  __shared__ __align__(16) Elem vs[2][kSmallBK][D];
+  __shared__ __align__(16) float ks[2][kSmallBK][D];
+  __shared__ __align__(16) float vs[2][kSmallBK][D];
 
   const int bh = blockIdx.x;                      // b * hq + h
   const int b = bh / hq;
@@ -276,7 +252,7 @@ flash_fwd_small_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   float4 qr[kVec];
   float4 acc[kVec];
-  const Elem* qp = q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D;
+  const float* qp = q + (static_cast<int64_t>(bh) * sq + (active ? row : 0)) * D;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     const float4 t = load4(qp + 4 * (i * L + lane));
@@ -296,8 +272,8 @@ flash_fwd_small_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
   const int t_first = k_begin / kSmallBK;
   const int t_end = (k_end + kSmallBK - 1) / kSmallBK;
-  const Elem* kb = k + static_cast<int64_t>(kvh) * skv * D;
-  const Elem* vb = v + static_cast<int64_t>(kvh) * skv * D;
+  const float* kb = k + static_cast<int64_t>(kvh) * skv * D;
+  const float* vb = v + static_cast<int64_t>(kvh) * skv * D;
 
   // tile t -> buffer buf; rows past skv are zero-filled
   auto load = [&](int t, int buf) {
@@ -381,7 +357,7 @@ flash_fwd_small_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
 
   if (active) {
     const float denom = fmaxf(l, 1e-30f);
-    Elem* op = o + (static_cast<int64_t>(bh) * sq + row) * D;
+    float* op = o + (static_cast<int64_t>(bh) * sq + row) * D;
 #pragma unroll
     for (int i = 0; i < kVec; ++i)
       store4(op + 4 * (i * L + lane),
@@ -398,14 +374,14 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o) {
            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16) == 0;
 }
 
-template <int D, typename Elem>
-int launch_small(const Elem* q, const Elem* k, const Elem* v, Elem* o,
+template <int D>
+int launch_small(const float* q, const float* k, const float* v, float* o,
                  int b, int hq, int hkv, int sq, int skv, float scale,
                  int causal, int window, cudaStream_t stream) {
   if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
   const dim3 grid(static_cast<unsigned int>(b * hq),
                   static_cast<unsigned int>((sq + kSmallRows - 1) / kSmallRows));
-  flash_fwd_small_kernel<D, Elem><<<grid, kSmallThreads, 0, stream>>>(
+  flash_fwd_small_kernel<D><<<grid, kSmallThreads, 0, stream>>>(
       q, k, v, o, hq, hkv, sq, skv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -977,23 +953,23 @@ struct TcShape {
   static_assert(kStride % 32 == 8, "conflict-free fragment loads");
 };
 
-template <int D, typename Elem>
+template <int D>
 __global__ void __launch_bounds__(kTcThreads, TcShape<D>::kBlocksPerSM)
-flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                    const Elem* __restrict__ v, Elem* __restrict__ o,
+flash_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
                     const GroupArgs a) {
   using T = TcShape<D>;
   constexpr int S = T::kSlots;
   constexpr int NB = kTcBK / 8;                   // 8-key blocks a tile
   constexpr int RS = T::kStride;
-  constexpr int kRowBytes = D * static_cast<int>(sizeof(Elem));
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(float));
   extern __shared__ __align__(16) float smem[];
   const uint32_t q_full = smem_u32(smem);
   const uint32_t q_empty = q_full + 8;
   const uint32_t full0 = q_full + 16;             // slot s: full0 + 8 s
   const uint32_t empty0 = full0 + 8 * S;          // slot s: empty0 + 8 s
-  Elem* qs = reinterpret_cast<Elem*>(smem + T::kBarFloats);   // [kTcRows][RS]
-  Elem* ring = qs + kTcRows * RS;                 // [S][kTcBK][RS]
+  float* qs = smem + T::kBarFloats;               // [kTcRows][RS]
+  float* ring = qs + kTcRows * RS;                // [S][kTcBK][RS]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   constexpr int kConsumerThreads = 32 * kTcWarps;
@@ -1022,12 +998,12 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     // V(t0), then K(t) and V(t); ring position p is phase p / S of slot
     // p % S
     int fill = 0;
-    auto load_tile = [&](const Elem* base, int bkv, int t) {
+    auto load_tile = [&](const float* base, int bkv, int t) {
       const int slot = fill % S;
       if (fill >= S) mbar_wait(empty0 + 8 * slot, (fill / S - 1) & 1);
       const int k0 = t * kTcBK;
       const int rows = min(kTcBK, a.skv - k0);
-      Elem* dst = ring + slot * T::kSlotElems;
+      float* dst = ring + slot * T::kSlotElems;
       if (rows < kTcBK) {
         constexpr int kChunks = kRowBytes / 16;   // 16-byte stores a row
         for (int e = lane; e < (kTcBK - rows) * kChunks; e += 32)
@@ -1039,7 +1015,7 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
       const uint32_t bar = full0 + 8 * slot;
       if (lane == 0) mbar_expect(bar, rows * kRowBytes);
       __syncwarp();
-      const Elem* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
+      const float* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
       for (int r = lane; r < rows; r += 32)
         bulk_copy(smem_u32(dst + r * RS), src + static_cast<int64_t>(r) * D,
                   kRowBytes, bar);
@@ -1072,7 +1048,7 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   // a consumer warp: rows 16 warp + g and 16 warp + g + 8 of the item
   const int g = lane >> 2;
   const int tq = lane & 3;
-  const Elem* q_lane = qs + (16 * warp + g) * RS + 2 * tq;
+  const float* q_lane = qs + (16 * warp + g) * RS + 2 * tq;
   int fill = 0;
   for (int round = 0;; ++round) {
     const int index = item_index(round);
@@ -1117,7 +1093,7 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
       const int slot = fill % S;
       mbar_wait(full0 + 8 * slot, (fill / S) & 1);
       if (b_lo < b_hi) {
-        const Elem* k_lane = ring + slot * T::kSlotElems + g * RS + 2 * tq;
+        const float* k_lane = ring + slot * T::kSlotElems + g * RS + 2 * tq;
 #pragma unroll 2
         for (int d0 = 0; d0 < D; d0 += 8) {
           // one k-step: columns 2t and 2t + 1 of these 8 as A's columns t
@@ -1241,7 +1217,7 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
           acc[n][2] *= alpha_b;
           acc[n][3] *= alpha_b;
         }
-        const Elem* v_lane = ring + slot * T::kSlotElems + 2 * tq * RS + g;
+        const float* v_lane = ring + slot * T::kSlotElems + 2 * tq * RS + g;
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           if (j < b_lo || j >= b_hi) continue;
@@ -1250,12 +1226,12 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
           tc_split(pc[j][2], ph[1], pl[1]);
           tc_split(pc[j][1], ph[2], pl[2]);
           tc_split(pc[j][3], ph[3], pl[3]);
-          const Elem* vj = v_lane + 8 * j * RS;
+          const float* vj = v_lane + 8 * j * RS;
 #pragma unroll
           for (int n = 0; n < D / 8; ++n) {
             uint32_t bh[2], bl[2];
-            tc_split(to_f32(vj[8 * n]), bh[0], bl[0]);
-            tc_split(to_f32(vj[RS + 8 * n]), bh[1], bl[1]);
+            tc_split(vj[8 * n], bh[0], bl[0]);
+            tc_split(vj[RS + 8 * n], bh[1], bl[1]);
             tc_mma3(acc[n], ph, pl, bh, bl);
           }
         }
@@ -1282,13 +1258,13 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
     if (row_a >= 0) {
-      Elem* op = o + static_cast<int64_t>(row_a) * D + 2 * tq;
+      float* op = o + static_cast<int64_t>(row_a) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         store2(op + 8 * n, acc[n][0] * inv_a, acc[n][1] * inv_a);
     }
     if (row_b >= 0) {
-      Elem* op = o + static_cast<int64_t>(row_b) * D + 2 * tq;
+      float* op = o + static_cast<int64_t>(row_b) * D + 2 * tq;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         store2(op + 8 * n, acc[n][2] * inv_b, acc[n][3] * inv_b);
@@ -1296,21 +1272,21 @@ flash_fwd_tc_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
 }
 
-template <int D, typename Elem>
+template <int D>
 int tc_smem_bytes() {
   return static_cast<int>(sizeof(float)) * TcShape<D>::kBarFloats
-         + static_cast<int>(sizeof(Elem)) * TcShape<D>::kElems;
+         + static_cast<int>(sizeof(float)) * TcShape<D>::kElems;
 }
 
 // dynamic shared memory allowed so far, and blocks the card holds at once,
-// for flash_fwd_tc_kernel<D, Elem>
-template <int D, typename Elem>
+// for flash_fwd_tc_kernel<D>
+template <int D>
 int allowed_tc_smem = 0;
-template <int D, typename Elem>
+template <int D>
 int resident_tc_blocks = 0;
 
-template <int D, typename Elem>
-int launch_tc(const Elem* q, const Elem* k, const Elem* v, Elem* o,
+template <int D>
+int launch_tc(const float* q, const float* k, const float* v, float* o,
               int b, int hq, int hkv, int sq, int skv, float scale,
               int causal, int window, cudaStream_t stream) {
   if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
@@ -1330,15 +1306,574 @@ int launch_tc(const Elem* q, const Elem* k, const Elem* v, Elem* o,
   if (items > 0x7fffffff || static_cast<int64_t>(b) * hq * sq > 0x7fffffff)
     return cudaErrorInvalidValue;
   a.n_items = static_cast<int>(items);
-  const int smem = tc_smem_bytes<D, Elem>();
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D, Elem>, smem,
-                               &allowed_tc_smem<D, Elem>);
+  const int smem = tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem,
+                               &allowed_tc_smem<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = resident_blocks(flash_fwd_tc_kernel<D, Elem>, kTcThreads, smem,
-                        &resident_tc_blocks<D, Elem>);
+  err = resident_blocks(flash_fwd_tc_kernel<D>, kTcThreads, smem,
+                        &resident_tc_blocks<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min(a.n_items, resident_tc_blocks<D, Elem>);
-  flash_fwd_tc_kernel<D, Elem><<<blocks, kTcThreads, smem, stream>>>(q, k, v, o, a);
+  const int blocks = min(a.n_items, resident_tc_blocks<D>);
+  flash_fwd_tc_kernel<D><<<blocks, kTcThreads, smem, stream>>>(q, k, v, o, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 at head_dim 16, 32, 64 and 128 (flash_fwd_bf16_kernel, a template on
+// D): OPT-125M's heads ([40,12,64,64], causal), whisper-medium's encoder
+// ([40,16,1500,64], non-causal) and cross-attention (q [40,16,64,64] on 1500
+// keys), yi-6b's prefill (q [4,32,32,128] on [4,4,32,128], group 8) and a
+// 2048-token prompt (q [1,32,2048,128] on [1,4,2048,128]); 96 runs
+// zero-padded to 128. It computes what the TPU kernel computes on bf16
+// inputs: q, k and v read in f32, s = (q scale) k^T, the online softmax and
+// P in f32, the output divided by max(l, 1e-30) and rounded once to bf16, to
+// nearest even. Bound on the H100 (3.35 TB/s; 989 TFLOP/s of bf16, counting
+// the kernel's three passes as 2d + 4d flops a visible pair): bytes at
+// OPT-125M (15.7 MB, 0.0047 ms), at yi-6b's prefill (2.4 MB, 0.0007 ms) and
+// at whisper's cross-attention (256 MB, 0.0765 ms); operations at the
+// 2048-token prompt (0.052 ms) and at whisper's encoder (0.56 ms). Design:
+// - Work items, copies and skipping as in flash_fwd_tc_kernel: an item is
+//   kRows (q head, position) rows of one kv head's query group, so each K/V
+//   tile is copied into shared memory once for the whole group; a producer
+//   warp copies by TMA through a ring of kSlots slots on full/empty
+//   mbarriers, an item's Q before its first K tile, the next item's Q and
+//   first tiles landing while this item finishes. Q, K and V come a row a
+//   copy, rows padded by 16 bytes so that the eight rows an ldmatrix reads
+//   lie in eight bank groups.
+//   Causal items are taken heaviest first; without a causal mask every
+//   item is as heavy, and a kv head's position tiles are taken one after
+//   another so that its K/V tiles come from L2 (whisper's encoder reads
+//   each 24 times). Four consumer warps of 16 rows (32 rows a warp spilled
+//   at 64, or ran slower on fewer blocks) on key tiles of 32, four blocks
+//   an SM at 16-64 and three at 128, so that OPT-125M's 480 items of 64
+//   rows each get a block of their own.
+// - S = Q K^T on the bf16 tensor cores: Q's A fragment and K's B fragment
+//   (K row-major is the .col operand) by ldmatrix straight from shared
+//   memory, one mma.sync m16n8k16 a 16-deep k-step and 8-key block
+//   (bf16_mma_qk). A product of two bf16 values is exact in f32; each
+//   k-step is summed from zero and added to S in f32 (the tensor core's own
+//   running sum drops low bits as the scores grow), and S is scaled once
+//   with __fmul_rn: about an f32 ulp of a score from (q scale) k.
+// - O += P V in two passes: P (f32) split into hi = P rounded to bf16 and
+//   lo = P - hi rounded to bf16, the subtraction exact (bf16_split2), so P
+//   is carried to about 2^-17 of itself; lo V, then hi V, into the f32
+//   accumulator (bf16_mma2). S's C fragments of 8-key blocks 2j and 2j + 1
+//   are the A fragment of 16-key block j as they stand, so P never leaves
+//   the registers; V's B fragment comes from row-major shared memory by
+//   ldmatrix.trans. The normalizer l is summed from the f32 P.
+// - The output divided by l as one reciprocal a row and a correction a
+//   value (quotient_rn, bitwise the quotient; a division a value took a
+//   tenth of the time at OPT-125M's shape), staged in shared memory and
+//   written 16 bytes a lane, a row's chunks on neighbouring lanes.
+// - Online softmax on the fragment as in flash_fwd_tc_kernel (a row's max
+//   over its quad by xor shuffles, precise expf, alpha = expf(m - m_new)
+//   each tile); masks only in 8-key blocks that cross the diagonal, the
+//   window's edge or Skv; 16-key blocks and tiles that no row of the warp
+//   can see are left out.
+// - Fixed order of every sum and no atomics: two calls are bitwise equal.
+// What sets the time (chip_flash_variants.py --dtype bf16): at OPT-125M's
+// shape the first Q and K rows land about 3 us into a call of about 10
+// (all blocks' copies are issued at once and share the memory's bytes),
+// and the SM then issues every block's tiles, normalization and stores
+// together; over whisper's 1500 keys each 32-key tile costs a warp about
+// 5000 cycles, spent on the copies and on the arithmetic the exact
+// numerics ask for (a k-step's sum added in f32, precise expf, P's split,
+// the second pass), none of them more than a sixth of the time alone.
+template <int D>
+struct Bf16Shape {
+  // consumer warps of 16 rows, keys a K/V tile, K/V ring slots, blocks an
+  // SM
+  static constexpr int kWarps = 4;
+  static constexpr int kBK = 32;
+  static constexpr int kSlots = D == 128 ? 3 : 4;
+  static constexpr int kBlocksPerSM = D == 128 ? 3 : 4;
+  // S's k-steps unrolled one at a time at 16-64 and two at 128: the most
+  // that fit 96 and 128 registers (four and three blocks an SM) without a
+  // spill, and no slower than more
+  static constexpr int kSUnroll = D == 128 ? 2 : 1;
+  static constexpr int kMinPositions = 16;        // positions an item at least
+  static constexpr int kThreads = 32 * (kWarps + 1);   // and the producer warp
+  static constexpr int kRows = 16 * kWarps;       // (q head, position) rows an item
+  static constexpr int kStride = D + 8;           // bf16 elements a Q or output row
+  static constexpr int kKeyBytes = 2 * D + 16;    // bytes a K/V row in a slot
+  static constexpr int kSlotBytes = kBK * kKeyBytes;
+  // mbarriers: Q full and empty, then each slot's full, then its empty
+  static constexpr int kBars = 2 + 2 * kSlots;
+  static constexpr int kBarBytes = (8 * kBars + 15) / 16 * 16;
+  // the mbarriers, Q, the staged output and the K/V ring
+  static constexpr int kSmem = kBarBytes + 2 * 2 * kRows * kStride + kSlots * kSlotBytes;
+  static_assert(D % 16 == 0 && kBK % 16 == 0, "16-deep k-steps, 16-key blocks");
+  static_assert((kStride / 8) % 2 == 1 && (kKeyBytes / 16) % 2 == 1,
+                "ldmatrix rows in eight bank groups");
+};
+
+// the byte of key row key of a K/V tile in its ring slot (8-key block j is
+// keys 8 j .. 8 j + 7)
+template <int D>
+__device__ __forceinline__ uint32_t bf16_key_bytes(int key) {
+  return static_cast<uint32_t>(key * Bf16Shape<D>::kKeyBytes);
+}
+
+// 16-bit 8x8 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8 and gets, of each matrix, row l / 4's elements
+// 2 (l % 4) and 2 (l % 4) + 1 (.trans: those rows' element l / 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// the grid's size and this block's index along x, read afresh at each use
+__device__ __forceinline__ int grid_blocks() {
+  int n;
+  asm volatile("mov.u32 %0, %%nctaid.x;" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ int block_index() {
+  int b;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  return b;
+}
+
+// s += one 16-deep k-step of Q K^T on one 8-key block, its 16 exact bf16
+// products summed from zero on the tensor core and added in f32: a is Q's A
+// fragment (rows g, g + 8; columns 2t, 2t + 1 and 2t + 8, 2t + 9), b0 / b1
+// K's B fragment (keys g; columns 2t, 2t + 1 / 2t + 8, 2t + 9) of lane
+// 4 g + t; s rows g, g + 8, keys 2t, 2t + 1.
+__device__ __forceinline__ void bf16_mma_qk(float (&s)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(z[0]), "+f"(z[1]), "+f"(z[2]), "+f"(z[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s[e] += z[e];
+}
+
+// P's two bf16 pieces of the pair (x, y), x in the low half: hi rounded to
+// nearest even, lo = (x - hi) rounded to nearest even (the subtraction is
+// exact in f32), so hi + lo is x to about 2^-17 of x
+__device__ __forceinline__ void bf16_split2(float x, float y, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(__fsub_rn(x, __low2float(h)),
+                                                 __fsub_rn(y, __high2float(h)));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// x / d rounded to nearest even, from inv = 1 / d rounded to nearest even
+// (__frcp_rn, once a row): q = x inv, the remainder x - q d exact by fma,
+// and q corrected by it. By Markstein's theorem that is the correctly
+// rounded quotient unless the remainder underflows, which takes |x| near
+// f32's smallest normals (d is a softmax normalizer, at least 1 wherever x
+// is not 0). Three instructions a quotient, where a division takes a
+// reciprocal, a range check and a slow path each.
+__device__ __forceinline__ float quotient_rn(float x, float d, float inv) {
+  const float q = __fmul_rn(x, inv);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), inv, q);
+}
+
+// c += P V on one 16-key block and 8-column block in two passes, lo V then
+// hi V, into the f32 accumulator: ph / pl P's A fragment pieces (rows g,
+// g + 8; keys 2t, 2t + 1 and 2t + 8, 2t + 9), b0 / b1 V's B fragment
+// (keys 2t, 2t + 1 / 2t + 8, 2t + 9; column g)
+__device__ __forceinline__ void bf16_mma2(float (&c)[4], const uint32_t (&ph)[4],
+                                          const uint32_t (&pl)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(pl[0]), "r"(pl[1]), "r"(pl[2]), "r"(pl[3]), "r"(b0), "r"(b1));
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(ph[0]), "r"(ph[1]), "r"(ph[2]), "r"(ph[3]), "r"(b0), "r"(b1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bf16Shape<D>::kThreads, Bf16Shape<D>::kBlocksPerSM)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      const GroupArgs a) {
+  using T = Bf16Shape<D>;
+  constexpr int S = T::kSlots;
+  constexpr int BK = T::kBK;
+  constexpr int NB = BK / 8;                      // 8-key blocks a tile
+  constexpr int RS = T::kStride;
+  constexpr int kRowBytes = 2 * D;
+  constexpr int kConsumerThreads = 32 * T::kWarps;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t q_full = smem_u32(smem);
+  const uint32_t q_empty = q_full + 8;
+  const uint32_t full0 = q_full + 16;             // slot s: full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * S;          // slot s: empty0 + 8 s
+  bf16* qs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(smem)
+                                     + T::kBarBytes);   // [kRows][RS]
+  bf16* os = qs + T::kRows * RS;                  // [kRows][RS]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(os + T::kRows * RS);   // [S][kSlotBytes]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init_count(q_full, 1);
+    mbar_init_count(q_empty, kConsumerThreads);
+    for (int s = 0; s < S; ++s) {
+      mbar_init_count(full0 + 8 * s, 1);
+      mbar_init_count(empty0 + 8 * s, kConsumerThreads);
+    }
+    fence_mbar_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // round r's item, in snake order over the blocks: heaviest first
+  // (group_item's order) under a causal mask; else a kv head's position
+  // tiles one after another. The grid's size and the block's index are
+  // read where they are used (nothing of them is kept in a register across
+  // an item's tiles, where registers are the scarcest).
+  auto item = [&](int r) {
+    const int blocks = grid_blocks();
+    const int block = block_index();
+    int index = r * blocks + ((r & 1) ? blocks - 1 - block : block);
+    if (index < a.n_items && !a.causal)
+      index = (index % a.n_tiles) * (a.n_items / a.n_tiles) + index / a.n_tiles;
+    return index;
+  };
+
+  if (warp == T::kWarps) {
+    // the producer: the item's Q, then K(t) and V(t) in the order the
+    // consumers read them; ring position p is phase p / S of slot p % S
+    int fill = 0;
+    auto load_tile = [&](const bf16* base, int bkv, int t) {
+      const int slot = fill % S;
+      if (fill >= S) mbar_wait(empty0 + 8 * slot, (fill / S - 1) & 1);
+      const int k0 = t * BK;
+      const int rows = min(BK, a.skv - k0);
+      unsigned char* dst = ring + slot * T::kSlotBytes;
+      if (rows < BK) {
+        constexpr int kChunks = kRowBytes / 16;   // 16-byte stores a row
+        for (int e = lane; e < (BK - rows) * kChunks; e += 32)
+          reinterpret_cast<uint4*>(dst + bf16_key_bytes<D>(rows + e / kChunks))[e % kChunks] =
+              make_uint4(0u, 0u, 0u, 0u);
+        fence_proxy_async();
+      }
+      __syncwarp();
+      const uint32_t bar = full0 + 8 * slot;
+      if (lane == 0) mbar_expect(bar, rows * kRowBytes);
+      __syncwarp();
+      // a row a copy
+      const bf16* src = base + (static_cast<int64_t>(bkv) * a.skv + k0) * D;
+      for (int r = lane; r < rows; r += 32)
+        bulk_copy(smem_u32(dst + bf16_key_bytes<D>(r)), src + static_cast<int64_t>(r) * D,
+                  kRowBytes, bar);
+      ++fill;
+    };
+    for (int round = 0;; ++round) {
+      const int index = item(round);
+      if (index >= a.n_items) break;
+      const GroupItem it = group_item(a, index);
+      const int t_first = it.k_begin / BK;
+      const int t_end = (it.k_end + BK - 1) / BK;
+      for (int t = t_first; t < t_end; ++t) {
+        if (t == t_first) {
+          // the item's Q rows, once the last item's scores are done
+          if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
+          if (lane == 0) mbar_expect(q_full, it.heads * it.n_pos * kRowBytes);
+          __syncwarp();
+          for (int r = lane; r < T::kRows; r += 32) {
+            const int64_t row = group_row(a, it, r);
+            if (row >= 0) bulk_copy(smem_u32(qs + r * RS), q + row * D, kRowBytes, q_full);
+          }
+        }
+        load_tile(k, it.bkv, t);
+        load_tile(v, it.bkv, t);
+      }
+    }
+    return;
+  }
+
+  // a consumer warp: rows 16 warp + g and 16 warp + g + 8 of the item
+  // (h = 0, 1)
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  // ldmatrix addresses (bytes). Q's A fragment at a k-step:
+  // matrices (rows +0, +8) x (columns +0, +8), rows first; K's B fragments
+  // of 8-key blocks 2j and 2j + 1: (keys +0, +8) x (columns +0, +8),
+  // columns first; V's (.trans) of 8-column blocks 2n and 2n + 1: (keys +0,
+  // +8) x (columns +0, +8), keys first
+  const uint32_t q_lane = smem_u32(qs) + 2u * static_cast<uint32_t>(
+      (16 * warp + (lane & 15)) * RS + 8 * (lane >> 4));
+  const uint32_t k_lane = smem_u32(ring) + 16u * ((lane >> 3) & 1)
+                          + bf16_key_bytes<D>(8 * (lane >> 4) + (lane & 7));
+  const uint32_t v_lane = smem_u32(ring) + 16u * (lane >> 4)
+                          + bf16_key_bytes<D>(8 * ((lane >> 3) & 1) + (lane & 7));
+  int fill = 0;
+  for (int round = 0;; ++round) {
+    const int index = item(round);
+    if (index >= a.n_items) break;
+    const GroupItem it = group_item(a, index);
+    const int t_first = it.k_begin / BK;
+    const int t_end = (it.k_end + BK - 1) / BK;
+    // the positions of the warp's rows, and the keys any row the item uses
+    // can see
+    int pos[2];
+    int lo = 0x7fffffff, hi = -1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + 8 * h + g;
+      pos[h] = a.skv - a.sq + it.p0 + r % a.positions;
+      if (group_row(a, it, r) >= 0) {
+        lo = min(lo, pos[h]);
+        hi = max(hi, pos[h]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+    }
+    // tile t's 8-key blocks [b_lo, b_hi) that the warp can see
+    auto blocks = [&](int t, int& b_lo, int& b_hi) {
+      const int k_end = hi < 0 ? 0 : a.causal ? min(a.skv, hi + 1) : a.skv;
+      const int k_begin = hi < 0 || a.window <= 0 ? 0 : max(0, lo - a.window + 1);
+      b_lo = max(0, k_begin - t * BK) / 8;
+      b_hi = min(NB, (k_end - t * BK + 7) / 8);
+    };
+    // a 16-key block j that no row of the warp can see
+    auto unseen = [&](int j, int b_lo, int b_hi) {
+      return 2 * j + 1 < b_lo || 2 * j >= b_hi;
+    };
+
+    // tile t's scores Q K^T scale into sc (lane: columns 2t, 2t + 1 of
+    // each 8-key block, rows g and g + 8), masked where a block crosses the
+    // diagonal, the window's edge or Skv; -inf in blocks left out
+    auto scores = [&](int t, float (&sc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+      const int slot = fill % S;
+      mbar_wait(full0 + 8 * slot, (fill / S) & 1);
+      if (b_lo < b_hi) {
+        const uint32_t kt = k_lane + static_cast<uint32_t>(slot * T::kSlotBytes);
+#pragma unroll T::kSUnroll
+        for (int d0 = 0; d0 < D; d0 += 16) {
+          uint32_t qa[4];
+          ldsm_x4(qa, q_lane + 2u * d0);
+#pragma unroll
+          for (int j = 0; j < NB / 2; ++j) {
+            if (unseen(j, b_lo, b_hi)) continue;
+            uint32_t kb[4];
+            ldsm_x4(kb, kt + bf16_key_bytes<D>(16 * j) + 2u * d0);
+            bf16_mma_qk(sc[2 * j], qa, kb[0], kb[1]);
+            bf16_mma_qk(sc[2 * j + 1], qa, kb[2], kb[3]);
+          }
+        }
+      }
+      mbar_arrive(empty0 + 8 * slot);                // K(t) read
+      ++fill;
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < b_lo || j >= b_hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = -INFINITY;
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = __fmul_rn(sc[j][e], a.scale);
+        // the block's keys first .. last
+        const int first = t * BK + 8 * j;
+        const int last = first + 7;
+        const bool whole = last < a.skv && (!a.causal || last <= lo)
+                           && (a.window <= 0 || first > hi - a.window);
+        if (whole) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = first + 2 * tq + (e & 1);
+          const int p = pos[e >> 1];
+          bool visible = kp < a.skv;
+          if (a.causal) visible = visible && kp <= p;
+          if (a.window > 0) visible = visible && kp > p - a.window;
+          if (!visible) sc[j][e] = -INFINITY;
+        }
+      }
+    };
+
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    float m[2] = {-INFINITY, -INFINITY};          // rows g and g + 8
+    float l[2] = {0.0f, 0.0f};                    // this lane's part
+
+    // online softmax of tile t: a row's max over its quad; sc becomes P,
+    // and O is rescaled by alpha = exp(m - m_new) where the warp sees the
+    // tile (else alpha is 1, or 0 on a zero O)
+    auto softmax = [&](int t, float (&sc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+      float x[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        x[0] = fmaxf(x[0], fmaxf(sc[j][0], sc[j][1]));
+        x[1] = fmaxf(x[1], fmaxf(sc[j][2], sc[j][3]));
+      }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off < 4; off *= 2)
+          x[h] = fmaxf(x[h], __shfl_xor_sync(0xffffffffu, x[h], off));
+        const float mn = fmaxf(m[h], x[h]);
+        // a row that sees no key yet keeps p = 0 (and m = -inf)
+        mu[h] = mn == -INFINITY ? 0.0f : mn;
+        alpha[h] = expf(m[h] - mu[h]);            // exp(-inf) = 0 on the first hit
+        m[h] = mn;
+      }
+      if (b_lo < b_hi) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      }
+      float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        if (j < b_lo || j >= b_hi) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = expf(sc[j][e] - mu[e >> 1]);
+          ps[e >> 1] += sc[j][e];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + ps[h];
+    };
+
+    // O += P V over tile t (O rescaled in the softmax), a 16-key block at
+    // a time: S's C fragments of 8-key blocks 2j and 2j + 1 are P's A
+    // fragment as they stand, split into hi and lo
+    auto weigh = [&](int t, const float (&pc)[NB][4]) {
+      int b_lo, b_hi;
+      blocks(t, b_lo, b_hi);
+      const int slot = fill % S;
+      mbar_wait(full0 + 8 * slot, (fill / S) & 1);
+      if (b_lo < b_hi) {
+        const uint32_t vt = v_lane + static_cast<uint32_t>(slot * T::kSlotBytes);
+#pragma unroll
+        for (int j = 0; j < NB / 2; ++j) {
+          if (unseen(j, b_lo, b_hi)) continue;
+          uint32_t ph[4], pl[4];
+          bf16_split2(pc[2 * j][0], pc[2 * j][1], ph[0], pl[0]);
+          bf16_split2(pc[2 * j][2], pc[2 * j][3], ph[1], pl[1]);
+          bf16_split2(pc[2 * j + 1][0], pc[2 * j + 1][1], ph[2], pl[2]);
+          bf16_split2(pc[2 * j + 1][2], pc[2 * j + 1][3], ph[3], pl[3]);
+          const uint32_t vj = vt + bf16_key_bytes<D>(16 * j);
+#pragma unroll
+          for (int n = 0; n < D / 16; ++n) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb, vj + 32u * n);
+            bf16_mma2(acc[2 * n], ph, pl, vb[0], vb[1]);
+            bf16_mma2(acc[2 * n + 1], ph, pl, vb[2], vb[3]);
+          }
+        }
+      }
+      mbar_arrive(empty0 + 8 * slot);                // V(t) read
+      ++fill;
+    };
+
+    float p[NB][4];
+    mbar_wait(q_full, round & 1);
+    for (int t = t_first; t < t_end; ++t) {
+      scores(t, p);
+      if (t + 1 == t_end) mbar_arrive(q_empty);      // the item's Q read
+      softmax(t, p);
+      weigh(t, p);
+    }
+
+    // normalize: a row's normalizer over its quad, the output divided by
+    // it (quotient_rn) and rounded once to bf16, staged in the warp's rows
+    // of os
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = l[h];
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float den = fmaxf(sum, 1e-30f);
+      const float inv = __frcp_rn(den);
+      bf16* op = os + (16 * warp + 8 * h + g) * RS + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        store2(op + 8 * n, quotient_rn(acc[n][2 * h], den, inv),
+               quotient_rn(acc[n][2 * h + 1], den, inv));
+    }
+    __syncwarp();
+    // the warp's rows to device memory, 16 bytes a lane, a row's chunks on
+    // neighbouring lanes; the item's rows taken anew (fewer registers live
+    // through the tiles)
+    const GroupItem done = group_item(a, item(round));
+    constexpr int kChunks = D / 8;                // 16-byte chunks a row
+    for (int c = lane; c < 16 * kChunks; c += 32) {
+      const int r = 16 * warp + c / kChunks;
+      const int64_t row = group_row(a, done, r);
+      if (row >= 0)
+        reinterpret_cast<uint4*>(o + row * D)[c % kChunks] =
+            *reinterpret_cast<const uint4*>(os + r * RS + 8 * (c % kChunks));
+    }
+    __syncwarp();                                 // os is rewritten next item
+  }
+}
+
+// dynamic shared memory allowed so far, and blocks the card holds at once,
+// for flash_fwd_bf16_kernel<D>
+template <int D>
+int allowed_bf16_smem = 0;
+template <int D>
+int resident_bf16_blocks = 0;
+
+template <int D>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                int b, int hq, int hkv, int sq, int skv, float scale,
+                int causal, int window, cudaStream_t stream) {
+  using T = Bf16Shape<D>;
+  if (!aligned16(q, k, v, o)) return cudaErrorMisalignedAddress;
+  // as launch_tc: an item holds at most kRows / min(Sq, kMinPositions)
+  // heads, a larger group splits into equal chunks
+  GroupArgs a;
+  const int group = hq / hkv;
+  const int max_heads = T::kRows / min(sq, T::kMinPositions);
+  a.hq = hq; a.hkv = hkv; a.sq = sq; a.skv = skv; a.causal = causal;
+  a.window = window; a.scale = scale;
+  a.chunks = (group + max_heads - 1) / max_heads;
+  a.chunk_heads = (group + a.chunks - 1) / a.chunks;
+  a.positions = T::kRows / a.chunk_heads;
+  a.n_tiles = (sq + a.positions - 1) / a.positions;
+  const int64_t items = static_cast<int64_t>(a.n_tiles) * b * hkv * a.chunks;
+  if (items > 0x7fffffff || static_cast<int64_t>(b) * hq * sq > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  a.n_items = static_cast<int>(items);
+  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmem,
+                               &allowed_bf16_smem<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = resident_blocks(flash_fwd_bf16_kernel<D>, T::kThreads, T::kSmem,
+                        &resident_bf16_blocks<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = min(a.n_items, resident_bf16_blocks<D>);
+  flash_fwd_bf16_kernel<D><<<blocks, T::kThreads, T::kSmem, stream>>>(q, k, v, o, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1381,10 +1916,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
   switch (d) {
-    case 16: return launch_small<16>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 32: return launch_small<32>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 64: return launch_small<64>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
-    case 128: return launch_tc<128>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 16: return launch_bf16<16>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 32: return launch_bf16<32>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 64: return launch_bf16<64>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
+    case 128: return launch_bf16<128>(qb, kb, vb, ob, b, hq, hkv, sq, skv, scale, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1396,14 +1931,14 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
 // dynamic shared memory bytes per block, resident blocks per SM, threads a
 // block, query rows a block ((head, position) rows an item for the tc and
 // group kernels), keys a K/V tile.
-template <int D, typename Elem>
+template <int D>
 int small_attributes(int* info) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_small_kernel<D, Elem>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, flash_fwd_small_kernel<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_small_kernel<D, Elem>, kSmallThreads, 0);
+      &blocks, flash_fwd_small_kernel<D>, kSmallThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = fa.numRegs;
   info[1] = static_cast<int>(fa.localSizeBytes);
@@ -1440,18 +1975,18 @@ int group_attributes(int* info) {
   return 0;
 }
 
-template <int D, typename Elem>
+template <int D>
 int tc_attributes(int* info) {
-  const int smem = tc_smem_bytes<D, Elem>();
-  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D, Elem>, smem,
-                               &allowed_tc_smem<D, Elem>);
+  const int smem = tc_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_fwd_tc_kernel<D>, smem,
+                               &allowed_tc_smem<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D, Elem>);
+  err = cudaFuncGetAttributes(&fa, flash_fwd_tc_kernel<D>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, flash_fwd_tc_kernel<D, Elem>, kTcThreads, smem);
+      &blocks, flash_fwd_tc_kernel<D>, kTcThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = fa.numRegs;
   info[1] = static_cast<int>(fa.localSizeBytes);
@@ -1466,25 +2001,49 @@ int tc_attributes(int* info) {
 
 extern "C" int flash_attention_attributes(int d, int* info) {
   switch (d) {
-    case 16: return small_attributes<16, float>(info);
-    case 32: return small_attributes<32, float>(info);
-    case 64: return small_attributes<64, float>(info);
-    case 96: return tc_attributes<96, float>(info);
-    case 128: return tc_attributes<128, float>(info);
-    case 192: return tc_attributes<192, float>(info);
+    case 16: return small_attributes<16>(info);
+    case 32: return small_attributes<32>(info);
+    case 64: return small_attributes<64>(info);
+    case 96: return tc_attributes<96>(info);
+    case 128: return tc_attributes<128>(info);
+    case 192: return tc_attributes<192>(info);
     case 256: return group_attributes<256>(info);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The bf16 instance at head_dim d (16, 32, 64: flash_fwd_small_kernel<d,
-// bf16>; 128: flash_fwd_tc_kernel<128, bf16>), the same eight ints.
+template <int D>
+int bf16_attributes(int* info) {
+  using T = Bf16Shape<D>;
+  cudaError_t err = allow_smem(flash_fwd_bf16_kernel<D>, T::kSmem,
+                               &allowed_bf16_smem<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, flash_fwd_bf16_kernel<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, flash_fwd_bf16_kernel<D>, T::kThreads, T::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = fa.numRegs;
+  info[1] = static_cast<int>(fa.localSizeBytes);
+  info[2] = static_cast<int>(fa.sharedSizeBytes);
+  info[3] = T::kSmem;
+  info[4] = blocks;
+  info[5] = T::kThreads;
+  info[6] = T::kRows;
+  info[7] = T::kBK;
+  return 0;
+}
+
+// The bf16 instance at head_dim d (flash_fwd_bf16_kernel<d> at 16, 32, 64
+// and 128), the same eight ints.
 extern "C" int flash_attention_bf16_attributes(int d, int* info) {
   switch (d) {
-    case 16: return small_attributes<16, bf16>(info);
-    case 32: return small_attributes<32, bf16>(info);
-    case 64: return small_attributes<64, bf16>(info);
-    case 128: return tc_attributes<128, bf16>(info);
+    case 16: return bf16_attributes<16>(info);
+    case 32: return bf16_attributes<32>(info);
+    case 64: return bf16_attributes<64>(info);
+    case 128: return bf16_attributes<128>(info);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -33,12 +33,17 @@ both kernels each K/V tile is copied once for the
 whole group by TMA bulk copies. Scores and probabilities never reach
 device memory, and key tiles no row of the item can see are skipped.
 
-bf16 q/k/v (`flash_attention_bf16` in the CUDA source) run the small
-kernel at head_dim 16, 32 and 64 and the tensor-core kernel at 128, as
-`repro`'s kernel computes them: widened to f32 where they are read, the
-softmax and P in f32, the output rounded once to bf16; a head_dim below
-128 without a bf16 instance is zero-padded up to the next one, and above
-128 a bf16 call raises (ROADMAP A12). Bound: bytes, half the f32 call's.
+bf16 q/k/v (`flash_attention_bf16` in the CUDA source) run their own
+kernel on the bf16 tensor cores at head_dim 16, 32, 64 and 128
+(`flash_fwd_bf16_kernel`), as `repro`'s kernel computes them: Q·Kᵀ exact
+in one bf16 `mma.sync` pass (each 16-deep k-step summed from zero and
+added in f32, then scaled), the softmax and P in f32, P·V in two passes
+on P's hi and lo bf16 pieces, the output divided by the normalizer and
+rounded once to bf16; a head_dim below 128 without a bf16 instance (96)
+is zero-padded up to the next one, and above 128 a bf16 call raises
+(ROADMAP A12). Bound: bytes at OPT-125M's shape and yi-6b's prefill,
+half the f32 call's; the three bf16 passes at 989 TFLOP/s at a
+2048-token prompt and whisper-medium's encoder.
 
 `attention_plain` is the plain PyTorch version (the full-softmax oracle of
 `repro.kernels.ref.attention_ref`); `launches` counts kernel launches.
@@ -123,7 +128,8 @@ def _lib():
 def kernel_attributes(d: int = 256, dtype=torch.float32) -> dict:
     """The head_dim-d instance (`flash_fwd_small_kernel<d>` at d ≤ 64,
     `flash_fwd_tc_kernel<d>` at 96, 128 and 192, `flash_fwd_group_kernel<d>`
-    at 256; in bf16 at 16, 32, 64 and 128) as built on the current CUDA
+    at 256; in bf16 `flash_fwd_bf16_kernel<d>` at 16, 32, 64 and 128) as
+    built on the current CUDA
     device: registers and local memory per thread, static and dynamic
     shared memory per block, resident blocks per SM, threads, query rows
     and keys of a K/V tile per block."""

@@ -7,6 +7,9 @@ depend on. CPU only: nothing here compiles or launches a kernel.
 - no code line reaches the tensor cores (TF32, mma.sync) but inside the
   named helpers: flash_attention.cu's 3xTF32 `tc_split` and `tc_mma3`,
   which issue exactly three mma.sync a product (lo.hi, hi.lo, hi.hi),
+  its bf16 `bf16_mma_qk` (one mma.sync a k-step of Q·Kᵀ), `bf16_split2`
+  (none) and `bf16_mma2` (two, P's lo piece then its hi piece), called
+  by the bf16 kernel alone, which calls no other tensor-core helper,
   and perturbed_matmul.cu's bf16 `bf16_split3` and `bf16_mma3`, which
   issue exactly three bf16 mma.sync a product (x.lo, x.mid, x.hi) and
   only from the bf16 kernel: the f32 perturbed_matmul and seeded_axpy
@@ -44,6 +47,9 @@ SOURCE_FILES = sorted(p.name for p in build.CSRC.iterdir()
 # the only code allowed on the tensor cores: (file, helper)
 TC_HELPERS = (("flash_attention.cu", "tc_split"),
               ("flash_attention.cu", "tc_mma3"),
+              ("flash_attention.cu", "bf16_mma_qk"),
+              ("flash_attention.cu", "bf16_split2"),
+              ("flash_attention.cu", "bf16_mma2"),
               ("perturbed_matmul.cu", "bf16_split3"),
               ("perturbed_matmul.cu", "bf16_mma3"))
 
@@ -156,6 +162,74 @@ def test_bf16_tensor_core_helpers_issue_three_passes():
     assert "Elem" in f32_kernel and "fmaf(" in f32_kernel
     for word in ("mma", "ldsm", "ldmatrix", "split3", "tc_split"):
         assert word not in f32_kernel, word
+
+
+BF16_MMA = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+# flash_attention.cu's kernels: the bf16 one, and the f32 ones
+FLASH_BF16_KERNEL = "flash_fwd_bf16_kernel"
+FLASH_F32_KERNELS = ("flash_fwd_small_kernel", "flash_fwd_tc_kernel",
+                     "flash_fwd_group_kernel")
+
+
+@pytest.mark.parametrize("helper,passes", [("bf16_mma_qk", 1),
+                                           ("bf16_split2", 0),
+                                           ("bf16_mma2", 2)])
+def test_flash_bf16_helpers_issue_their_passes(helper, passes):
+    """flash_attention.cu's bf16 helpers: bf16_mma_qk one bf16 mma.sync
+    m16n8k16 (a k-step of Q·Kᵀ, summed from zero and added in f32),
+    bf16_split2 none (P's hi and lo pieces, each rounded to nearest even),
+    bf16_mma2 two into one f32 accumulator, lo first, then hi."""
+    lines = _code_lines((build.CSRC / "flash_attention.cu").read_text())
+    body = "\n".join(lines[i] for i in _helper_span(lines, helper))
+    assert body.count("mma.sync") == passes
+    assert body.count(BF16_MMA) == passes
+    if helper == "bf16_mma_qk":
+        # from zero, then added to the scores in f32
+        assert "z[4] = {0.0f, 0.0f, 0.0f, 0.0f}" in body
+        assert "s[e] += z[e]" in body
+    if helper == "bf16_split2":
+        assert body.count("__floats2bfloat162_rn(") == 2
+        assert body.count("__fsub_rn(") == 2
+    if helper == "bf16_mma2":
+        assert re.findall(r'"r"\((p[hl])\[0\]\)', body) == ["pl", "ph"]
+
+
+def test_flash_bf16_kernel_calls_only_its_helpers():
+    """The bf16 kernel multiplies through bf16_mma_qk and bf16_mma2 (after
+    bf16_split2) and reaches no 3xTF32 helper; no f32 kernel reaches a bf16
+    helper."""
+    lines = _code_lines((build.CSRC / "flash_attention.cu").read_text())
+    bf16 = "\n".join(lines[i] for i in _kernel_span(lines, FLASH_BF16_KERNEL))
+    for call in ("bf16_mma_qk(", "bf16_split2(", "bf16_mma2("):
+        assert call in bf16, call
+    for word in ("tc_mma3", "tc_split", "tf32"):
+        assert word not in bf16, word
+    for name in FLASH_F32_KERNELS:
+        body = "\n".join(lines[i] for i in _kernel_span(lines, name))
+        for word in ("bf16_mma_qk", "bf16_split2", "bf16_mma2", "ldsm_x4",
+                     "quotient_rn"):
+            assert word not in body, (name, word)
+
+
+@pytest.mark.parametrize("d", fa.BF16_HEAD_DIMS)
+def test_flash_bf16_entry_points_take_the_bf16_kernel(d):
+    """flash_attention_bf16 launches flash_fwd_bf16_kernel<d> at each bf16
+    head dim, and flash_attention_bf16_attributes reports it; neither
+    reaches the f32 kernels' launches."""
+    code = "\n".join(_code_lines((build.CSRC / "flash_attention.cu")
+                                 .read_text())) + "\n"
+
+    def body(entry):
+        start = code.index(f'extern "C" int {entry}(')
+        return code[start:code.index("\n}\n", start)]
+
+    launch = body("flash_attention_bf16")
+    attrs = body("flash_attention_bf16_attributes")
+    assert f"case {d}: return launch_bf16<{d}>(" in launch
+    assert f"case {d}: return bf16_attributes<{d}>(info);" in attrs
+    for word in ("launch_small", "launch_tc", "launch_group"):
+        assert word not in launch
+    assert "flash_fwd_bf16_kernel<D>" in code[code.index("int launch_bf16("):]
 
 
 def test_tf32_rounding_helper_rounds_as_cvt_rna():
